@@ -34,3 +34,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: spawns real engine child processes"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips where there is none"
+    )

@@ -1,0 +1,57 @@
+"""The PyTorch port stands alone: no module of ``data_accelerator_tpu_torch``
+and not ``chip_smoke.py`` imports JAX or anything of the JAX package."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_DIR = ROOT / "data_accelerator_tpu_torch"
+# _build/ holds what the kernels build into, never source
+PORT_FILES = sorted(
+    p for p in PORT_DIR.rglob("*.py") if "_build" not in p.relative_to(PORT_DIR).parts
+) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "data_accelerator_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_port_has_modules_and_smoke_script():
+    assert len(PORT_FILES) > 20
+    assert (ROOT / "chip_smoke.py").exists()
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_no_jax_or_jax_package_import(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module,forbidden", [
+    ("jax", True),
+    ("jax.numpy", True),
+    ("jaxlib.xla_client", True),
+    ("data_accelerator_tpu", True),
+    ("data_accelerator_tpu.udf.samples", True),
+    ("data_accelerator_tpu_torch", False),
+    ("data_accelerator_tpu_torch.udf.samples", False),
+    ("torch", False),
+])
+def test_forbidden_rule(module, forbidden):
+    assert _forbidden(module) is forbidden
