@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--batches N] [--capacity N]
+    python3 chip_smoke.py [--seed N]
 
 Phases, each printing JSON lines:
 
@@ -11,7 +11,9 @@ Phases, each printing JSON lines:
 4. flow: the single-source alerting flow plus the anomaly-score query
    (BASELINE configs 1 and 4) through ``FlowProcessor`` at full batch
    capacity on the card, batch for batch against the same flow on the
-   CPU, with every kernel's launch count read from that run.
+   CPU, with every kernel's launch count read from that run. A step is
+   timed from the host columns (pinned and copied to the card by
+   ``encode_columns``) to the counts vector on the host.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
 non-zero before it. Without a CUDA device the script exits 1 at once.
@@ -68,6 +70,9 @@ TRANSFORM = (
 OUTPUTS = ["OpenDoors", "HeatAvg", "AnomalyAlerts"]
 DEVICE_TYPES = ["Heating", "WindSpeed", "DoorLock"]
 BASE_MS = 1_700_000_000_000
+# the per-chip batch of bench.py; 8 batches 1 s apart evict the 5 s window
+CAPACITY = 262_144
+BATCHES = 8
 
 
 def emit(obj) -> None:
@@ -151,22 +156,27 @@ def phase_device() -> str:
     return line
 
 
-def phase_build(kernel_specs) -> None:
+def phase_build() -> None:
     from data_accelerator_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    paths = build.build([k["source_name"] for k in kernel_specs])
+    paths = build.build(["anomaly_score"])
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": build.nvcc_path(), "libraries": [p.name for p in paths]})
 
 
-def check_anomaly_score(kernel_cls, plain, rs, capacity):
+def check_anomaly_score(rs):
     """Kernel against plain on the card at the test sizes and the main
-    path's; returns the max abs error and the timings at ``capacity``."""
+    path's; returns the max abs error and the timings at ``CAPACITY``."""
+    from data_accelerator_tpu_torch.kernels.anomaly_score import (
+        AnomalyScoreKernel,
+        anomaly_score_plain as plain,
+    )
+
     dev = torch.device("cuda")
-    kernel = kernel_cls()
+    kernel = AnomalyScoreKernel()
     max_err = 0.0
-    for n in (1, 1023, 1025, capacity):
+    for n in (1, 1023, 1025, CAPACITY):
         for mu_dtype in (np.int32, np.float32):
             x = torch.from_numpy(rs.uniform(-50, 150, n).astype(np.float32)).to(dev)
             if mu_dtype is np.int32:
@@ -185,14 +195,14 @@ def check_anomaly_score(kernel_cls, plain, rs, capacity):
                 )
             max_err = max(max_err, err)
     # main-path shape: float32 temperature, int32 deviceId
-    x = torch.from_numpy(rs.uniform(0, 100, capacity).astype(np.float32)).to(dev)
-    mu = torch.from_numpy(rs.randint(1, 9, capacity).astype(np.int32)).to(dev)
+    x = torch.from_numpy(rs.uniform(0, 100, CAPACITY).astype(np.float32)).to(dev)
+    mu = torch.from_numpy(rs.randint(1, 9, CAPACITY).astype(np.int32)).to(dev)
     ms = cuda_ms(lambda: kernel(x, mu))
     plain_ms = cuda_ms(lambda: plain(x, mu))
     device_ms = graph_ms(lambda: kernel(x, mu))
     plain_device_ms = graph_ms(lambda: plain(x, mu))
-    bytes_moved = 3 * 4 * capacity  # x and mu read once, o written once
-    flops = 9 * capacity  # sub, 2 abs, add, div, neg, exp, add, div
+    bytes_moved = 3 * 4 * CAPACITY  # x and mu read once, o written once
+    flops = 9 * CAPACITY  # sub, 2 abs, add, div, neg, exp, add, div
     bound_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     bound_ops = flops / PEAK_FP32_FLOPS * 1e3
     return {
@@ -205,13 +215,6 @@ def check_anomaly_score(kernel_cls, plain, rs, capacity):
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": None,  # no single PyTorch call computes this function
     }
-
-
-def phase_kernels(kernel_specs, rs, capacity):
-    results = {}
-    for spec in kernel_specs:
-        results[spec["name"]] = spec["check"](rs, capacity)
-    return results
 
 
 def same_rows(gpu_rows, cpu_rows, what):
@@ -230,18 +233,20 @@ def same_rows(gpu_rows, cpu_rows, what):
                 raise AssertionError(f"{what}.{k}: {gv!r} vs {cv!r}")
 
 
-def phase_flow(args, kernel_specs, udf):
+def phase_flow(seed: int, udf) -> int:
+    """Runs the main path on the card and the same batches on the CPU;
+    returns the anomaly kernel's launches in the card's run."""
     from data_accelerator_tpu_torch.core.config import SettingDictionary
     from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
     from data_accelerator_tpu_torch.udf.samples import anomalyscore
 
     t0 = time.perf_counter()
     gpu = FlowProcessor(
-        SettingDictionary(flow_conf()), batch_capacity=args.capacity,
+        SettingDictionary(flow_conf()), batch_capacity=CAPACITY,
         output_datasets=OUTPUTS, udfs={"anomalyscore": udf}, device="cuda",
     )
     cpu = FlowProcessor(
-        SettingDictionary(flow_conf()), batch_capacity=args.capacity,
+        SettingDictionary(flow_conf()), batch_capacity=CAPACITY,
         output_datasets=OUTPUTS, udfs={"anomalyscore": anomalyscore()},
         device="cpu",
     )
@@ -250,23 +255,21 @@ def phase_flow(args, kernel_specs, udf):
     cpu_ids = np.array([cpu.dictionary.encode(t) for t in DEVICE_TYPES], np.int32)
     if not np.array_equal(type_ids, cpu_ids):
         raise AssertionError("card and CPU dictionaries disagree")
-    rs = np.random.RandomState(args.seed)
-    batches = [
-        make_columns(rs, type_ids, args.capacity) for _ in range(args.batches)
-    ]
+    rs = np.random.RandomState(seed)
+    batches = [make_columns(rs, type_ids, CAPACITY) for _ in range(BATCHES)]
 
-    # the main path's run: every count at 0 just before, read just after
-    for spec in kernel_specs:
-        spec["reset"]()
-    step_ms, collect_ms, syncs, gpu_results = [], [], [], []
+    # the main path's run: the count at 0 just before, read just after
+    udf.kernel.launches = 0
+    step_ms, encode_ms, collect_ms, syncs, gpu_results = [], [], [], [], []
     sync_sites = set()
     for b, cols in enumerate(batches):
-        raw = gpu.encode_columns(cols, args.capacity)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            raw = gpu.encode_columns(cols, CAPACITY)
+            t_enc = time.perf_counter()
             handle = gpu.dispatch_batch(raw, BASE_MS + 1000 * b)
         torch.cuda.set_sync_debug_mode(0)
         synced = [str(w.message) for w in caught
@@ -276,22 +279,23 @@ def phase_flow(args, kernel_specs, udf):
         datasets, metrics = handle.collect()
         t2 = time.perf_counter()
         step_ms.append((t1 - t0) * 1e3)
+        encode_ms.append((t_enc - t0) * 1e3)
         collect_ms.append((t2 - t1) * 1e3)
         syncs.append(len(synced))
         sync_sites.update(m[:160] for m in synced)
         gpu_results.append((counts, datasets, metrics))
-    launches = {spec["name"]: spec["launches"]() for spec in kernel_specs}
-    if launches["anomaly_score"] != args.batches:
+    launches = udf.launches
+    if launches != BATCHES:
         raise AssertionError(
-            f"anomaly_score launched {launches['anomaly_score']} times in "
-            f"{args.batches} batches on the card, not once per batch"
+            f"anomaly_score launched {launches} times in {BATCHES} batches "
+            "on the card, not once per batch"
         )
 
     # the same batches through the port on the CPU
     rows_out = {n: 0 for n in OUTPUTS}
     for b, cols in enumerate(batches):
         handle = cpu.dispatch_batch(
-            cpu.encode_columns(cols, args.capacity), BASE_MS + 1000 * b
+            cpu.encode_columns(cols, CAPACITY), BASE_MS + 1000 * b
         )
         counts = handle.collect_counts().counts
         datasets, metrics = handle.collect()
@@ -308,25 +312,26 @@ def phase_flow(args, kernel_specs, udf):
         raise AssertionError(f"flow produced no alerts: {rows_out}")
 
     # batch 0 includes first-use costs (kernel load, allocator growth)
-    steady = step_ms[1:] or step_ms
-    med = statistics.median(steady)
+    med = statistics.median(step_ms[1:])
     emit({
-        "phase": "flow", "capacity": args.capacity, "batches": args.batches,
-        "seed": args.seed, "init_s": init_s,
+        "phase": "flow", "capacity": CAPACITY, "batches": BATCHES,
+        "seed": seed, "init_s": init_s,
         "step_ms": step_ms, "step_ms_median": med,
-        "events_per_s": args.capacity / (med / 1e3),
+        "events_per_s": CAPACITY / (med / 1e3),
+        "encode_ms": encode_ms,
+        "encode_ms_median": statistics.median(encode_ms[1:]),
         "collect_ms": collect_ms,
         "host_syncs_per_step": syncs,
         "host_sync_messages": sorted(sync_sites),
         "rows_out": rows_out,
-        "launches": launches,
+        "launches": {"anomaly_score": launches},
         "match_cpu": True,
     })
-    phase_profile(gpu, batches[-1], args.capacity, BASE_MS + 1000 * args.batches)
+    phase_profile(gpu, batches[-1], BASE_MS + 1000 * BATCHES)
     return launches
 
 
-def phase_profile(proc, cols, capacity, batch_time_ms) -> None:
+def phase_profile(proc, cols, batch_time_ms) -> None:
     """One more batch on the card under ``torch.profiler``: device busy
     time (kernels and copies, which run on one stream and do not
     overlap) against the step's wall time, and the kernels that took
@@ -334,7 +339,7 @@ def phase_profile(proc, cols, capacity, batch_time_ms) -> None:
     read, so it does not count towards them."""
     from torch.profiler import ProfilerActivity, profile
 
-    raw = proc.encode_columns(cols, capacity)
+    raw = proc.encode_columns(cols, CAPACITY)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -363,56 +368,34 @@ def phase_profile(proc, cols, capacity, batch_time_ms) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batches", type=int, default=8)
-    ap.add_argument("--capacity", type=int, default=262144)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if args.batches < 8:
-        ap.error("--batches must be >= 8 (the 5 s window must evict)")
 
-    from data_accelerator_tpu_torch.kernels.anomaly_score import (
-        SOURCE,
-        AnomalyScoreKernel,
-        anomaly_score_plain,
-    )
+    from data_accelerator_tpu_torch.kernels.anomaly_score import SOURCE
     from data_accelerator_tpu_torch.udf.samples import anomalyscore
 
     nvidia_smi = phase_device()
+    phase_build()
+    m = check_anomaly_score(np.random.RandomState(args.seed))
     udf = anomalyscore()
-    kernel_specs = [{
-        "name": "anomaly_score",
-        "source_name": "anomaly_score",
-        "route": "cuda",
+    launches = phase_flow(args.seed, udf)
+
+    # ``max_err`` and ``kernel_ms`` repeat ``max_abs_err`` and ``ms``
+    # under the names the port's bring-up plan gives them
+    emit({"kernels": [{
+        "name": "anomaly_score", "route": "cuda",
         "source": "data_accelerator_tpu_torch/" + SOURCE,
         "replaces": "data_accelerator_tpu/udf/samples.py:88",
-        "check": lambda rs, cap: check_anomaly_score(
-            AnomalyScoreKernel, anomaly_score_plain, rs, cap
-        ),
-        "reset": lambda: setattr(udf.kernel, "launches", 0),
-        "launches": lambda: udf.launches,
-    }]
-    phase_build(kernel_specs)
-    rs = np.random.RandomState(args.seed)
-    measured = phase_kernels(kernel_specs, rs, args.capacity)
-    launches = phase_flow(args, kernel_specs, udf)
-
-    kernels = []
-    for spec in kernel_specs:
-        m = measured[spec["name"]]
-        kernels.append({
-            "name": spec["name"], "route": spec["route"],
-            "source": spec["source"], "replaces": spec["replaces"],
-            "launches": launches[spec["name"]],
-            "max_abs_err": m["max_abs_err"], "max_err": m["max_abs_err"],
-            "ms": m["ms"], "kernel_ms": m["ms"], "plain_ms": m["plain_ms"],
-            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-            "library_ms": m["library_ms"], "n": args.capacity,
-            "device_ms": m["device_ms"], "plain_device_ms": m["plain_device_ms"],
-            "card": nvidia_smi,
-        })
-    emit({"kernels": kernels})
+        "launches": launches,
+        "max_abs_err": m["max_abs_err"], "max_err": m["max_abs_err"],
+        "ms": m["ms"], "kernel_ms": m["ms"], "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"], "n": CAPACITY,
+        "device_ms": m["device_ms"], "plain_device_ms": m["plain_device_ms"],
+        "card": nvidia_smi,
+    }]})
     print(nvidia_smi, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu",

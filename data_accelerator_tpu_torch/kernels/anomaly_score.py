@@ -74,6 +74,8 @@ class AnomalyScoreKernel:
                 f"anomaly_score: inputs on {x.device} and {mu.device}"
             )
         out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        if x.numel() == 0:
+            return out  # nothing to launch, so nothing to count
         entry = self._entry()
         # the launch goes to the current device's context
         with torch.cuda.device(x.device):

@@ -101,3 +101,13 @@ def test_kernel_matches_plain_on_card(cuda_device, n, mu_dtype):
     assert kernel.launches == 1
     ref = anomaly_score_plain(xt, mt)
     assert float((got - ref).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_empty_input_launches_nothing_on_card(cuda_device):
+    x = torch.empty(0, dtype=torch.float32, device=cuda_device)
+    mu = torch.empty(0, dtype=torch.int32, device=cuda_device)
+    kernel = AnomalyScoreKernel()
+    got = kernel(x, mu)
+    assert got.shape == (0,) and got.dtype == torch.float32
+    assert kernel.launches == 0
