@@ -14,9 +14,9 @@ import ctypes
 import torch
 
 from . import build
+from .launch import DTYPE_CODES as _DTYPE_CODES
 
 SOURCE = "csrc/anomaly_score.cu"
-_DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 
 
 def anomaly_score_plain(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:

@@ -116,9 +116,11 @@ class TorchUdaf:
 class CudaKernelUdf(TorchUdf):
     """TorchUdf whose body is a hand-written CUDA kernel.
 
-    ``kernel``: the kernel's wrapper — called with CUDA tensors, it
-    launches the kernel or raises, and counts its launches in
-    ``kernel.launches``. ``plain``: the same function in plain PyTorch,
+    ``kernel``: the kernel's launcher — called with CUDA tensors, it
+    launches the kernel or raises, and counts its launches: a wrapper
+    object in ``kernel.launches``, a function through
+    ``kernels/launch.py::cuda_call`` (a user's own kernel source), by
+    entry symbol. ``plain``: the same function in plain PyTorch,
     used when — and only when — the inputs lie on the CPU. The CUDA tier
     of the JAX package's ``PallasUdf`` (a Pallas kernel over 1-D row
     blocks); the kernel sees whole contiguous columns, as the Pallas
@@ -143,6 +145,7 @@ class CudaKernelUdf(TorchUdf):
 
     @property
     def launches(self) -> int:
+        """A wrapper object's count (see ``kernel``)."""
         return self.kernel.launches
 
     def _call(self, *tensors: torch.Tensor) -> torch.Tensor:

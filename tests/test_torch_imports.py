@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no module of ``data_accelerator_tpu_torch``
-and not ``chip_smoke.py`` imports JAX or anything of the JAX package."""
+"""The PyTorch port stands alone: no module of ``data_accelerator_tpu_torch``,
+no UDF fixture of the port (``tests/data/udfs_torch/``) and not
+``chip_smoke.py`` imports JAX or anything of the JAX package."""
 
 import ast
 from pathlib import Path
@@ -9,9 +10,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT / "data_accelerator_tpu_torch"
 # _build/ holds what the kernels build into, never source
+FIXTURE_DIR = ROOT / "tests" / "data" / "udfs_torch"
 PORT_FILES = sorted(
     p for p in PORT_DIR.rglob("*.py") if "_build" not in p.relative_to(PORT_DIR).parts
-) + [ROOT / "chip_smoke.py"]
+) + sorted(FIXTURE_DIR.glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "data_accelerator_tpu")
 
 
@@ -32,6 +34,7 @@ def _forbidden(module: str) -> bool:
 
 def test_port_has_modules_and_smoke_script():
     assert len(PORT_FILES) > 20
+    assert len(list(FIXTURE_DIR.glob("dx3*.py"))) == 7
     assert (ROOT / "chip_smoke.py").exists()
 
 
