@@ -5,9 +5,16 @@
 Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: every hand-written kernel compiled with ``nvcc``, all at once;
-3. kernels: each kernel held against its plain PyTorch version on the
-   card, then both timed with CUDA events at the main path's shape;
+2. build: every hand-written kernel compiled with ``nvcc``, all at once,
+   with each kernel's registers, shared memory and spill bytes as
+   ``ptxas -v`` reported them;
+3. kernel_check: each kernel held against its plain PyTorch version on
+   the card at ragged sizes, at views that start 0-3 rows past a 16-byte
+   boundary (for ``anomaly_score`` every pair of offsets of x and mu), for
+   float32 and int32 rows (and ``dx305_double`` at user grids of 1 and 3
+   blocks), then timed with CUDA events at the main
+   path's shape and, for device time alone, at ``N_LARGE`` rows, beyond
+   the L2 cache; host_split: the host's time for the parts of one call;
 4. flow: the single-source alerting flow plus the anomaly-score query
    (BASELINE configs 1 and 4) through ``FlowProcessor`` at full batch
    capacity on the card, batch for batch against the same flow on the
@@ -92,6 +99,11 @@ UDF_CLASS = "tests.data.udfs_torch.dx305_cuda:clean"
 # the per-chip batch of bench.py; 8 batches 1 s apart evict the 5 s window
 CAPACITY = 262_144
 BATCHES = 8
+# 64 x the batch: each kernel's bytes are beyond the 50 MB L2 at this size
+N_LARGE = 16_777_216
+# ragged sizes and view offsets (rows past a 16-byte boundary) the checks use
+CHECK_SIZES = (1, 3, 5, 1023, 1025, CAPACITY)
+OFFSETS = (0, 1, 2, 3)
 
 
 def bind_repo_tests() -> None:
@@ -156,36 +168,25 @@ def make_columns(rs, type_ids, n, alert_rate=0.01):
     }
 
 
-def cuda_ms(fn, runs: int = 25, warmup: int = 3) -> float:
-    """Median of per-run CUDA-event times, each run one call."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def graph_ms(fn, reps: int = 50) -> float:
-    """Device time of one call: ``reps`` calls captured in a CUDA graph,
-    replayed, timed with CUDA events; the median replay over ``reps``.
-    Unlike ``cuda_ms`` this leaves out the host's launch overhead."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm-up outside the capture, as graph capture requires
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
+def cuda_ms_turns(fns: dict, runs: int = 25, warmup: int = 3) -> dict:
+    """Median CUDA-event time of one call of each of ``fns`` (name ->
+    function), their calls taken in turns, so that every function sees
+    the host in the same state; a shared host's speed drifts between
+    runs."""
+    for fn in fns.values():
+        for _ in range(warmup):
             fn()
-    return cuda_ms(graph.replay, runs=10, warmup=1) / reps
+    times = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def phase_device() -> str:
@@ -204,106 +205,248 @@ def phase_build() -> None:
     from data_accelerator_tpu_torch.kernels import build
     from tests.data.udfs_torch.dx305_cuda import SOURCE as DX305_SOURCE
 
+    sources = ["anomaly_score", DX305_SOURCE]
     t0 = time.perf_counter()
-    paths = build.build(["anomaly_score", DX305_SOURCE])
+    paths = build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc": build.nvcc_path(), "libraries": [p.name for p in paths]})
+          "nvcc": build.nvcc_path(), "libraries": [p.name for p in paths],
+          "ptxas": {p.name: build.ptxas_usage(src)
+                    for p, src in zip(paths, sources)}})
+
+
+def bytes_bound_ms(n_bytes: int, flops: int):
+    """The least time for the work, and which peak sets it."""
+    bound_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FP32_FLOPS * 1e3
+    if bound_bytes >= bound_ops:
+        return bound_bytes, "bytes"
+    return bound_ops, "operations"
+
+
+def rows(rs, n, dtype, offset, lo, hi):
+    """``n`` random rows as a view that starts ``offset`` rows past the
+    start of its (16-byte aligned) allocation on the card."""
+    if dtype is np.float32:
+        base = rs.uniform(lo, hi, n + offset).astype(np.float32)
+    else:
+        base = rs.randint(int(lo), int(hi), n + offset, dtype=np.int64)
+        base = base.astype(np.int32)
+    return torch.from_numpy(base).to("cuda")[offset:]
 
 
 def check_anomaly_score(rs):
-    """Kernel against plain on the card at the test sizes and the main
-    path's; returns the max abs error and the timings at ``CAPACITY``."""
+    """Kernel against plain on the card (within 1e-6) at ``CHECK_SIZES``,
+    every float32/int32 pair, x and mu each at every view offset, so one
+    may be on a 16-byte boundary and the other off it; returns the max abs error and the timings at ``CAPACITY`` and
+    ``N_LARGE`` rows."""
     from data_accelerator_tpu_torch.kernels.anomaly_score import (
         AnomalyScoreKernel,
         anomaly_score_plain as plain,
     )
+    from data_accelerator_tpu_torch.kernels.timing import graph_ms
 
-    dev = torch.device("cuda")
     kernel = AnomalyScoreKernel()
     max_err = 0.0
-    for n in (1, 1023, 1025, CAPACITY):
-        for mu_dtype in (np.int32, np.float32):
-            x = torch.from_numpy(rs.uniform(-50, 150, n).astype(np.float32)).to(dev)
-            if mu_dtype is np.int32:
-                mu_np = rs.randint(1, 9, n).astype(np.int32)
-            else:
-                mu_np = rs.uniform(-10, 10, n).astype(np.float32)
-            mu = torch.from_numpy(mu_np).to(dev)
-            x[::5] = mu[::5].to(torch.float32)  # score 0.5 exactly
-            got = kernel(x, mu)
-            torch.cuda.synchronize()
-            err = float((got - plain(x, mu)).abs().max())
-            if not err <= 1e-6:
-                raise AssertionError(
-                    f"anomaly_score n={n} mu={mu_dtype.__name__}: "
-                    f"max abs error {err} > 1e-6"
-                )
-            max_err = max(max_err, err)
+    for n in CHECK_SIZES:
+        for x_dtype in (np.float32, np.int32):
+            for mu_dtype in (np.int32, np.float32):
+                for off, mu_off in ((a, b) for a in OFFSETS for b in OFFSETS):
+                    x = rows(rs, n, x_dtype, off, -50, 150)
+                    mu = rows(rs, n, mu_dtype, mu_off, -10, 10)
+                    if x_dtype is np.float32:
+                        x[::5] = mu[::5].to(torch.float32)  # score 0.5 exactly
+                    got = kernel(x, mu)
+                    torch.cuda.synchronize()
+                    err = float((got - plain(x, mu)).abs().max())
+                    if not err <= 1e-6:
+                        raise AssertionError(
+                            f"anomaly_score n={n} x={x_dtype.__name__} "
+                            f"mu={mu_dtype.__name__} offsets={off},{mu_off}: "
+                            f"max abs error {err} > 1e-6"
+                        )
+                    max_err = max(max_err, err)
     # main-path shape: float32 temperature, int32 deviceId
-    x = torch.from_numpy(rs.uniform(0, 100, CAPACITY).astype(np.float32)).to(dev)
-    mu = torch.from_numpy(rs.randint(1, 9, CAPACITY).astype(np.int32)).to(dev)
-    ms = cuda_ms(lambda: kernel(x, mu))
-    plain_ms = cuda_ms(lambda: plain(x, mu))
-    device_ms = graph_ms(lambda: kernel(x, mu))
-    plain_device_ms = graph_ms(lambda: plain(x, mu))
-    bytes_moved = 3 * 4 * CAPACITY  # x and mu read once, o written once
-    flops = 9 * CAPACITY  # sub, 2 abs, add, div, neg, exp, add, div
-    bound_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    bound_ops = flops / PEAK_FP32_FLOPS * 1e3
+    x = rows(rs, CAPACITY, np.float32, 0, 0, 100)
+    mu = rows(rs, CAPACITY, np.int32, 0, 1, 9)
+    xl = rows(rs, N_LARGE, np.float32, 0, 0, 100)
+    mul = rows(rs, N_LARGE, np.int32, 0, 1, 9)
+    # x and mu read once, o written once: 12 B a row; sub, 2 abs, add,
+    # div, neg, exp, add, div: 9 flops a row
+    bound, bound_by = bytes_bound_ms(12 * CAPACITY, 9 * CAPACITY)
+    bound_large, _ = bytes_bound_ms(12 * N_LARGE, 9 * N_LARGE)
+    device_large = graph_ms(lambda: kernel(xl, mul), reps=10)
+    calls = cuda_ms_turns({"kernel": lambda: kernel(x, mu),
+                           "plain": lambda: plain(x, mu),
+                           "torch_mul": lambda: torch.mul(x, 2.0)})
     return {
         "max_err": max_err,
-        "kernel_ms": ms,
-        "plain_ms": plain_ms,
-        "device_ms": device_ms,
-        "plain_device_ms": plain_device_ms,
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "kernel_ms": calls["kernel"],
+        "plain_ms": calls["plain"],
+        # the yardstick a call of the launch path is held to
+        "torch_mul_ms": calls["torch_mul"],
+        "device_ms": graph_ms(lambda: kernel(x, mu)),
+        "plain_device_ms": graph_ms(lambda: plain(x, mu)),
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes this function
+        "n_large": N_LARGE,
+        "device_ms_large": device_large,
+        "bound_ms_large": bound_large,
+        "bound_share_large": bound_large / device_large,
+        "library_device_ms_large": None,
     }
 
 
 def check_dx305(rs):
     """The user-UDF kernel ``dx305_double`` through ``cuda_call``, held
     against its plain version on the card (exactly: a cast and a
-    multiply by 2 round the same everywhere) at the test sizes and the
-    main path's, for float32 and int32 rows; then kernel, plain and
-    ``torch.mul(x, 2.0)`` timed at ``CAPACITY`` float32 rows."""
-    from tests.data.udfs_torch.dx305_cuda import clean, double_plain as plain
+    multiply by 2 round the same everywhere) at ``CHECK_SIZES`` and view
+    offsets, for float32 and int32 rows, and at user grids of 1 and 3
+    blocks; then kernel, plain and ``torch.mul(x, 2.0)`` timed at
+    ``CAPACITY`` float32 rows, and kernel and ``torch.mul`` on the
+    device at ``N_LARGE``."""
+    from data_accelerator_tpu_torch.kernels.launch import cuda_call
+    from data_accelerator_tpu_torch.kernels.timing import graph_ms
+    from tests.data.udfs_torch.dx305_cuda import (
+        ENTRY, SOURCE, clean, double_plain as plain,
+    )
 
-    dev = torch.device("cuda")
     kernel = clean().kernel
     max_err = 0.0
-    for n in (1, 1023, 1025, CAPACITY):
-        for dtype in (np.float32, np.int32):
-            if dtype is np.float32:
-                x_np = rs.uniform(-1e6, 1e6, n).astype(np.float32)
-            else:
-                x_np = rs.randint(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
-            x = torch.from_numpy(x_np).to(dev)
+    cases = [(n, dtype, off, None) for n in CHECK_SIZES
+             for dtype in (np.float32, np.int32) for off in OFFSETS]
+    cases += [(CAPACITY, dtype, off, grid) for grid in (1, 3)
+              for dtype in (np.float32, np.int32) for off in (0, 1)]
+    for n, dtype, off, grid in cases:
+        x = rows(rs, n, dtype, off, -1e6, 1e6) if dtype is np.float32 else \
+            rows(rs, n, dtype, off, -2**31, 2**31)
+        if grid is None:
             got = kernel(x)
-            torch.cuda.synchronize()
-            ref = plain(x)
-            err = float((got - ref).abs().max())
-            if got.dtype != torch.float32 or not torch.equal(got, ref):
-                raise AssertionError(
-                    f"dx305_double n={n} x={dtype.__name__}: max abs "
-                    f"error {err}, not equal to the plain version"
-                )
-            max_err = max(max_err, err)
-    x = torch.from_numpy(rs.uniform(0, 100, CAPACITY).astype(np.float32)).to(dev)
-    bound_bytes = 8 * CAPACITY / PEAK_BYTES_PER_S * 1e3  # x read, o written
-    bound_ops = CAPACITY / PEAK_FP32_FLOPS * 1e3  # one multiply a row
+        else:
+            got = cuda_call(SOURCE, ENTRY, x, out_shape=x.shape, grid=grid)
+        torch.cuda.synchronize()
+        ref = plain(x)
+        err = float((got - ref).abs().max())
+        if got.dtype != torch.float32 or not torch.equal(got, ref):
+            raise AssertionError(
+                f"dx305_double n={n} x={dtype.__name__} offset={off} "
+                f"grid={grid}: max abs error {err}, not equal to the plain "
+                "version"
+            )
+        max_err = max(max_err, err)
+    x = rows(rs, CAPACITY, np.float32, 0, 0, 100)
+    xl = rows(rs, N_LARGE, np.float32, 0, 0, 100)
+    # x read, o written: 8 B a row; one multiply a row
+    bound, bound_by = bytes_bound_ms(8 * CAPACITY, CAPACITY)
+    bound_large, _ = bytes_bound_ms(8 * N_LARGE, N_LARGE)
+    device_large = graph_ms(lambda: kernel(xl), reps=10)
+    calls = cuda_ms_turns({"kernel": lambda: kernel(x),
+                           "plain": lambda: plain(x),
+                           "library": lambda: torch.mul(x, 2.0)})
     return {
         "max_err": max_err,
-        "kernel_ms": cuda_ms(lambda: kernel(x)),
-        "plain_ms": cuda_ms(lambda: plain(x)),
-        "library_ms": cuda_ms(lambda: torch.mul(x, 2.0)),
+        "kernel_ms": calls["kernel"],
+        "plain_ms": calls["plain"],
+        "library_ms": calls["library"],
+        "torch_mul_ms": calls["library"],
         "device_ms": graph_ms(lambda: kernel(x)),
         "plain_device_ms": graph_ms(lambda: plain(x)),
         "library_device_ms": graph_ms(lambda: torch.mul(x, 2.0)),
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "n_large": N_LARGE,
+        "device_ms_large": device_large,
+        "bound_ms_large": bound_large,
+        "bound_share_large": bound_large / device_large,
+        "library_device_ms_large": graph_ms(lambda: torch.mul(xl, 2.0), reps=10),
     }
+
+
+def host_us_turns(fns: dict, rounds: int = 20, block: int = 100) -> dict:
+    """Median host time of one call of each of ``fns`` (name ->
+    function) in microseconds: each round times a block of ``block``
+    calls of every function in turn with ``time.perf_counter``; the card
+    is synchronised between blocks, outside the timer, so its launch
+    queue never fills."""
+    for fn in fns.values():
+        fn()
+    per_call = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(block):
+                fn()
+            per_call[name].append((time.perf_counter() - t0) / block * 1e6)
+    torch.cuda.synchronize()
+    return {name: statistics.median(t) for name, t in per_call.items()}
+
+
+def phase_host_split() -> None:
+    """The host's time for the parts of one kernel call at ``CAPACITY``
+    rows, for both kernels, all timed in turns: the whole call, the parts
+    the launch path is made of (the output's allocation, the raw stream
+    lookup, the current-device check, the ``ctypes`` call with the launch
+    inside, and for ``cuda_call`` its two ``ctypes`` arrays and the counted
+    launch under its lock), and ``torch.mul(x, 2.0)`` beside them.
+    ``checks_us`` is the whole call less the parts timed alone: the
+    argument checks and the Python glue."""
+    import ctypes
+    import threading
+
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.kernels.anomaly_score import AnomalyScoreKernel
+    from tests.data.udfs_torch.dx305_cuda import ENTRY, SOURCE, clean
+
+    dev = torch.device("cuda")
+    index = torch.cuda.current_device()
+    x = torch.rand(CAPACITY, device=dev) * 100
+    mu = torch.randint(1, 9, (CAPACITY,), dtype=torch.int32, device=dev)
+    lock = threading.Lock()
+    count = {ENTRY: 0}
+
+    def count_launch():
+        with lock:
+            count[ENTRY] += 1
+
+    anomaly = AnomalyScoreKernel()
+    out = anomaly(x, mu)
+    anomaly_entry = anomaly._entry()
+    udf_kernel = clean().kernel
+    udf_entry = launch._entry(SOURCE, ENTRY)
+    ptrs, codes = (ctypes.c_void_p * 1)(x.data_ptr()), (ctypes.c_int * 1)(0)
+    stream = launch.current_stream(index)
+    fns = {
+        "anomaly_call": lambda: anomaly(x, mu),
+        "anomaly_ctypes_launch": lambda: anomaly_entry(
+            x.data_ptr(), 0, mu.data_ptr(), 1, out.data_ptr(), CAPACITY,
+            stream),
+        "anomaly_empty": lambda: torch.empty_like(x, dtype=torch.float32),
+        "dx305_call": lambda: udf_kernel(x),
+        "dx305_ctypes_launch": lambda: udf_entry(
+            ptrs, codes, 1, out.data_ptr(), 0, CAPACITY, 0, stream),
+        "dx305_empty": lambda: x.new_empty((CAPACITY,), dtype=torch.float32),
+        "arrays": lambda: ((ctypes.c_void_p * 1)(*[x.data_ptr()]),
+                           (ctypes.c_int * 1)(*[0])),
+        "lock_count": count_launch,
+        "stream": lambda: launch.current_stream(index),
+        "device_check": lambda: torch.cuda.current_device() == index,
+        "torch_mul": lambda: torch.mul(x, 2.0),
+    }
+    us = host_us_turns(fns)
+    common = {f"{k}_us": us[k] for k in ("stream", "device_check", "torch_mul")}
+    for name, key, extra in (("anomaly_score", "anomaly", ()),
+                             ("dx305_double", "dx305", ("arrays", "lock_count"))):
+        parts = {"call_us": us[f"{key}_call"],
+                 "empty_us": us[f"{key}_empty"],
+                 "ctypes_launch_us": us[f"{key}_ctypes_launch"],
+                 **{f"{k}_us": us[k] for k in extra}, **common}
+        timed = (parts["empty_us"] + parts["stream_us"]
+                 + parts["device_check_us"] + parts["ctypes_launch_us"]
+                 + parts.get("arrays_us", 0.0) + parts.get("lock_count_us", 0.0))
+        parts["checks_us"] = parts["call_us"] - timed
+        parts["call_over_torch_mul"] = parts["call_us"] / parts["torch_mul_us"]
+        emit({"phase": "host_split", "name": name, "n": CAPACITY, **parts})
 
 
 def reset_launch_counts(anomaly_udf) -> None:
@@ -586,6 +729,7 @@ def main(argv=None) -> int:
     }
     for name, m in checks.items():
         emit({"phase": "kernel_check", "name": name, "n": CAPACITY, **m})
+    phase_host_split()
     udf = anomalyscore()
     launches = {
         "anomaly_score": phase_flow(args.seed, udf),
@@ -612,6 +756,10 @@ def main(argv=None) -> int:
         "n": CAPACITY,
         "device_ms": checks[name]["device_ms"],
         "plain_device_ms": checks[name]["plain_device_ms"],
+        "n_large": N_LARGE,
+        "device_ms_large": checks[name]["device_ms_large"],
+        "bound_ms_large": checks[name]["bound_ms_large"],
+        "library_device_ms_large": checks[name]["library_device_ms_large"],
         "card": nvidia_smi,
     } for name, source, replaces in kernels]})
     print(nvidia_smi, flush=True)

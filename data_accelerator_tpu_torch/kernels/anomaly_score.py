@@ -14,7 +14,9 @@ import ctypes
 import torch
 
 from . import build
+from .build import Source
 from .launch import DTYPE_CODES as _DTYPE_CODES
+from .launch import run_on_device
 
 SOURCE = "csrc/anomaly_score.cu"
 
@@ -32,17 +34,19 @@ class AnomalyScoreKernel:
 
     Takes float32 or int32 ``x`` and ``mu`` of one length, contiguous, on
     one CUDA device, and raises on anything else. Launches on the current
-    stream and does not synchronise."""
+    stream and does not synchronise. ``source`` is the kernel's ``.cu``
+    file (``kernels/timing.py`` times an earlier version of it)."""
 
     name = "anomaly_score"
 
-    def __init__(self):
+    def __init__(self, source: Source = "anomaly_score"):
         self.launches = 0
+        self._source = source
         self._fn = None
 
     def _entry(self):
         if self._fn is None:
-            fn = build.load("anomaly_score").dx_anomaly_score
+            fn = build.load(self._source).dx_anomaly_score
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
@@ -52,10 +56,12 @@ class AnomalyScoreKernel:
         return self._fn
 
     def __call__(self, x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
+        codes = []
         for t, what in ((x, "x"), (mu, "mu")):
-            if t.device.type != "cuda":
+            if not t.is_cuda:
                 raise ValueError(f"anomaly_score: {what} is not a CUDA tensor")
-            if t.dtype not in _DTYPE_CODES:
+            code = _DTYPE_CODES.get(t.dtype)
+            if code is None:
                 raise TypeError(
                     f"anomaly_score: {what} has dtype {t.dtype}; the kernel "
                     "takes float32 or int32"
@@ -64,27 +70,25 @@ class AnomalyScoreKernel:
                 raise ValueError(
                     f"anomaly_score: {what} must be a contiguous 1-D tensor"
                 )
-        if x.shape != mu.shape:
+            codes.append(code)
+        n = x.numel()
+        if mu.numel() != n:  # both 1-D: their shapes differ
             raise ValueError(
                 f"anomaly_score: size mismatch {tuple(x.shape)} vs "
                 f"{tuple(mu.shape)}"
             )
-        if x.device != mu.device:
+        index = x.get_device()
+        if mu.get_device() != index:
             raise ValueError(
                 f"anomaly_score: inputs on {x.device} and {mu.device}"
             )
-        out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
-        if x.numel() == 0:
+        out = torch.empty_like(x, dtype=torch.float32)
+        if n == 0:
             return out  # nothing to launch, so nothing to count
-        entry = self._entry()
-        # the launch goes to the current device's context
-        with torch.cuda.device(x.device):
-            rc = entry(
-                x.data_ptr(), _DTYPE_CODES[x.dtype],
-                mu.data_ptr(), _DTYPE_CODES[mu.dtype],
-                out.data_ptr(), x.numel(),
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
+        rc = run_on_device(
+            index, self._entry(), x.data_ptr(), codes[0], mu.data_ptr(),
+            codes[1], out.data_ptr(), n,
+        )
         if rc != 0:
             raise RuntimeError(f"anomaly_score launch failed: CUDA error {rc}")
         self.launches += 1

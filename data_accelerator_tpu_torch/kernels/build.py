@@ -7,7 +7,9 @@ sits beside a user's UDF module. It compiles with ``nvcc`` for
 ``ctypes`` loads. The library lands in ``data_accelerator_tpu_torch/
 _build/`` under a name that carries a hash of the source's path, its
 contents and the flags, so an edited source rebuilds and an unchanged one
-is loaded as it is. Nothing here runs at import.
+is loaded as it is. nvcc's output is kept beside the library (``.log``):
+``-Xptxas -v`` makes it list each kernel's registers, shared memory and
+spill bytes, which ``ptxas_usage`` reads. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -15,11 +17,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Union
+from typing import Dict, Iterable, List, Optional, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -28,6 +31,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 # a shared library loads once per process; its handle serves every caller
@@ -102,6 +106,7 @@ def build(sources: Iterable[Source]) -> List[Path]:
         if proc.returncode != 0:
             errors.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if errors:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(errors))
@@ -118,3 +123,43 @@ def load(source: Source) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _LOADED[key] = lib
         return lib
+
+
+def parse_ptxas(log: str) -> List[Dict[str, Optional[int]]]:
+    """Each kernel's resources from ``ptxas -v`` output, in its order:
+    ``kernel`` (the mangled name), ``registers`` a thread, static
+    ``smem_bytes`` a block, and the spill bytes a thread stores and
+    loads."""
+    kernels: Dict[str, Dict[str, Optional[int]]] = {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )"
+                      r"([^'\s]+)", line)
+        if m:
+            current = kernels.setdefault(m.group(1), {
+                "kernel": m.group(1), "registers": None, "smem_bytes": 0,
+                "spill_store_bytes": None, "spill_load_bytes": None,
+            })
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_store_bytes"] = int(m.group(1))
+            current["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            current["smem_bytes"] = int(m.group(1))
+    return list(kernels.values())
+
+
+def ptxas_usage(source: Source) -> List[Dict[str, Optional[int]]]:
+    """``parse_ptxas`` of the build log of ``source``'s current library."""
+    log = library_path(source).with_suffix(".log")
+    try:
+        return parse_ptxas(log.read_text())
+    except OSError as e:
+        raise KernelBuildError(f"no build log for {source}: {e}") from e

@@ -16,8 +16,10 @@ kernel over ``n`` rows::
                          long long n, int grid, void* stream);
 
 ``inputs``/``dtypes`` hold one device pointer and one dtype code
-(``DTYPE_CODES``) per input; ``grid`` is the number of blocks the caller
-asks for, or 0 to let the kernel choose. The function launches on
+(``DTYPE_CODES``) per input; an input may be a view, so its pointer may
+be only 4-byte aligned, while ``out`` is a fresh allocation and starts on a
+16-byte boundary. ``grid`` is the number of blocks the caller asks for,
+or 0 to let the kernel choose. The function launches on
 ``stream`` without synchronising and returns ``cudaGetLastError()``, or
 another non-zero CUDA error code for arguments it does not take.
 """
@@ -76,10 +78,10 @@ def _static_ints(value, what: str) -> Tuple[int, ...]:
 
 def _entry(source: Source, entry: str):
     # keyed on the source as given: resolving the path on every launch
-    # would cost file-system calls on the launch path
+    # would cost file-system calls on the launch path. A dict read is
+    # atomic, so a hit takes no lock.
     key = (os.fspath(source), entry)
-    with _LOCK:
-        fn = _ENTRIES.get(key)
+    fn = _ENTRIES.get(key)
     if fn is None:
         lib = build.load(source)
         try:
@@ -92,8 +94,33 @@ def _entry(source: Source, entry: str):
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         with _LOCK:
-            _ENTRIES[key] = fn
+            fn = _ENTRIES.setdefault(key, fn)
     return fn
+
+
+def current_stream(index: int) -> int:
+    """The handle of device ``index``'s current stream (a capture stream
+    while a CUDA graph is being captured), read as Triton's launcher reads
+    it, without building a ``torch.cuda.Stream``."""
+    try:
+        raw_stream = torch._C._cuda_getCurrentRawStream
+    except AttributeError:
+        raise RuntimeError(
+            "this PyTorch build has no CUDA stream lookup "
+            "(torch._C._cuda_getCurrentRawStream)"
+        ) from None
+    return raw_stream(index)
+
+
+def run_on_device(index: int, fn, *args):
+    """``fn(*args, stream)`` with device ``index`` current and its current
+    stream's handle last: the kernel launches in that device's context.
+    The current device is switched, and back, only when it differs."""
+    stream = current_stream(index)
+    if torch.cuda.current_device() == index:
+        return fn(*args, stream)
+    with torch.cuda.device(index):
+        return fn(*args, stream)
 
 
 def cuda_call(
@@ -128,7 +155,8 @@ def cuda_call(
     if not inputs:
         raise ValueError("cuda_call: needs at least one input tensor")
     n = math.prod(shape)
-    device = inputs[0].device
+    first = inputs[0]
+    index = first.get_device()
     for i, t in enumerate(inputs):
         if t.dtype not in DTYPE_CODES:
             raise TypeError(
@@ -142,24 +170,26 @@ def cuda_call(
                 f"cuda_call {entry}: input {i} has {t.numel()} elements, "
                 f"out_shape {shape} has {n}"
             )
-        if t.device.type != "cuda":
+        if not t.is_cuda:
             raise ValueError(f"cuda_call {entry}: input {i} is not a CUDA tensor")
-        if t.device != device:
+        if t.get_device() != index:
             raise ValueError(
-                f"cuda_call {entry}: inputs on {device} and {t.device}"
+                f"cuda_call {entry}: inputs on {first.device} and {t.device}"
             )
-    out = torch.empty(shape, dtype=out_dtype, device=device)
+    # the device comes from the tensor: torch.empty(..., device=), which
+    # parses a device argument, was slower on the host (PERF.md §6)
+    out = first.new_empty(shape, dtype=out_dtype)
     if n == 0:
         return out  # nothing to launch, so nothing to count
     fn = _entry(source, entry)
-    ptrs = (ctypes.c_void_p * len(inputs))(*[t.data_ptr() for t in inputs])
-    codes = (ctypes.c_int * len(inputs))(*[DTYPE_CODES[t.dtype] for t in inputs])
-    # the launch goes to the current device's context
-    with torch.cuda.device(device):
-        rc = fn(
-            ptrs, codes, len(inputs), out.data_ptr(), DTYPE_CODES[out_dtype],
-            n, blocks, torch.cuda.current_stream(device).cuda_stream,
-        )
+    # ctypes keeps each array type once made, so these are cache reads
+    k = len(inputs)
+    rc = run_on_device(
+        index, fn,
+        (ctypes.c_void_p * k)(*[t.data_ptr() for t in inputs]),
+        (ctypes.c_int * k)(*[DTYPE_CODES[t.dtype] for t in inputs]),
+        len(inputs), out.data_ptr(), DTYPE_CODES[out_dtype], n, blocks,
+    )
     if rc != 0:
         raise RuntimeError(f"cuda_call {entry}: launch failed, CUDA error {rc}")
     with _LOCK:

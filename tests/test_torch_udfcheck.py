@@ -19,6 +19,7 @@ against the JAX package.
 - ``cuda_call``'s refusals, and the kernel on the card (``cuda`` marker).
 """
 
+import ctypes
 import json
 import stat
 from pathlib import Path
@@ -471,6 +472,32 @@ def test_build_runs_nvcc_once_for_each_source(tmp_path, monkeypatch):
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
 
 
+def test_build_keeps_nvcc_output_for_ptxas_usage(tmp_path, monkeypatch):
+    # a stand-in compiler that reports like ptxas -v and writes the -o file
+    nvcc = _fake_nvcc(
+        tmp_path,
+        "echo \"ptxas info    : Compiling entry function '_Zk' for 'sm_90a'\"\n"
+        "echo \"ptxas info    : Function properties for _Zk\"\n"
+        "echo \"    0 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads\"\n"
+        "echo \"ptxas info    : Used 16 registers, used 0 barriers, "
+        "384 bytes cmem[0]\"\n"
+        'while [ "$#" -gt 0 ]; do if [ "$1" = -o ]; then touch "$2"; fi; '
+        "shift; done\n",
+    )
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    src = tmp_path / "user.cu"
+    src.write_text("// user\n")
+    with pytest.raises(build.KernelBuildError, match="no build log"):
+        build.ptxas_usage(src)
+    build.build([src])
+    assert build.ptxas_usage(src) == [{
+        "kernel": "_Zk", "registers": 16, "smem_bytes": 0,
+        "spill_store_bytes": 0, "spill_load_bytes": 0,
+    }]
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -526,3 +553,75 @@ def test_bad_twins_raise_under_sync_debug_error(cuda_device):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert torch.equal(out.cpu(), mod.clean().fn(X))
+
+
+def _view(n, dtype, offset, seed, device):
+    """``_rows`` as a view ``offset`` rows into its allocation on the
+    card: its start lies 4*offset bytes past a 16-byte boundary."""
+    base = _rows(n + offset, dtype, seed=seed)
+    return torch.from_numpy(base).to(device)[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 5, 1023, 1025])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_dx305_kernel_at_views_and_tails_on_card(cuda_device, n, offset, dtype):
+    x = _view(n, dtype, offset, n, cuda_device)
+    launch.reset_launches()
+    got = dx305_cuda.clean().fn(x)
+    torch.cuda.synchronize()
+    assert launch.launches(ENTRY) == 1
+    assert torch.equal(got, dx305_cuda.double_plain(x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_user_grid_covers_every_row_on_card(cuda_device, grid, offset, dtype):
+    x = _view(262144, dtype, offset, grid, cuda_device)
+    launch.reset_launches()
+    got = cuda_call(SRC, ENTRY, x, out_shape=x.shape, grid=grid)
+    torch.cuda.synchronize()
+    assert launch.launches(ENTRY) == 1
+    assert torch.equal(got, dx305_cuda.double_plain(x))
+
+
+@pytest.mark.cuda
+def test_cuda_call_in_cuda_graph_replays_as_a_direct_call(cuda_device):
+    x = _view(262144, np.float32, 0, 11, cuda_device)
+    kernel = dx305_cuda.clean().kernel
+    launch.reset_launches()
+    direct = kernel(x)  # warm-up outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kernel(x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, direct)
+    x.mul_(-3.0)  # the graph reads its input where it lies
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, dx305_cuda.double_plain(x))
+    # one count for the call, one for the capture; a replay is not a call
+    assert launch.launches(ENTRY) == 2
+
+
+@pytest.mark.cuda
+def test_dx305_entry_refuses_an_output_off_a_16_byte_boundary_on_card(
+        cuda_device):
+    x = _view(1025, np.float32, 0, 14, cuda_device)
+    out = torch.full((1028,), float("nan"), device=cuda_device)
+    entry = launch._entry(SRC, ENTRY)
+    stream = launch.current_stream(torch.cuda.current_device())
+    ptrs, codes = (ctypes.c_void_p * 1)(x.data_ptr()), (ctypes.c_int * 1)(0)
+    for off in (1, 2, 3):
+        assert entry(ptrs, codes, 1, out[off:].data_ptr(), 0, 1025, 0,
+                     stream) != 0
+    torch.cuda.synchronize()
+    assert bool(out.isnan().all())  # refused before any launch
+    assert entry(ptrs, codes, 1, out.data_ptr(), 0, 1025, 0, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[:1025], dx305_cuda.double_plain(x))
