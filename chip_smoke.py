@@ -7,7 +7,8 @@ Phases, each printing JSON lines:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every hand-written kernel compiled with ``nvcc``, all at once,
    with each kernel's registers, shared memory and spill bytes as
-   ``ptxas -v`` reported them;
+   ``ptxas -v`` reported them, and the JSON decoder with ``g++`` beside
+   them;
 3. kernel_check: each kernel held against its plain PyTorch version on
    the card at ragged sizes, at views that start 0-3 rows past a 16-byte
    boundary (for ``anomaly_score`` every pair of offsets of x and mu), for
@@ -15,8 +16,16 @@ Phases, each printing JSON lines:
    blocks), then timed with CUDA events at the main
    path's shape and, for device time alone, at ``N_LARGE`` rows, beyond
    the L2 cache; host_split: the host's time for the parts of one call;
-4. flow: the single-source alerting flow plus the anomaly-score query
-   (BASELINE configs 1 and 4) through ``FlowProcessor`` at full batch
+4. ingest: the main path from JSON bytes (``bench.py::make_json_payload``'s
+   distribution, from the seed): the single-source alerting flow plus
+   the anomaly-score query (BASELINE configs 1 and 4) through the port's
+   native decoder into one pinned matrix a batch, one host-to-device
+   copy, and results streamed back on a side stream, in a depth-2
+   pipelined loop whose tables land on a background thread; against the
+   CPU run of the same bytes, with host syncs, pool reuse, the anomaly
+   kernel's launches and one profiled step's host-to-device copies
+   checked;
+   flow: the same flow through ``FlowProcessor`` at full batch
    capacity on the card, batch for batch against the same flow on the
    CPU, with every kernel's launch count read from that run. A step is
    timed from the host columns (pinned and copied to the card by
@@ -36,14 +45,18 @@ non-zero before it. Without a CUDA device the script exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import importlib.machinery
 import importlib.util
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -207,7 +220,11 @@ def phase_build() -> None:
 
     sources = ["anomaly_score", DX305_SOURCE]
     t0 = time.perf_counter()
-    paths = build.build(sources)
+    # the decoder's g++ runs beside the nvcc processes
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build.build_host, "decoder")
+        paths = build.build(sources)
+        paths.append(host.result())
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc": build.nvcc_path(), "libraries": [p.name for p in paths],
           "ptxas": {p.name: build.ptxas_usage(src)
@@ -608,6 +625,278 @@ def phase_flow(seed: int, udf) -> int:
     return launches
 
 
+def make_json_payload(rs, n_rows, alert_rate=0.01) -> bytes:
+    """bench.py::make_json_payload, drawing from ``rs``: newline JSON
+    with ~1% of events tripping the DoorLock rule, mixed device types,
+    temperatures 0-100 at three decimals."""
+    types = np.array(DEVICE_TYPES)
+    is_door = rs.uniform(size=n_rows) < 2 * alert_rate
+    dtype_col = np.where(is_door, 2, rs.randint(0, 2, n_rows))
+    status = np.where(is_door & (rs.uniform(size=n_rows) < 0.5), 0, 1)
+    device_id = rs.randint(1, 9, n_rows)
+    temp = rs.uniform(0, 100, n_rows)
+    lines = [
+        '{"deviceDetails":{"deviceId":%d,"deviceType":"%s","homeId":150,'
+        '"status":%d,"temperature":%.3f},"eventTimeStamp":%d}'
+        % (device_id[i], types[dtype_col[i]], status[i], temp[i], BASE_MS + i)
+        for i in range(n_rows)
+    ]
+    return ("\n".join(lines) + "\n").encode()
+
+
+class SyncCount:
+    """Host syncs that sync debug mode reports on this thread while the
+    context is entered; a landing thread's warnings are not counted."""
+
+    def __init__(self):
+        self.count = 0
+        self.sites = set()
+        self._thread = threading.get_ident()
+
+    def __enter__(self):
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if (threading.get_ident() == self._thread
+                    and "synchronizing CUDA operation" in str(message)):
+                self.count += 1
+                self.sites.add(str(message)[:160])
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._ctx.__exit__(*exc)
+
+
+# metrics the CPU run cannot repeat: wall clock, and what depends on when
+# the landing thread finished a batch relative to later dispatches (the
+# sized capacities it fed, the pool and slot reuse it allowed)
+INGEST_UNCOMPARED = ("Latency-Process", "Decode_RowsPerSec",
+                     "Decode_BufferReuse_Count", "Transfer_D2HBytes",
+                     "Transfer_Efficiency", "Transfer_SlotContended_Count",
+                     "Transfer_Overflow_Count")
+
+
+def drive_ingest(gpu, payloads) -> dict:
+    """The depth-2 pipelined loop of a streaming host from bytes:
+    ``encode_json_bytes(..., to_device=False)`` of batch N+1 runs while
+    up to two batches are in flight, retiring the oldest blocks only on
+    its counts, and its tables land on one background thread (at most
+    ``depth`` landings outstanding)."""
+    depth = gpu.pipeline_depth
+    n = len(payloads)
+    decode_ms, dispatch_ms, counts_ms = [0.0] * n, [0.0] * n, [0.0] * n
+    results = [None] * n
+    sync = SyncCount()
+    pending, landings = deque(), deque()
+
+    def land(item):
+        b, counts, fut = item
+        results[b] = (counts, *fut.result())
+
+    def decode(b):
+        t0 = time.perf_counter()
+        with sync:
+            raw = gpu.encode_json_bytes(payloads[b], BASE_MS + 1000 * b,
+                                        to_device=False)
+        decode_ms[b] = (time.perf_counter() - t0) * 1e3
+        return raw, t0
+
+    def retire(pool):
+        b, h, t0 = pending.popleft()
+        counts = h.collect_counts().counts
+        counts_ms[b] = (time.perf_counter() - t0) * 1e3
+        landings.append((b, counts, pool.submit(h.collect_tables)))
+        while len(landings) > depth:
+            land(landings.popleft())
+
+    torch.cuda.synchronize()
+    with ThreadPoolExecutor(1, thread_name_prefix="landing") as pool:
+        t_start = time.perf_counter()
+        raw, t0 = decode(0)
+        for b in range(n):
+            t1 = time.perf_counter()
+            with sync:
+                h = gpu.dispatch_batch(raw, BASE_MS + 1000 * b)
+            dispatch_ms[b] = (time.perf_counter() - t1) * 1e3
+            pending.append((b, h, t0))
+            if len(pending) > depth:
+                retire(pool)
+            if b + 1 < n:
+                raw, t0 = decode(b + 1)
+        while pending:
+            retire(pool)
+        while landings:
+            land(landings.popleft())
+        total_s = time.perf_counter() - t_start
+    return {"decode_ms": decode_ms, "dispatch_ms": dispatch_ms,
+            "bytes_to_counts_ms": counts_ms, "total_s": total_s,
+            "syncs": sync.count, "sync_sites": sorted(sync.sites),
+            "results": results}
+
+
+def h2d_ms(gpu, payload, reps=10) -> float:
+    """Median CUDA-event time of one host-to-device copy of a pooled,
+    pinned ingest matrix at this flow's shape."""
+    raw = gpu.encode_json_bytes(payload, BASE_MS, to_device=False)
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        raw.data.to("cuda", non_blocking=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    pool, mat = raw.ingest_slot
+    pool.release(mat)
+    return statistics.median(times)
+
+
+def profile_h2d(gpu, payload, batch_time_ms) -> dict:
+    """One step from bytes under ``torch.profiler``: its host-to-device
+    copies (name, bytes) from the exported trace, and whether the string
+    dictionary grew, which adds the copy of the string-op tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dict_size = len(gpu.dictionary)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        raw = gpu.encode_json_bytes(payload, batch_time_ms, to_device=False)
+        gpu.dispatch_batch(raw, batch_time_ms).collect_counts()
+        torch.cuda.synchronize()  # the result copies too, inside the trace
+    trace = ROOT / "data_accelerator_tpu_torch" / "_build" / "ingest_trace.json"
+    prof.export_chrome_trace(str(trace))
+    try:
+        events = json.loads(trace.read_text())["traceEvents"]
+    finally:
+        trace.unlink()
+    copies = [[e["name"], e.get("args", {}).get("bytes")] for e in events
+              if "HtoD" in e.get("name", "")]
+    return {"copies": copies, "matrix_bytes": raw.data.numel() * 4,
+            "dictionary_grew": len(gpu.dictionary) != dict_size,
+            # what the trace held, for a run that finds no copy in it
+            "trace_categories": dict(collections.Counter(
+                e.get("cat") for e in events)),
+            "key_averages_copies": [[e.key, e.count] for e in prof.key_averages()
+                                    if "Memcpy" in e.key]}
+
+
+def phase_ingest(seed: int, udf, nvidia_smi: str) -> int:
+    """The main path from bytes; returns the anomaly kernel's launches
+    in the pipelined run."""
+    from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+    gpu, cpu, _type_ids, init_s = make_processors(
+        flow_conf(), OUTPUTS, gpu_udfs={"anomalyscore": udf},
+        cpu_udfs={"anomalyscore": anomalyscore()},
+    )
+    rs = np.random.RandomState(seed)
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(BATCHES)]
+
+    reset_launch_counts(udf)
+    run = drive_ingest(gpu, payloads)
+    launches = launch_counts(udf)["anomaly_score"]
+    pool = gpu._ingest_pools["default"]
+    allocs, reuses = pool.alloc_count, pool.reuse_count
+    if launches != BATCHES:
+        raise AssertionError(f"ingest: anomaly_score launched {launches} "
+                             f"times in {BATCHES} batches")
+    if run["syncs"]:
+        raise AssertionError(f"ingest: {run['syncs']} host syncs in "
+                             f"encode_json_bytes + dispatch_batch: "
+                             f"{run['sync_sites']}")
+    if allocs > gpu.pipeline_depth + 1 or reuses != BATCHES - allocs:
+        raise AssertionError(f"ingest pool: {allocs} matrices allocated, "
+                             f"{reuses} reuses in {BATCHES} batches")
+    reuse_metric = sum(m.get("Decode_BufferReuse_Count", 0.0)
+                       for _c, _d, m in run["results"])
+    if reuse_metric != reuses:
+        raise AssertionError(f"Decode_BufferReuse_Count {reuse_metric} vs "
+                             f"{reuses} reuses")
+
+    # the same bytes through the port on the CPU, one batch at a time
+    rows_out = {n: 0 for n in OUTPUTS}
+    for b, payload in enumerate(payloads):
+        t_ms = BASE_MS + 1000 * b
+        h = cpu.dispatch_batch(cpu.encode_json_bytes(payload, t_ms), t_ms)
+        counts = h.collect_counts().counts
+        datasets, metrics = h.collect_tables()
+        g_counts, g_datasets, g_metrics = run["results"][b]
+        if not np.array_equal(g_counts, counts):
+            raise AssertionError(f"ingest batch {b}: counts {g_counts} vs {counts}")
+        for k in set(metrics) | set(g_metrics):
+            if k not in INGEST_UNCOMPARED and g_metrics.get(k) != metrics.get(k):
+                raise AssertionError(f"ingest batch {b}: metric {k} "
+                                     f"{g_metrics.get(k)} vs {metrics.get(k)}")
+        for name in OUTPUTS:
+            same_rows(g_datasets[name], datasets[name], f"ingest batch {b} {name}")
+            rows_out[name] += len(datasets[name])
+    if not rows_out["HeatAvg"] or not rows_out["AnomalyAlerts"]:
+        raise AssertionError(f"ingest produced no alerts: {rows_out}")
+
+    # step time from bytes, one batch at a time and nothing landing
+    # meanwhile: decode, dispatch (copy and step enqueued), counts
+    step_ms, step_parts = [], []
+    for b in range(BATCHES, BATCHES + 3):
+        t_ms = BASE_MS + 1000 * b
+        t0 = time.perf_counter()
+        raw = gpu.encode_json_bytes(payloads[b % BATCHES], t_ms, to_device=False)
+        t1 = time.perf_counter()
+        h = gpu.dispatch_batch(raw, t_ms)
+        t2 = time.perf_counter()
+        h.collect_counts()
+        t3 = time.perf_counter()
+        step_ms.append((t3 - t0) * 1e3)
+        step_parts.append({"decode_ms": (t1 - t0) * 1e3,
+                           "dispatch_ms": (t2 - t1) * 1e3,
+                           "counts_ms": (t3 - t2) * 1e3})
+        h.collect_tables()
+    copy_ms = h2d_ms(gpu, payloads[0])
+    prof = profile_h2d(gpu, payloads[1], BASE_MS + 1000 * (BATCHES + 3))
+    matrix_copies = [c for c in prof["copies"] if c[1] == prof["matrix_bytes"]]
+    if len(matrix_copies) != 1 or (
+            len(prof["copies"]) != 1 and not prof["dictionary_grew"]):
+        raise AssertionError(f"ingest: host-to-device copies of one step "
+                             f"{prof['copies']}, not one of "
+                             f"{prof['matrix_bytes']} bytes; {prof}")
+
+    metrics = [m for _c, _d, m in run["results"]]
+    emit({
+        "phase": "ingest", "capacity": CAPACITY, "batches": BATCHES,
+        "depth": gpu.pipeline_depth, "seed": seed, "init_s": init_s,
+        "payload_bytes": [len(p) for p in payloads],
+        "decode_ms": run["decode_ms"],
+        "decode_ms_median": statistics.median(run["decode_ms"][1:]),
+        "decode_shards": metrics[-1].get("Decode_Shards"),
+        "dispatch_ms": run["dispatch_ms"],
+        "h2d_ms": copy_ms, "h2d_bytes": prof["matrix_bytes"],
+        "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+        "step_parts": step_parts,
+        "pipelined_bytes_to_counts_ms": run["bytes_to_counts_ms"],
+        "events_per_s": CAPACITY * BATCHES / run["total_s"],
+        "d2h_bytes": [m.get("Transfer_D2HBytes") for m in metrics],
+        "transfer_efficiency": [m.get("Transfer_Efficiency") for m in metrics],
+        "slot_contended": sum(m.get("Transfer_SlotContended_Count", 0.0)
+                              for m in metrics),
+        "sync_counts_bytes": metrics[-1]["Sync_CountsBytes"],
+        "host_syncs_encode_dispatch": run["syncs"],
+        "pool_allocs": allocs, "pool_reuses": reuses,
+        "h2d_copies_profiled_step": prof["copies"],
+        "rows_out": rows_out, "launches": {"anomaly_score": launches},
+        "match_cpu": True, "card": nvidia_smi,
+    })
+    return launches
+
+
 def phase_udf_flow(seed: int, anomaly_udf) -> int:
     """The user-UDF path: ``pdouble``, declared in the flow's conf, runs
     its own CUDA kernel through ``cuda_call`` on every batch. Card rows
@@ -731,9 +1020,19 @@ def main(argv=None) -> int:
         emit({"phase": "kernel_check", "name": name, "n": CAPACITY, **m})
     phase_host_split()
     udf = anomalyscore()
+    # ingest first: its profiled step must be the process's first
+    # profiler session, since after the flow's profile the profiler
+    # recorded no host-to-device copy activity on the card's machine
+    ingest_launches = phase_ingest(args.seed, udf, nvidia_smi)
     launches = {
         "anomaly_score": phase_flow(args.seed, udf),
         "dx305_double": phase_udf_flow(args.seed, udf),
+    }
+    # each path's own launches, its counts set to 0 just before it
+    by_path = {
+        "anomaly_score": {"flow": launches["anomaly_score"],
+                          "ingest": ingest_launches},
+        "dx305_double": {"udf_flow": launches["dx305_double"]},
     }
     phase_ground_truth()
 
@@ -747,6 +1046,7 @@ def main(argv=None) -> int:
     emit({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches[name],
+        "launches_by_path": by_path[name],
         "max_abs_err": checks[name]["max_err"],
         "ms": checks[name]["kernel_ms"],
         "plain_ms": checks[name]["plain_ms"],

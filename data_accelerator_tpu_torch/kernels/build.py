@@ -1,15 +1,18 @@
-"""Build hand-written CUDA kernel sources at first use.
+"""Build hand-written CUDA kernel sources, and the host C++ sources,
+at first use.
 
-A source is named either by a bare name, for the package's own kernels
-(``csrc/<name>.cu``), or by a path to any ``.cu`` file, such as one that
-sits beside a user's UDF module. It compiles with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, which
-``ctypes`` loads. The library lands in ``data_accelerator_tpu_torch/
-_build/`` under a name that carries a hash of the source's path, its
-contents and the flags, so an edited source rebuilds and an unchanged one
-is loaded as it is. nvcc's output is kept beside the library (``.log``):
-``-Xptxas -v`` makes it list each kernel's registers, shared memory and
-spill bytes, which ``ptxas_usage`` reads. Nothing here runs at import.
+A source is named either by a bare name, for the package's own sources
+(``csrc/<name>.cu``, or ``csrc/<name>.cpp`` for the host route), or by a
+path to any such file, such as a ``.cu`` that sits beside a user's UDF
+module. A ``.cu`` compiles with ``nvcc`` for ``sm_90a``, a ``.cpp`` (the
+JSON ingest decoder) with ``g++``, each into a shared library with a
+plain C interface, which ``ctypes`` loads. The library lands in
+``data_accelerator_tpu_torch/_build/`` under a name that carries a hash
+of the source's path, its contents and the flags, so an edited source
+rebuilds and an unchanged one is loaded as it is. nvcc's output is kept
+beside the library (``.log``): ``-Xptxas -v`` makes it list each
+kernel's registers, shared memory and spill bytes, which ``ptxas_usage``
+reads. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# the host route's flags: the JAX package's own build of the decoder
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 # a shared library loads once per process; its handle serves every caller
 _LOCK = threading.Lock()
@@ -42,7 +47,7 @@ Source = Union[str, os.PathLike]
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing, the source is missing, or nvcc refused it."""
+    """The compiler or the source is missing, or the compiler refused it."""
 
 
 def nvcc_path() -> str:
@@ -59,28 +64,31 @@ def nvcc_path() -> str:
     )
 
 
-def source_path(source: Source) -> Path:
-    """``csrc/<name>.cu`` for a bare name; the file itself for a path."""
+def source_path(source: Source, suffix: str = ".cu") -> Path:
+    """``csrc/<name><suffix>`` for a bare name; the file itself for a path."""
     text = os.fspath(source)
-    if isinstance(source, os.PathLike) or text.endswith(".cu") or os.sep in text:
+    if isinstance(source, os.PathLike) or text.endswith(suffix) or os.sep in text:
         path = Path(text).resolve()
-        if path.suffix != ".cu":
-            raise KernelBuildError(f"{path}: a kernel source must be a .cu file")
+        if path.suffix != suffix:
+            raise KernelBuildError(f"{path}: this source must be a {suffix} file")
         return path
-    return CSRC_DIR / f"{text}.cu"
+    return CSRC_DIR / f"{text}{suffix}"
 
 
-def library_path(source: Source) -> Path:
-    """Where a source builds to, keyed on its path, contents and flags."""
-    src = source_path(source)
+def _library_path(src: Path, flags) -> Path:
     try:
         text = src.read_bytes()
     except OSError as e:
         raise KernelBuildError(f"cannot read kernel source {src}: {e}") from e
     h = hashlib.sha256(str(src).encode())
     h.update(text)
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(source: Source) -> Path:
+    """Where a source builds to, keyed on its path, contents and flags."""
+    return _library_path(source_path(source), NVCC_FLAGS)
 
 
 def build(sources: Iterable[Source]) -> List[Path]:
@@ -121,6 +129,48 @@ def load(source: Source) -> ctypes.CDLL:
         if lib is None:
             (path,) = build([source])
             lib = ctypes.CDLL(str(path))
+            _LOADED[key] = lib
+        return lib
+
+
+def build_host(source: Source) -> Path:
+    """Compile a host C++ source (``csrc/<name>.cpp`` or a path to a
+    ``.cpp``) with ``g++`` and ``HOST_FLAGS`` unless its library is
+    current; returns the library's path. A missing ``g++`` or a compile
+    error raises ``KernelBuildError`` with the compiler's output."""
+    src = source_path(source, ".cpp")
+    out = _library_path(src, HOST_FLAGS)
+    if out.exists():
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise KernelBuildError(
+            f"g++ not found on PATH: {src.name} is host C++ that builds "
+            "with g++ at first use"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"host build failed: {src} (g++ exit {proc.returncode}):\n"
+            f"{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(source: Source) -> ctypes.CDLL:
+    """The loaded library of a host C++ source, built on first use."""
+    key = str(source_path(source, ".cpp"))
+    with _LOCK:
+        lib = _LOADED.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_host(source)))
             _LOADED[key] = lib
         return lib
 

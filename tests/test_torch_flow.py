@@ -7,9 +7,9 @@ ms apart, so the 5 s window fills and evicts. Rows must match in the
 order the reference defines; ints and dictionary ids exactly, floats
 (``AvgT``, ``score``) within rtol 1e-5, because the windowed segment sums
 add in another order. Metrics and the counts vector must match, except
-``Latency-Process`` (wall clock) and the transfer byte count (the JAX
-package pads its small-batch fetch to capacity; the port copies exactly
-the counted rows).
+``Latency-Process`` and ``Decode_RowsPerSec``, which measure wall clock;
+the transfer byte count matches too, since both fetch each output's sized
+table whole.
 """
 
 import json
@@ -160,7 +160,7 @@ def _assert_same_batch(jd, jm, td, tm, b):
         _assert_same_rows(jd[name], td[name], (b, name))
     assert set(tm) <= set(jm), set(tm) - set(jm)
     for k, v in tm.items():
-        if k not in ("Latency-Process", "Transfer_D2HBytes"):
+        if k not in ("Latency-Process", "Decode_RowsPerSec"):
             assert v == jm[k], (b, k, jm[k], v)
 
 

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``data_accelerator_tpu_torch``,
 no UDF fixture of the port (``tests/data/udfs_torch/``) and not
-``chip_smoke.py`` imports JAX or anything of the JAX package."""
+``chip_smoke.py`` imports JAX or anything of the JAX package, or names a
+path into the JAX package's ``native/`` decoder sources: the port builds
+its own copy, ``data_accelerator_tpu_torch/csrc/decoder.cpp``."""
 
 import ast
 from pathlib import Path
@@ -15,6 +17,8 @@ PORT_FILES = sorted(
     p for p in PORT_DIR.rglob("*.py") if "_build" not in p.relative_to(PORT_DIR).parts
 ) + sorted(FIXTURE_DIR.glob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "data_accelerator_tpu")
+# the JAX package's decoder source and library, as a path would name them
+REFERENCE_NATIVE = ("native/decoder.cpp", "libdxdecoder", '"native", "decoder.cpp"')
 
 
 def _imported_modules(path: Path):
@@ -58,3 +62,20 @@ def test_no_jax_or_jax_package_import(path):
 ])
 def test_forbidden_rule(module, forbidden):
     assert _forbidden(module) is forbidden
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_no_path_into_reference_native_dir(path):
+    text = path.read_text(encoding="utf-8")
+    bad = [n for n in REFERENCE_NATIVE if n in text]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+def test_decoder_source_is_the_port_copy():
+    from data_accelerator_tpu_torch.kernels import build
+    from data_accelerator_tpu_torch.native import decoder
+
+    src = build.source_path(decoder.SOURCE, ".cpp")
+    assert src == PORT_DIR / "csrc" / "decoder.cpp" and src.exists()
