@@ -34,7 +34,19 @@ Phases, each printing JSON lines:
    the flow's conf (``tests/data/udfs_torch/dx305_cuda.py:clean``,
    kernel ``dx305_double.cu``), through its own ``FlowProcessor`` on the
    same batches, timed and checked the same way;
-6. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
+6. host: the main path as users run it, through the port's
+   ``StreamingHost``: the same flow from socket bytes (a feeder thread
+   writes ``BATCHES`` seeded payloads), its UDF declared in the conf,
+   ``run_pipelined`` at depth 2 with background landing, sinks, acks,
+   metrics and window/offset checkpoints every second; each batch's rows
+   held against a CPU replay of the bytes, base and batch time the host
+   used, 0 host syncs in poll, encode and dispatch, the anomaly kernel's
+   launches read from the host's UDF, and a successor host on the same
+   checkpoint directory restoring the last saved window and matching the
+   CPU replay continued from it;
+   host_cli: ``runtime.host.main`` on a conf file it writes, local
+   simulated input at full capacity, the default pilot, 3 batches;
+7. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
 
@@ -46,8 +58,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import importlib.machinery
 import importlib.util
+import io
 import json
 import statistics
 import subprocess
@@ -928,6 +942,366 @@ def phase_udf_flow(seed: int, anomaly_udf) -> int:
     return launches
 
 
+# the host phase's stream: one more batch than the run, for the restart
+HOST_FLOW = "ChipSmokeHost"
+CLI_FLOW = "ChipSmokeCli"
+CLI_BATCHES = 3
+# the host's own adaptive backpressure halves a poll (down to 1/8 of
+# maxrate x interval) after an iteration longer than the interval; at 8 x
+# the capacity every poll still asks for a whole batch
+HOST_MAXRATE = 8 * CAPACITY
+
+
+def host_conf(ckpt_dir: str) -> dict:
+    """The main path as a user runs it: the alerting flow plus the
+    anomaly query from socket bytes, its UDF declared in the conf,
+    depth 2 with background landing, checkpoints every second, the
+    pilot off so that every batch is a whole capacity.
+
+    The checkpoint cadence counts from each batch's poll time, and the
+    decode-ahead polls run ahead of the landings: the 8 polls span
+    about three landings (3-4 s on an H100 host), so a 2 s interval can
+    leave a single checkpoint after the first; at 1 s the run writes
+    several, and the restart restores a later one."""
+    conf = flow_conf()
+    conf.update({
+        "datax.job.name": HOST_FLOW,
+        "datax.job.input.default.inputtype": "socket",
+        "datax.job.input.default.socket.port": "0",
+        "datax.job.input.default.eventhub.maxrate": str(HOST_MAXRATE),
+        "datax.job.input.default.eventhub.checkpointdir": ckpt_dir,
+        "datax.job.input.default.eventhub.checkpointinterval": "1 second",
+        "datax.job.process.batchcapacity": str(CAPACITY),
+        "datax.job.process.pipeline.depth": "2",
+        "datax.job.process.pilot.enabled": "false",
+        "datax.job.process.jar.udf.anomalyscore.class":
+            "data_accelerator_tpu_torch.udf.samples:anomalyscore",
+    })
+    for out in OUTPUTS:
+        conf[f"datax.job.output.{out}.console.maxrows"] = "0"
+    return conf
+
+
+class LineCount(io.TextIOBase):
+    """Stands in for stdout while a host runs: its console sinks print
+    rows; the phase counts the lines and keeps its own output clean."""
+
+    def __init__(self):
+        self.lines = 0
+
+    def write(self, text):
+        self.lines += text.count("\n")
+        return len(text)
+
+
+class ThreadSyncCount:
+    """Host syncs that sync debug mode reports while a thread is inside
+    one of the wrapped calls (the host's poll and encode on its
+    decode-ahead worker, ``dispatch_batch`` on the dispatch thread); the
+    landing thread's reads are not counted."""
+
+    def __init__(self):
+        self.count, self.sites = 0, set()
+        self._inside = threading.local()
+
+    def wrap(self, fn):
+        def counted(*a, **k):
+            self._inside.on = True
+            try:
+                return fn(*a, **k)
+            finally:
+                self._inside.on = False
+        return counted
+
+    def __enter__(self):
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if "synchronizing CUDA operation" not in str(message):
+                shown(message, category, filename, lineno, file, line)
+            elif getattr(self._inside, "on", False):
+                self.count += 1
+                self.sites.add(str(message)[:160])
+
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._ctx.__exit__(*exc)
+
+
+def feed_socket(port: int, payloads, n_lines: int, src, deadline_s=120.0) -> float:
+    """Write ``payloads`` to the host's socket from a feeder thread and
+    wait, with a deadline, until the source has buffered ``n_lines``
+    lines; returns the seconds it took."""
+    import socket
+
+    t0 = time.perf_counter()
+
+    def feed():
+        with socket.create_connection(("127.0.0.1", port), timeout=60) as conn:
+            for p in payloads:
+                conn.sendall(p)
+
+    feeder = threading.Thread(target=feed, daemon=True)
+    feeder.start()
+    deadline = time.monotonic() + deadline_s
+    while len(src._buf) < n_lines:
+        if time.monotonic() > deadline:
+            raise AssertionError(f"socket source buffered {len(src._buf)} of "
+                                 f"{n_lines} lines in {deadline_s} s")
+        time.sleep(0.05)
+    feeder.join(timeout=10)
+    return time.perf_counter() - t0
+
+
+def record_host(host, sync: "ThreadSyncCount") -> dict:
+    """Wrap a host's processor and sinks: record each batch's bytes,
+    base and batch time as the host passed them, the rows its sinks
+    got, its metrics, dispatch and checkpoint times, and the last window
+    snapshot it saved; count host syncs in poll, encode and dispatch."""
+    proc = host.processor
+    rec = {"encoded": [], "times": [], "dispatch_ms": [], "rows": {},
+           "metrics": [], "snapshot_ms": [], "save_ms": [], "last_snap": None}
+    encode, dispatch = proc.encode_json_bytes, proc.dispatch_batch
+
+    def encode_rec(data, base_ms, **kw):
+        rec["encoded"].append((data, base_ms))
+        return encode(data, base_ms, **kw)
+
+    def dispatch_rec(raw, batch_time_ms):
+        t0 = time.perf_counter()
+        h = dispatch(raw, batch_time_ms)
+        rec["dispatch_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["times"].append(batch_time_ms)
+        return h
+
+    proc.encode_json_bytes = encode_rec
+    proc.dispatch_batch = sync.wrap(dispatch_rec)
+    host._poll_and_encode = sync.wrap(host._poll_and_encode)
+
+    snapshot = proc.snapshot_window_state
+
+    def snapshot_timed():
+        t0 = time.perf_counter()
+        snap = snapshot()
+        rec["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+        return snap
+
+    proc.snapshot_window_state = snapshot_timed
+    save = host.window_checkpointer.save
+
+    def save_timed(snap):
+        t0 = time.perf_counter()
+        save(snap)
+        rec["save_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["last_snap"] = snap
+
+    host.window_checkpointer.save = save_timed
+
+    class Recording:
+        kind = "recording"
+
+        def write(self, dataset, rows, batch_time_ms):
+            rec["rows"][(batch_time_ms, dataset)] = rows
+            return len(rows)
+
+    for op in host.dispatcher.operators.values():
+        op.sinks.append(Recording())
+    send = host.metric_logger.send_batch_metrics
+
+    def send_rec(metrics, ts):
+        rec["metrics"].append(dict(metrics))
+        return send(metrics, ts)
+
+    host.metric_logger.send_batch_metrics = send_rec
+    return rec
+
+
+def replay_on_cpu(cpu, rec, outputs, what, start=0) -> dict:
+    """The recorded batches through a CPU processor, one at a time: every
+    sink's rows must equal the card's (ints exact, floats rtol 1e-4);
+    returns the rows per output."""
+    rows_out = {n: 0 for n in outputs}
+    for b, ((data, base_ms), t_ms) in enumerate(zip(rec["encoded"], rec["times"])):
+        datasets, _m = cpu.dispatch_batch(
+            cpu.encode_json_bytes(data, base_ms), t_ms).collect_tables()
+        for name in outputs:
+            same_rows(rec["rows"][(t_ms, name)], datasets[name],
+                      f"{what} batch {start + b} {name}")
+            rows_out[name] += len(datasets[name])
+    return rows_out
+
+
+def same_snapshot(a, b, what) -> None:
+    if (a["slot_counter"], a["base_ms"]) != (b["slot_counter"], b["base_ms"]):
+        raise AssertionError(f"{what}: counter/base {a['slot_counter']}, "
+                             f"{a['base_ms']} vs {b['slot_counter']}, {b['base_ms']}")
+    for table, ring in a["rings"].items():
+        other = b["rings"][table]
+        if not np.array_equal(ring["valid"], other["valid"]) or any(
+                not np.array_equal(v, other["cols"][c]) for c, v in ring["cols"].items()):
+            raise AssertionError(f"{what}: ring {table} differs")
+
+
+def phase_host(seed: int, nvidia_smi: str) -> int:
+    """The main path through the port's ``StreamingHost`` from socket
+    bytes; returns ``anomaly_score``'s launches in the run."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    rs = np.random.RandomState(seed + 1)
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(BATCHES + 1)]
+    with tempfile.TemporaryDirectory() as ckpt, contextlib.redirect_stdout(LineCount()) as out:
+        conf = SettingDictionary(host_conf(ckpt))
+        t0 = time.perf_counter()
+        host = StreamingHost(conf)
+        init_s = time.perf_counter() - t0
+        sync = ThreadSyncCount()
+        rec = record_host(host, sync)
+        udf = host.processor.udfs["anomalyscore"]
+        try:
+            feed_s = feed_socket(host.source.port, payloads[:BATCHES],
+                                 BATCHES * CAPACITY, host.source)
+            udf.kernel.launches = 0
+            torch.cuda.synchronize()
+            with sync:
+                t_run = time.perf_counter()
+                host.run_pipelined(max_batches=BATCHES)
+                run_s = time.perf_counter() - t_run
+            launches = udf.launches
+        finally:
+            host.stop()
+        pool = host.processor._ingest_pools["default"]
+        # a successor on the same checkpoint directory, one more batch
+        host2 = StreamingHost(conf)
+        restored = host2.processor.snapshot_window_state()
+        rec2 = record_host(host2, ThreadSyncCount())
+        try:
+            feed_socket(host2.source.port, payloads[BATCHES:], CAPACITY, host2.source)
+            host2.run_pipelined(max_batches=1)
+        finally:
+            host2.stop()
+        console_lines = out.lines
+
+    sizes = [m["Input_DataXProcessedInput_Events_Count"] for m in rec["metrics"]]
+    if host.batches_processed != BATCHES or sizes != [float(CAPACITY)] * BATCHES:
+        raise AssertionError(f"host: {host.batches_processed} batches of {sizes} rows")
+    if launches != BATCHES:
+        raise AssertionError(f"host: anomaly_score launched {launches} times "
+                             f"in {BATCHES} batches")
+    if sync.count:
+        raise AssertionError(f"host: {sync.count} host syncs in poll, encode and "
+                             f"dispatch: {sorted(sync.sites)}")
+    if len(rec["save_ms"]) < 2:
+        raise AssertionError(f"host: {len(rec['save_ms'])} checkpoints written")
+    if host2.window_restored_from != "local":
+        raise AssertionError(f"host restart: window restored from "
+                             f"{host2.window_restored_from!r}")
+    same_snapshot(rec["last_snap"], restored, "host restart: restored window")
+
+    # the recorded batches on the CPU, then the successor's first batch
+    # continued from the last saved snapshot
+    cpu = FlowProcessor(conf, device="cpu")
+    rows_out = replay_on_cpu(cpu, rec, OUTPUTS, "host")
+    if not rows_out["HeatAvg"] or not rows_out["AnomalyAlerts"]:
+        raise AssertionError(f"host produced no alerts: {rows_out}")
+    cpu2 = FlowProcessor(conf, device="cpu")
+    if not cpu2.restore_window_state(rec["last_snap"]):
+        raise AssertionError("host restart: the CPU replay refused the snapshot")
+    replay_on_cpu(cpu2, rec2, ["HeatAvg"], "host restart", start=BATCHES)
+    heat_cnt = sum(r["Cnt"] for r in rec2["rows"][(rec2["times"][0], "HeatAvg")])
+
+    def stats(key):
+        vals = [m[key] for m in rec["metrics"] if key in m]
+        return {"median": statistics.median(vals), "max": max(vals), "all": vals}
+
+    checkpoint_ms = [a + b for a, b in zip(rec["snapshot_ms"], rec["save_ms"])]
+    emit({
+        "phase": "host", "capacity": CAPACITY, "batches": BATCHES, "depth": 2,
+        "seed": seed, "init_s": init_s, "feed_s": feed_s, "run_s": run_s,
+        "events_per_s": BATCHES * CAPACITY / run_s,
+        "latency_batch_ms": stats("Latency-Batch"),
+        "pipeline_stall_ms": stats("Pipeline_Stall_Ms"),
+        "background_land_ms": stats("Transfer_Background_LandMs"),
+        "background_pending": stats("Transfer_Background_Pending"),
+        "ingest_rate_scale": [m["IngestRateScale"] for m in rec["metrics"]],
+        "dispatch_ms": rec["dispatch_ms"],
+        "dispatch_ms_median": statistics.median(rec["dispatch_ms"]),
+        "checkpoints": len(rec["save_ms"]),
+        "checkpoint_ms": checkpoint_ms,
+        "checkpoint_snapshot_ms": rec["snapshot_ms"][:len(checkpoint_ms)],
+        "checkpoint_save_ms": rec["save_ms"],
+        "window_bytes": sum(a.nbytes for ring in rec["last_snap"]["rings"].values()
+                            for a in [*ring["cols"].values(), ring["valid"]]),
+        "hbm_peak_bytes": rec["metrics"][-1].get("Hbm_PeakBytes"),
+        "pool_allocs": pool.alloc_count, "pool_reuses": pool.reuse_count,
+        "host_syncs_poll_encode_dispatch": sync.count,
+        "rows_out": rows_out, "console_lines": console_lines,
+        "restart": {"restored_from": host2.window_restored_from,
+                    "restored_slot_counter": restored["slot_counter"],
+                    "first_batch_heatavg_cnt": heat_cnt},
+        "launches": {"anomaly_score": launches},
+        "match_cpu": True, "card": nvidia_smi,
+    })
+    return launches
+
+
+def write_conf_file(path: Path, conf: dict) -> None:
+    """A flat ``.conf`` file, multi-line values escaped as the flattener
+    writes them."""
+    lines = [f"{k}={v}".replace("\\", "\\\\").replace("\n", "\\n") for k, v in conf.items()]
+    path.write_text("\n".join(lines) + "\n")
+
+
+def phase_host_cli(nvidia_smi: str) -> int:
+    """The entry point a user starts: ``runtime.host.main`` on a conf
+    file, local simulated input at full capacity, the conf-declared
+    anomaly UDF and the default pilot; returns ``anomaly_score``'s
+    launches (the UDF, and its count, are made by ``main``)."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.runtime import host as host_mod
+
+    conf = flow_conf()
+    conf.update({
+        "datax.job.name": CLI_FLOW,
+        "datax.job.input.default.eventhub.maxrate": str(CAPACITY),
+        "datax.job.process.batchcapacity": str(CAPACITY),
+        "datax.job.process.jar.udf.anomalyscore.class":
+            "data_accelerator_tpu_torch.udf.samples:anomalyscore",
+    })
+    for out in OUTPUTS:
+        conf[f"datax.job.output.{out}.console.maxrows"] = "0"
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(LineCount()):
+        path = Path(tmp) / "flow.conf"
+        write_conf_file(path, conf)
+        t0 = time.perf_counter()
+        host = host_mod.main([f"conf={path}", f"batches={CLI_BATCHES}"])
+        seconds = time.perf_counter() - t0
+    launches = host.processor.udfs["anomalyscore"].launches
+    keys = host.metric_logger.store.keys(f"DATAX-{CLI_FLOW}:")
+    if host.batches_processed != CLI_BATCHES or launches != CLI_BATCHES:
+        raise AssertionError(f"host_cli: {host.batches_processed} batches, "
+                             f"{launches} anomaly_score launches")
+    if f"DATAX-{CLI_FLOW}:Output_HeatAvg_Events_Count" not in keys:
+        raise AssertionError(f"host_cli: metric keys {sorted(keys)}")
+    if host.pilot is None or host.device.type != "cuda":
+        raise AssertionError("host_cli: not piloted on the card")
+    emit({"phase": "host_cli", "batches": host.batches_processed,
+          "seconds": seconds, "metric_keys": len(keys),
+          "launches": {"anomaly_score": launches}, "card": nvidia_smi})
+    return launches
+
+
 def phase_ground_truth() -> None:
     """Each bad twin of the host-sync fixtures (DX300, DX301, DX305)
     raises on CUDA tensors under sync debug mode "error", at the sync
@@ -1028,10 +1402,14 @@ def main(argv=None) -> int:
         "anomaly_score": phase_flow(args.seed, udf),
         "dx305_double": phase_udf_flow(args.seed, udf),
     }
+    host_launches = phase_host(args.seed, nvidia_smi)
+    cli_launches = phase_host_cli(nvidia_smi)
     # each path's own launches, its counts set to 0 just before it
     by_path = {
         "anomaly_score": {"flow": launches["anomaly_score"],
-                          "ingest": ingest_launches},
+                          "ingest": ingest_launches,
+                          "host": host_launches,
+                          "host_cli": cli_launches},
         "dx305_double": {"udf_flow": launches["dx305_double"]},
     }
     phase_ground_truth()

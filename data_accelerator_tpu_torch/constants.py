@@ -62,6 +62,40 @@ class JobArgument:
     ConfName_BlobWriterTimeout = ConfNamePrefix + "BlobWriterTimeout"
 
 
+class MetricName:
+    """reference: MetricName.scala:8, trimmed to what the port's hosts
+    and sinks use: the JAX package's registry of every engine-emitted
+    metric name (``RUNTIME_METRIC_PATTERNS``) is not copied."""
+
+    MetricSinkPrefix = "Sink_"
+    LatencyPrefix = "Latency-"
+
+    # canonical per-batch stage names (span names == histogram stages ==
+    # the <stage> of Latency-<stage> metrics, modulo capitalization)
+    STAGES = (
+        "decode", "dispatch", "device-step", "sync", "collect",
+        "sinks", "checkpoint", "batch", "lq-exec",
+    )
+
+    # stages whose metric stem is not the plain CamelCase of the stage
+    # name (acronym casing)
+    _STAGE_METRIC_OVERRIDES = {"lq-exec": "Latency-LQExec"}
+
+    @staticmethod
+    def metric_app_name(job_name: str) -> str:
+        """The ``DATAX-<job>`` metric app key a flow's series live
+        under in the MetricStore."""
+        return ProductConstant.MetricAppNamePrefix + job_name
+
+    @classmethod
+    def stage_metric(cls, stage: str) -> str:
+        """Histogram stage -> its metric stem, e.g. ``device-step`` ->
+        ``Latency-DeviceStep``."""
+        override = cls._STAGE_METRIC_OVERRIDES.get(stage)
+        if override is not None:
+            return override
+        camel = "".join(w.capitalize() for w in stage.split("-"))
+        return f"Latency-{camel}"
 
 
 class ProcessingPropertyName:

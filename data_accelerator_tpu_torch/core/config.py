@@ -5,13 +5,17 @@ one flat string->string map — the same contract as the reference engine, so
 flattened configs produced for the reference remain readable here.
 
 reference: datax-core SettingDictionary.scala:20-150, SettingNamespace.scala:9-48
+
+Copy of the JAX package's ``core/config.py``, with its flat ``.conf``
+line parser (``parse_conf_lines``), which ``core/confmanager.py`` reads
+conf files with.
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, TypeVar
+from typing import Callable, Dict, Iterable, Optional, TypeVar
 
 from ..constants import JobArgument, ProductConstant
 
@@ -277,3 +281,70 @@ class SettingDictionary:
         merged.update(extra)
         return SettingDictionary(merged, self.parent_prefix)
 
+
+def parse_conf_lines(
+    lines: Iterable[str], replacements: Optional[Dict[str, str]] = None
+) -> Dict[str, str]:
+    """Parse flat ``key=value`` conf lines with ``${token}`` replacement.
+
+    reference: ConfigManager.scala:98-135
+    """
+    out: Dict[str, str] = {}
+    for line in lines:
+        if line is None:
+            continue
+        stripped = line.strip()
+        if not stripped or stripped.startswith("#"):
+            continue
+        pos = stripped.find("=")
+        if pos == 0:
+            key, value = "", stripped
+        elif pos > 0:
+            key, value = stripped[:pos].strip(), stripped[pos + 1:].strip()
+        else:
+            # flag-only line: store empty string so the key still registers
+            # as present (the reference keeps the key with a null value;
+            # features are switched purely by key presence)
+            key, value = stripped, ""
+        out[key] = replace_tokens(_unescape_value(value), replacements)
+    return out
+
+
+def _unescape_value(value: str) -> str:
+    """java-properties-style escapes: multi-line values (projection steps,
+    inline snippets) are written as literal ``\\n`` in the flat .conf the
+    flattener produces; ``\\\\`` preserves literal backslashes (regexes,
+    Windows paths)."""
+    if "\\" not in value:
+        return value
+    out = []
+    i, n = 0, len(value)
+    while i < n:
+        ch = value[i]
+        if ch == "\\" and i + 1 < n:
+            nxt = value[i + 1]
+            if nxt == "n":
+                out.append("\n")
+                i += 2
+                continue
+            if nxt == "t":
+                out.append("\t")
+                i += 2
+                continue
+            if nxt == "\\":
+                out.append("\\")
+                i += 2
+                continue
+        out.append(ch)
+        i += 1
+    return "".join(out)
+
+
+def replace_tokens(src: Optional[str], tokens: Optional[Dict[str, str]]) -> Optional[str]:
+    """Literal ``${name}`` substitution. reference: ConfigManager.scala:83-88"""
+    if not tokens or src is None or src == "":
+        return src
+    for name, value in tokens.items():
+        if value is not None:
+            src = src.replace("${" + name + "}", value)
+    return src

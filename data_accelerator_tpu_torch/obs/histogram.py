@@ -1,0 +1,259 @@
+"""Fixed-bucket latency histograms: one measurement path, three readers.
+
+The per-stage latency decomposition (decode -> dispatch -> device step ->
+completion sync -> collect) previously existed only offline in bench.py;
+this type makes it a live, queryable distribution:
+
+- **Prometheus exposition** reads the fixed cumulative buckets
+  (``/metrics`` renders ``_bucket``/``_sum``/``_count`` series so any
+  scraper can compute quantiles its own way).
+- **Live percentiles** (p50/p95/p99 stat tiles, the
+  ``Latency-<stage>-p99`` MetricStore series) read a bounded window of
+  recent raw samples — exact over the window, not bucket-interpolated,
+  so the numbers match what an offline ``np.percentile`` over the same
+  samples would say.
+- **bench.py** observes its sequential-latency stages into the same
+  type, so BENCH_*.json and the live dashboard cannot drift: one
+  ``observe()``, one ``percentile()``.
+
+reference analog: AppInsights aggregates the ``streaming/batch/*``
+timings server-side; here the aggregation is in-process and the
+exposition is Prometheus text.
+
+Copy of the JAX package's ``obs/histogram.py``, unchanged. The port
+keeps its own process-wide ``HISTOGRAMS``.
+"""
+
+from __future__ import annotations
+
+import math
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
+
+# Default bucket bounds in milliseconds. Spans the whole regime the
+# engine sees: sub-ms host stages, ~10-100 ms device/tunnel round trips,
+# multi-second stragglers. Cumulative Prometheus semantics (le=bound).
+DEFAULT_BUCKETS_MS: Tuple[float, ...] = (
+    0.1, 0.25, 0.5, 1, 2.5, 5, 10, 25, 50, 100,
+    250, 500, 1000, 2500, 5000, 10000, 30000,
+)
+
+# raw-sample window for exact percentiles (a ring buffer; ~16 KiB per
+# stage at 2048 float samples — bounded on a long-running job)
+DEFAULT_WINDOW = 2048
+
+
+class LatencyHistogram:
+    """Thread-safe fixed-bucket histogram + recent-sample window."""
+
+    def __init__(
+        self,
+        buckets_ms: Sequence[float] = DEFAULT_BUCKETS_MS,
+        window: int = DEFAULT_WINDOW,
+    ):
+        self.buckets_ms: Tuple[float, ...] = tuple(buckets_ms)
+        self._counts = [0] * (len(self.buckets_ms) + 1)  # +1 = +Inf
+        self.count = 0
+        self.sum_ms = 0.0
+        self._window: List[float] = []
+        # per-sample trace ids, parallel to _window: the exemplar side
+        # channel (a p99 spike on a dashboard links straight to the
+        # offending batch's trace — `obs trace <id>`)
+        self._window_ids: List[Optional[str]] = []
+        self._window_cap = window
+        self._window_pos = 0
+        self._lock = threading.Lock()
+
+    def observe(self, ms: float, trace_id: Optional[str] = None) -> None:
+        ms = float(ms)
+        with self._lock:
+            i = 0
+            for i, b in enumerate(self.buckets_ms):
+                if ms <= b:
+                    break
+            else:
+                i = len(self.buckets_ms)
+            self._counts[i] += 1
+            self.count += 1
+            self.sum_ms += ms
+            if len(self._window) < self._window_cap:
+                self._window.append(ms)
+                self._window_ids.append(trace_id)
+            else:
+                self._window[self._window_pos] = ms
+                self._window_ids[self._window_pos] = trace_id
+                self._window_pos = (self._window_pos + 1) % self._window_cap
+
+    def exemplar(self) -> Optional[Dict[str, object]]:
+        """The max-duration observation currently in the window and its
+        trace id: ``{"ms": float, "traceId": str|None}``. None when the
+        window is empty. This is what ``/metrics`` attaches as the
+        OpenMetrics-style exemplar on the +Inf bucket."""
+        with self._lock:
+            if not self._window:
+                return None
+            i = max(range(len(self._window)), key=self._window.__getitem__)
+            return {"ms": self._window[i], "traceId": self._window_ids[i]}
+
+    def percentile(self, q: float) -> Optional[float]:
+        """Exact percentile over the recent-sample window (numpy's
+        'linear' interpolation, so offline np.percentile over the same
+        samples agrees bit-for-bit). None when empty."""
+        with self._lock:
+            data = sorted(self._window)
+        n = len(data)
+        if n == 0:
+            return None
+        if n == 1:
+            return data[0]
+        pos = (q / 100.0) * (n - 1)
+        lo = int(math.floor(pos))
+        hi = min(lo + 1, n - 1)
+        frac = pos - lo
+        return data[lo] * (1.0 - frac) + data[hi] * frac
+
+    def snapshot(self) -> Dict[str, object]:
+        """Cumulative bucket counts + count/sum, Prometheus-shaped."""
+        with self._lock:
+            counts = list(self._counts)
+            total = self.count
+            s = self.sum_ms
+        cumulative = []
+        acc = 0
+        for c in counts:
+            acc += c
+            cumulative.append(acc)
+        return {
+            "buckets": list(self.buckets_ms),
+            "cumulative": cumulative,  # last entry == count (the +Inf bucket)
+            "count": total,
+            "sum_ms": s,
+        }
+
+    def to_state(self) -> Dict[str, object]:
+        """Full serializable state: per-bucket (non-cumulative) counts
+        plus the raw sample window. The fleet telemetry frame carries
+        this shape (obs/publisher.py) so a control-plane merge is exact
+        — both the bucket counts AND the window percentiles survive the
+        wire (``from_state`` -> ``merge`` round-trip)."""
+        with self._lock:
+            return {
+                "buckets": list(self.buckets_ms),
+                "counts": list(self._counts),
+                "count": self.count,
+                "sumMs": self.sum_ms,
+                "window": list(self._window),
+            }
+
+    @classmethod
+    def from_state(cls, state: Dict[str, object]) -> "LatencyHistogram":
+        """Rebuild a histogram from ``to_state()`` output. The window
+        cap grows to hold every carried sample, so deserialization
+        never evicts."""
+        buckets = tuple(float(b) for b in state["buckets"])
+        window = [float(v) for v in state.get("window") or []]
+        h = cls(buckets, window=max(DEFAULT_WINDOW, len(window)))
+        counts = [int(c) for c in state["counts"]]
+        if len(counts) != len(buckets) + 1:
+            raise ValueError(
+                f"bucket/count shape mismatch: {len(counts)} counts for "
+                f"{len(buckets)} bounds"
+            )
+        h._counts = counts
+        h.count = int(state["count"])
+        h.sum_ms = float(state.get("sumMs", state.get("sum_ms", 0.0)))
+        h._window = window
+        h._window_ids = [None] * len(window)
+        return h
+
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Exact merge of two fixed-bucket histograms: element-wise
+        bucket-count addition plus a UNION of the raw sample windows,
+        returned as a new histogram (neither input is mutated).
+
+        Requires identical bucket bounds — cross-replica aggregation
+        only makes sense over one shared geometry (every host uses
+        DEFAULT_BUCKETS_MS unless conf'd otherwise). The merged window
+        cap is the sum of both inputs' caps, so no sample is evicted:
+        ``merged.percentile(q)`` equals a percentile computed over the
+        concatenated observations, and the operation is associative and
+        commutative (tested in tests/test_fleetview.py)."""
+        if self.buckets_ms != other.buckets_ms:
+            raise ValueError(
+                f"cannot merge histograms with different buckets: "
+                f"{self.buckets_ms} != {other.buckets_ms}"
+            )
+        # lock ordering by id() so concurrent a.merge(b) / b.merge(a)
+        # cannot deadlock
+        first, second = sorted((self, other), key=id)
+        with first._lock, second._lock:
+            merged = LatencyHistogram(
+                self.buckets_ms,
+                window=self._window_cap + other._window_cap,
+            )
+            merged._counts = [
+                a + b for a, b in zip(self._counts, other._counts)
+            ]
+            merged.count = self.count + other.count
+            merged.sum_ms = self.sum_ms + other.sum_ms
+            merged._window = list(self._window) + list(other._window)
+            merged._window_ids = (
+                list(self._window_ids) + list(other._window_ids)
+            )
+        return merged
+
+
+class HistogramRegistry:
+    """(flow, stage) -> LatencyHistogram, lazily created.
+
+    The process-wide ``HISTOGRAMS`` instance plays the role METRIC_STORE
+    plays for gauges: the one-box aggregation point every exposition
+    endpoint reads.
+    """
+
+    def __init__(self, buckets_ms: Sequence[float] = DEFAULT_BUCKETS_MS):
+        self.buckets_ms = tuple(buckets_ms)
+        self._hists: Dict[Tuple[str, str], LatencyHistogram] = {}
+        self._lock = threading.Lock()
+
+    def get(self, flow: str, stage: str) -> LatencyHistogram:
+        key = (flow, stage)
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = LatencyHistogram(self.buckets_ms)
+            return h
+
+    def put(self, flow: str, stage: str, hist: LatencyHistogram) -> None:
+        """Install a pre-built histogram (the fleet view's merged
+        cross-replica histograms land here, obs/fleetview.py)."""
+        with self._lock:
+            self._hists[(flow, stage)] = hist
+
+    def observe(
+        self, flow: str, stage: str, ms: float,
+        trace_id: Optional[str] = None,
+    ) -> None:
+        self.get(flow, stage).observe(ms, trace_id=trace_id)
+
+    def percentile(self, flow: str, stage: str, q: float) -> Optional[float]:
+        key = (flow, stage)
+        with self._lock:
+            h = self._hists.get(key)
+        return h.percentile(q) if h is not None else None
+
+    def items(self) -> List[Tuple[str, str, LatencyHistogram]]:
+        with self._lock:
+            return [(f, s, h) for (f, s), h in self._hists.items()]
+
+    def stages(self, flow: str) -> List[str]:
+        with self._lock:
+            return sorted(s for (f, s) in self._hists if f == flow)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._hists.clear()
+
+
+# the one-box process-wide registry (exposition endpoints read this)
+HISTOGRAMS = HistogramRegistry()

@@ -381,7 +381,9 @@ def build_step_fn(
 @dataclass
 class SourceSpec:
     """The flow's input stream: its schema, projection chain, the table
-    its projected rows land in, and its batch capacity."""
+    its projected rows land in, its batch capacity, and its input conf
+    (``datax.job.input.default.*``), from which a host builds its
+    source."""
 
     name: str
     target: str
@@ -389,6 +391,7 @@ class SourceSpec:
     raw_schema: ViewSchema
     projection_steps: List[str]
     capacity: int
+    conf: SettingDictionary
 
 
 DEFAULT_SOURCE = "default"
@@ -546,7 +549,17 @@ class FlowProcessor:
             process_conf.get_string_seq_option("projection"),
         )
         self.primary = DEFAULT_SOURCE
+        # every declared source by name, which a host iterates: one here
+        self.specs: Dict[str, SourceSpec] = {self.primary: self.spec}
         self.batch_capacity = self.spec.capacity
+        # what a host reads of features this port refuses by conf
+        # (_refuse_unported): no mesh, no state-partition mirror, no
+        # buffer sanitizer, and no state tables whose loaders queue
+        # fallback events
+        self.mesh = None
+        self.state_mirror = None
+        self.buffer_sanitizer = None
+        self.state_events: List[dict] = []
 
         self.transform_text = _read_maybe_file(process_conf.get("transform")) or ""
 
@@ -651,6 +664,7 @@ class FlowProcessor:
             raw_schema=ViewSchema(raw_types),
             projection_steps=steps,
             capacity=capacity,
+            conf=conf,
         )
 
     def _build_pipeline(self, output_datasets: Optional[List[str]]):
@@ -772,6 +786,14 @@ class FlowProcessor:
         self.window_buffers: Dict[str, WindowBuffers] = self._fresh_rings()
         self._slot_counter = 0
         self._base_ms: Optional[int] = None
+        # held while a dispatch advances the rings, the slot counter and
+        # the time base, and while a window snapshot copies them: a host
+        # snapshots on its landing thread while its dispatch thread
+        # enqueues the next step, and the rings change in place
+        self._dispatch_lock = threading.Lock()
+        # the CUDA stream the last step ran on; a snapshot's copies queue
+        # behind it
+        self._step_stream: Optional["torch.cuda.Stream"] = None
         # host-side ingest counters (e.g. rows dropped for garbage
         # timestamps), drained into metrics at each collect
         self.ingest_stats: Dict[str, int] = {}
@@ -798,23 +820,55 @@ class FlowProcessor:
         timestamps are relative to, AND the string dictionary — ring
         columns hold dictionary ids, which only mean anything against
         the dictionary that encoded them. Numpy-only, in the JAX
-        package's layout. The arrays are copies: the next dispatch
-        updates the rings in place, and a view would change under the
-        caller."""
-        rings = {}
-        for table, buf in self.window_buffers.items():
-            rings[table] = {
-                "cols": {
-                    c: a.cpu().numpy().copy() for c, a in buf.cols.items()
-                },
-                "valid": buf.valid.cpu().numpy().copy(),
+        package's layout.
+
+        One consistent cut: the rings change in place at every dispatch,
+        so under the dispatch lock every column and ``valid`` is copied
+        (on CUDA into pinned host memory, queued on the stream of the
+        last step, behind it) and the counter, the time base and the
+        dictionary are read. No dispatch lands between two copies; the
+        caller waits for the copies after the lock is released."""
+        cuda = self.device.type == "cuda"
+        with self._dispatch_lock:
+            stream = self._step_stream if cuda else None
+            if cuda and stream is None:
+                stream = torch.cuda.current_stream(self.device)
+            copies = {
+                table: (
+                    {c: self._copy_out(a, stream) for c, a in buf.cols.items()},
+                    self._copy_out(buf.valid, stream),
+                )
+                for table, buf in self.window_buffers.items()
             }
+            counter, base_ms = self._slot_counter, self._base_ms
+            entries = self.dictionary.entries()
+            copied = None
+            if cuda:
+                copied = torch.cuda.Event()
+                copied.record(stream)
+        if copied is not None:
+            copied.synchronize()
         return {
-            "rings": rings,
-            "slot_counter": self._slot_counter,
-            "base_ms": self._base_ms,
-            "dictionary": self.dictionary.entries(),
+            "rings": {
+                table: {"cols": {c: t.numpy() for c, t in cols.items()},
+                        "valid": valid.numpy()}
+                for table, (cols, valid) in copies.items()
+            },
+            "slot_counter": counter,
+            "base_ms": base_ms,
+            "dictionary": entries,
         }
+
+    @staticmethod
+    def _copy_out(a: torch.Tensor, stream) -> torch.Tensor:
+        """A host copy of ring tensor ``a``: a clone on the CPU, or a
+        pinned buffer its non-blocking copy is queued into on ``stream``."""
+        if stream is None:
+            return a.clone()
+        with torch.cuda.stream(stream):
+            host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            host.copy_(a, non_blocking=True)
+        return host
 
     def restore_window_state(self, snap: Dict[str, object]) -> bool:
         """Restore a ``snapshot_window_state`` result — this port's or the
@@ -847,11 +901,32 @@ class FlowProcessor:
                  for c, a in saved["cols"].items()},
                 torch.from_numpy(np.array(saved["valid"], copy=True)).to(self.device),
             )
-        self.window_buffers = restored
-        self._slot_counter = int(snap.get("slot_counter", 0))
         base = snap.get("base_ms")
-        self._base_ms = int(base) if base is not None else None
+        with self._dispatch_lock:
+            self.window_buffers = restored
+            self._slot_counter = int(snap.get("slot_counter", 0))
+            self._base_ms = int(base) if base is not None else None
         return True
+
+    def commit(self) -> None:
+        """Commit state after a batch's sinks succeed. The JAX package
+        persists its state tables' pointers here; this port has no state
+        tables (they are refused by conf), so there is nothing to
+        commit."""
+
+    def device_memory_stats(self) -> Optional[Dict[str, int]]:
+        """The device allocator's live watermark under the JAX package's
+        keys: ``bytes_in_use`` and ``peak_bytes_in_use`` from
+        ``torch.cuda.memory_stats`` (``allocated_bytes.all.current`` and
+        ``.peak``) of the processor's card. None on the CPU, which
+        reports none, as in the JAX package."""
+        if self.device.type != "cuda":
+            return None
+        stats = torch.cuda.memory_stats(self.device)
+        return {
+            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+        }
 
     # -- per-batch host path ----------------------------------------------
     def _properties_id(self, base_ms: int, file_info: Optional[dict] = None) -> int:
@@ -887,11 +962,13 @@ class FlowProcessor:
         self._props_cache[key] = sid
         return sid
 
-    def encode_rows(self, rows: List[dict], base_ms: int) -> TableData:
+    def encode_rows(
+        self, rows: List[dict], base_ms: int, source: Optional[str] = None
+    ) -> TableData:
         """Host-side encoder of JSON-like row dicts (python loop)."""
         from ..core.batch import batch_from_rows
 
-        spec = self.spec
+        spec = self._spec_for(source)
         stats: Dict[str, int] = {}
         b = batch_from_rows(
             rows, spec.schema, spec.capacity, self.dictionary,
@@ -918,13 +995,18 @@ class FlowProcessor:
             )
         return TableData(cols, b.valid)
 
-    def encode_columns(self, np_cols: Dict[str, np.ndarray], n: int) -> TableData:
+    def encode_columns(
+        self, np_cols: Dict[str, np.ndarray], n: int,
+        source: Optional[str] = None,
+    ) -> TableData:
         """Host columns (the first ``n`` rows valid) as the raw batch on
-        the device, padded to capacity."""
-        cap = self.spec.capacity
+        the device, padded to capacity. On CUDA the copies queue on the
+        calling thread's current stream."""
+        spec = self._spec_for(source)
+        cap = spec.capacity
         fill_dtype = {"double": torch.float32, "boolean": torch.bool}
         cols = {}
-        for c, t in self.spec.raw_schema.types.items():
+        for c, t in spec.raw_schema.types.items():
             if c in np_cols:
                 a = np_cols[c]
                 pad = np.zeros(cap, dtype=a.dtype)
@@ -980,7 +1062,8 @@ class FlowProcessor:
         allocation. ``to_device=False`` returns it on the host, for a
         decode-ahead thread; ``dispatch_batch`` then makes the one
         host-to-device copy. ``packed=False`` decodes in the row layout
-        (jsonl only) and copies each column to the device."""
+        (kafka-v2 record values through ``kafka_wire``'s Python walker)
+        and copies each column to the device."""
         spec = self._spec_for(source)
         decoder = self._native_decoders.get(spec.name)
         if decoder is None:
@@ -992,13 +1075,9 @@ class FlowProcessor:
             return self._encode_packed_native(
                 decoder, data, base_ms, spec, fmt, to_device
             )
-        if fmt == "kafka-v2":
-            raise EngineException(
-                "kafka-v2 bytes in the row layout (packed=False) need the "
-                "Python record-batch walker (runtime/kafka_wire.py), which "
-                "is not ported to data_accelerator_tpu_torch yet"
-            )
         self.last_decoder_path = "native-mt"
+        if fmt == "kafka-v2":
+            data = self._kafka_values_to_lines(data)
         arrays, valid, rows, consumed = decoder.decode(data, spec.capacity)
         self._decode_shards = decoder.last_shards
         self._count_jsonl_malformed(data, consumed, rows)
@@ -1037,6 +1116,20 @@ class FlowProcessor:
             {c: _host_to_device(a, self.device) for c, a in np_cols.items()},
             _host_to_device(valid, self.device),
         )
+
+    def _kafka_values_to_lines(self, data: bytes) -> bytes:
+        """Python record-batch walk for the row layout: extract record
+        values (CRC verified, corrupt batches counted, compressed
+        rejected typed) and hand them to the line decoder. Well-formed
+        JSON never contains a raw newline, so the join is loss-free; a
+        malformed value containing one just counts as malformed
+        twice."""
+        from .kafka_wire import decode_record_batches
+
+        stats: Dict[str, int] = {}
+        recs, _next = decode_record_batches(data, stats=stats)
+        self._count_ingest("CorruptBatch", stats.get("corrupt_batches", 0))
+        return b"\n".join(v for _o, _ts, v in recs) + (b"\n" if recs else b"")
 
     def _count_jsonl_malformed(self, data: bytes, consumed: int,
                                rows: int) -> None:
@@ -1179,48 +1272,10 @@ class FlowProcessor:
             if raw.ingest_slot is not None:
                 ingest = (*raw.ingest_slot, raw.h2d_event)
         try:
-            # per-interval UDF refresh hooks; state changes rebuild the
-            # pipeline (CommonProcessorFactory.scala:351-353 onInterval).
-            # A throwing hook skips its refresh and surfaces as the
-            # UdfRefreshError metric rather than killing the batch loop.
-            registry = UdfRegistry(self.udfs)
-            if registry.refresh(batch_time_ms):
-                self._build_pipeline(self.output_datasets)
-                self._build_step()
-            if registry.last_errors:
-                self.udf_refresh_errors += len(registry.last_errors)
-            # whole-second base so device absolute-time math is exact
-            new_base_ms = (batch_time_ms // 1000) * 1000
-            if self._base_ms is None:
-                self._base_ms = new_base_ms
-            delta_ms = new_base_ms - self._base_ms
-            if abs(delta_ms) > 2**31 - 1:
-                # a restored checkpoint (or clock jump) more than ~24.8
-                # days out: every ring row is long past any window
-                # horizon, and the int32 rebase would overflow — start
-                # from clean rings
-                self.window_buffers = self._fresh_rings()
-                delta_ms = 0
-            self._base_ms = new_base_ms
-            counter = self._slot_counter
-            self._slot_counter += 1
-
-            # 0-d device scalars made by a fill, not copied from the host
-            base_s = torch.full(
-                (), new_base_ms // 1000, dtype=torch.int32, device=self.device
-            )
-            now_rel_ms = torch.full(
-                (), batch_time_ms - new_base_ms, dtype=torch.int32,
-                device=self.device,
-            )
-            # string-op dictionary tables: refreshed AFTER this batch's
-            # encode (so they cover every id the batch can contain),
-            # copied to the device only when the dictionary grew
-            aux = self.aux_tables.tables()
-            out_datasets, counts_vec = self._step(
-                raw, self.window_buffers, base_s, now_rel_ms, counter,
-                delta_ms, aux,
-            )
+            with self._dispatch_lock:
+                out_datasets, counts_vec, new_base_ms = self._advance(
+                    raw, batch_time_ms
+                )
         except Exception:
             # the step never launched: the pool slot may be reused once
             # its copy (if any) is done
@@ -1259,6 +1314,57 @@ class FlowProcessor:
             self._slots[key][parity] = (dev, host, handle._landed)
         handle.start_fetch()
         return handle
+
+    def _advance(self, raw, batch_time_ms: int):
+        """Advance the flow by one batch, under the dispatch lock: the
+        UDF refresh, the time base and slot counter, and the step
+        enqueued on the current stream. Returns (output tables, counts
+        vector, the batch's whole-second base)."""
+        # per-interval UDF refresh hooks; state changes rebuild the
+        # pipeline (CommonProcessorFactory.scala:351-353 onInterval).
+        # A throwing hook skips its refresh and surfaces as the
+        # UdfRefreshError metric rather than killing the batch loop.
+        registry = UdfRegistry(self.udfs)
+        if registry.refresh(batch_time_ms):
+            self._build_pipeline(self.output_datasets)
+            self._build_step()
+        if registry.last_errors:
+            self.udf_refresh_errors += len(registry.last_errors)
+        # whole-second base so device absolute-time math is exact
+        new_base_ms = (batch_time_ms // 1000) * 1000
+        if self._base_ms is None:
+            self._base_ms = new_base_ms
+        delta_ms = new_base_ms - self._base_ms
+        if abs(delta_ms) > 2**31 - 1:
+            # a restored checkpoint (or clock jump) more than ~24.8
+            # days out: every ring row is long past any window
+            # horizon, and the int32 rebase would overflow — start
+            # from clean rings
+            self.window_buffers = self._fresh_rings()
+            delta_ms = 0
+        self._base_ms = new_base_ms
+        counter = self._slot_counter
+        self._slot_counter += 1
+
+        # 0-d device scalars made by a fill, not copied from the host
+        base_s = torch.full(
+            (), new_base_ms // 1000, dtype=torch.int32, device=self.device
+        )
+        now_rel_ms = torch.full(
+            (), batch_time_ms - new_base_ms, dtype=torch.int32,
+            device=self.device,
+        )
+        # string-op dictionary tables: refreshed AFTER this batch's
+        # encode (so they cover every id the batch can contain),
+        # copied to the device only when the dictionary grew
+        aux = self.aux_tables.tables()
+        out_datasets, counts_vec = self._step(
+            raw, self.window_buffers, base_s, now_rel_ms, counter,
+            delta_ms, aux,
+        )
+        if self.device.type == "cuda":
+            self._step_stream = torch.cuda.current_stream(self.device)
+        return out_datasets, counts_vec, new_base_ms
 
     def _stage_output(
         self, name: str, t: TableData, cap: int, full_cap: int,

@@ -436,9 +436,23 @@ def test_pipeline_conf_validation_and_defaults():
 
 
 def test_row_layout_kafka_and_unknown_source_are_refused():
+    """Row-layout kafka-v2 (``packed=False``) runs through the port's
+    ``kafka_wire`` walker and matches the JAX package's columns and
+    counters, corrupt and malformed records included; an unknown source
+    is refused."""
     proc = _kv_proc()
-    with pytest.raises(EngineException, match="kafka_wire"):
-        proc.encode_json_bytes(b"", BASE_MS, packed=False, fmt="kafka-v2")
+    jproc = JFlowProcessor(JSettingDictionary(_kv_conf()), batch_capacity=16,
+                           output_datasets=["Out"])
+    blob = _kafka_blob()
+    got = proc.encode_json_bytes(blob, BASE_MS, packed=False, fmt="kafka-v2")
+    want = jproc.encode_json_bytes(blob, BASE_MS, packed=False, fmt="kafka-v2")
+    assert proc.last_decoder_path == jproc.last_decoder_path == "native-mt"
+    assert set(got.cols) == set(want.cols)
+    for c in want.cols:
+        assert np.array_equal(got.cols[c].numpy(), np.asarray(want.cols[c])), c
+    assert np.array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert proc.ingest_stats == jproc.ingest_stats
+    assert proc.ingest_stats["CorruptBatch"] == 1
     with pytest.raises(EngineException, match="unknown source"):
         proc.encode_json_bytes(_kv_blob(1), BASE_MS, source="weather")
 
