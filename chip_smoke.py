@@ -46,7 +46,28 @@ Phases, each printing JSON lines:
    CPU replay continued from it;
    host_cli: ``runtime.host.main`` on a conf file it writes, local
    simulated input at full capacity, the default pilot, 3 batches;
-7. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
+7. gen_conf: ``runtime.host.main`` on the conf the reference's control
+   plane generates for the config-1 queries (committed under
+   ``tests/data/generated_torch/`` at 262,144 rows a batch, with its alert
+   rules, conformance model and compile manifest), from its local
+   source for two batches past the conformance monitor's warm-up; the
+   firing set from ``GET /alerts``, the DX5xx events and
+   ``Conformance_*`` ratios (DX501-503 silent, DX522 fired exactly when
+   a judged ratio is past its band), the ``Conf_*`` gauges, the
+   manifest warm's ``Compile_ColdStart_Ms`` (no warm misses) and the
+   first batch's dispatch time against the same conf without the
+   manifest, run first and freed before the peak memory restarts;
+   storm: the two-stream window join (``__graft_entry__``'s StormDoors
+   flow, the port's copy, plus a reference-data query) through
+   ``StreamingHost.run_pipelined`` at depth 2 from two sockets: 262,144
+   IoT rows a batch and a weather stream whose three stations report
+   once every fifth batch; each batch's rows held against a CPU replay
+   of what each source's poll returned, per-source input counts, 0 join
+   rows dropped, 0 host syncs, a restart restoring both rings, and the
+   join's device time against one profiled step;
+   join_ops: the join ops alone, exact against the CPU, 0 host syncs,
+   timed with CUDA events;
+8. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
 
@@ -59,6 +80,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import gc
 import importlib.machinery
 import importlib.util
 import io
@@ -69,6 +91,7 @@ import sys
 import threading
 import time
 import warnings
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -495,6 +518,17 @@ def launch_counts(anomaly_udf) -> dict:
             "dx305_double": launch.launches("dx305_double")}
 
 
+KERNEL_NAMES = ("anomaly_score", "dx305_double")
+
+
+def process_launches() -> dict:
+    """Each kernel's process-wide count since ``launch.reset_launches()``:
+    for a path whose kernel wrappers are made inside it."""
+    from data_accelerator_tpu_torch.kernels import launch
+
+    return {name: launch.launches(name) for name in KERNEL_NAMES}
+
+
 def same_rows(gpu_rows, cpu_rows, what, rtol=1e-4):
     if len(gpu_rows) != len(cpu_rows):
         raise AssertionError(f"{what}: {len(gpu_rows)} rows on the card, "
@@ -656,6 +690,139 @@ def make_json_payload(rs, n_rows, alert_rate=0.01) -> bytes:
         for i in range(n_rows)
     ]
     return ("\n".join(lines) + "\n").encode()
+
+
+# -- the StormDoors flow: the port's copy of
+# __graft_entry__._flow_conf(multi=True), plus a reference-data query --
+WEATHER_SCHEMA = json.dumps({
+    "type": "struct",
+    "fields": [
+        {"name": "stationId", "type": "long", "nullable": False,
+         "metadata": {"allowedValues": [150, 32, 88]}},
+        {"name": "windSpeed", "type": "double", "nullable": False,
+         "metadata": {"minValue": 0, "maxValue": 120}},
+    ],
+})
+GRAFT_IOT_SCHEMA = json.dumps({
+    "type": "struct",
+    "fields": [
+        {"name": "deviceDetails", "type": {"type": "struct", "fields": [
+            {"name": "deviceId", "type": "long", "nullable": False,
+             "metadata": {"allowedValues": [1, 2, 3, 4, 5, 6, 7, 8]}},
+            {"name": "deviceType", "type": "string", "nullable": False,
+             "metadata": {"allowedValues": ["DoorLock", "Heating", "WindSpeed"]}},
+            {"name": "homeId", "type": "long", "nullable": False,
+             "metadata": {"allowedValues": [150, 32, 88]}},
+            {"name": "status", "type": "long", "nullable": False,
+             "metadata": {"allowedValues": [0, 1]}},
+            {"name": "temperature", "type": "double", "nullable": False,
+             "metadata": {"minValue": 0, "maxValue": 100}},
+        ]}, "nullable": False, "metadata": {}},
+    ],
+})
+STORM_TRANSFORM = TRANSFORM.split("--DataXQuery--\nScored")[0] + (
+    "--DataXQuery--\n"
+    "StormDoors = SELECT a.deviceId, a.homeId, b.windSpeed "
+    "FROM DoorEvents a INNER JOIN Weather_10seconds b "
+    "ON a.homeId = b.stationId WHERE b.windSpeed > 50\n"
+)
+DOOR_HOMES_QUERY = (
+    "--DataXQuery--\n"
+    "DoorHomes = SELECT a.deviceId, h.city FROM DoorEvents a "
+    "INNER JOIN homes h ON a.homeId = h.homeId "
+    "WHERE a.deviceType = 'DoorLock' AND a.status = 0\n"
+)
+STORM_OUTPUTS = ["OpenDoors", "HeatAvg", "StormDoors", "DoorHomes"]
+HOMES = ((150, "Seattle"), (32, "Redmond"), (88, "Bellevue"))
+# the weather stream's batch capacity, and the window's join bound: at
+# most 2 readings of station 150 in the 10 s window, each joined by
+# every IoT row of a batch (all at homeId 150)
+WEATHER_CAPACITY = 1024
+STORM_JOIN_CAPACITY = 2 * CAPACITY
+
+
+def storm_conf(tmp_dir: str, capacity: int = CAPACITY,
+               weather_capacity: int = WEATHER_CAPACITY,
+               homes_csv: str = "homes.csv",
+               join_capacity: int = STORM_JOIN_CAPACITY) -> dict:
+    """The two-source StormDoors flow (IoT + weather, the current IoT
+    batch joined against a 10 s window of the weather stream) with the
+    DoorHomes reference-data query, its transform written under
+    ``tmp_dir``."""
+    Path(tmp_dir).mkdir(parents=True, exist_ok=True)
+    tpath = Path(tmp_dir) / "flow.transform"
+    tpath.write_text(STORM_TRANSFORM + DOOR_HOMES_QUERY, encoding="utf-8")
+    return {
+        "datax.job.name": "GraftIoT",
+        "datax.job.input.default.streaming.intervalinseconds": "1",
+        "datax.job.process.timestampcolumn": "eventTimeStamp",
+        "datax.job.process.watermark": "0 second",
+        "datax.job.process.transform": str(tpath),
+        "datax.job.process.timewindow.DataXProcessedInput_5seconds"
+        ".windowduration": "5 seconds",
+        "datax.job.process.projection": (
+            "current_timestamp() AS eventTimeStamp\nRaw.*"
+        ),
+        "datax.job.input.sources.default.inputtype": "local",
+        "datax.job.input.sources.default.blobschemafile": GRAFT_IOT_SCHEMA,
+        "datax.job.input.sources.weather.inputtype": "local",
+        "datax.job.input.sources.weather.blobschemafile": WEATHER_SCHEMA,
+        "datax.job.input.sources.weather.target": "Weather",
+        "datax.job.process.timewindow.Weather_10seconds"
+        ".windowduration": "10 seconds",
+        "datax.job.input.sources.weather.projection": (
+            "current_timestamp() AS eventTimeStamp\nRaw.*"
+        ),
+        "datax.job.process.batchcapacity": str(capacity),
+        "datax.job.input.sources.weather.streaming.maxbatchsize":
+            str(weather_capacity),
+        "datax.job.process.joincapacity": str(join_capacity),
+        "datax.job.input.default.referencedata.homes.path": homes_csv,
+    }
+
+
+def write_homes_csv(path: str) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("homeId,city\n")
+        f.writelines(f"{h},{c}\n" for h, c in HOMES)
+
+
+def iot_lines(rs, n_rows: int) -> bytes:
+    """One IoT batch: ``make_json_payload`` (every row at homeId 150)."""
+    return make_json_payload(rs, n_rows)
+
+
+def weather_lines(rs, batch: int) -> bytes:
+    """The weather stream's batch ``batch``: the three stations report
+    once every fifth batch, staggered (150 at batches 0 and 5, 32 at 1
+    and 6, 88 at 2 and 7); wind speed uniform 0-120, drawn every batch."""
+    wind = rs.uniform(0, 120)
+    k = batch % 5
+    if k >= len(HOMES):
+        return b""
+    return b'{"stationId":%d,"windSpeed":%.3f}\n' % (HOMES[k][0], wind)
+
+
+# -- the generated conf: the reference control plane's output for a
+# designer flow of the config-1 queries, committed with its files --
+GEN_FLOW = "GenConfig1"
+GEN_PLACEHOLDER = "@GENDIR@"
+GEN_FIXTURE = ROOT / "tests" / "data" / "generated_torch"
+
+
+def materialize_generated_conf(dest, src=GEN_FIXTURE) -> Path:
+    """Copy the generated job directory ``src`` to ``dest``, its
+    placeholder replaced by ``dest``; returns the conf file's path."""
+    dest = Path(dest)
+    dest.mkdir(parents=True, exist_ok=True)
+    conf = None
+    for p in sorted(Path(src).iterdir()):
+        out = dest / p.name
+        out.write_text(p.read_text(encoding="utf-8").replace(GEN_PLACEHOLDER, str(dest)),
+                       encoding="utf-8")
+        if p.suffix == ".conf":
+            conf = out
+    return conf
 
 
 class SyncCount:
@@ -1071,7 +1238,7 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
     encode, dispatch = proc.encode_json_bytes, proc.dispatch_batch
 
     def encode_rec(data, base_ms, **kw):
-        rec["encoded"].append((data, base_ms))
+        rec["encoded"].append((data, base_ms, kw.get("source")))
         return encode(data, base_ms, **kw)
 
     def dispatch_rec(raw, batch_time_ms):
@@ -1094,6 +1261,7 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
         return snap
 
     proc.snapshot_window_state = snapshot_timed
+    rec["sources"] = len(host.sources)
     save = host.window_checkpointer.save
 
     def save_timed(snap):
@@ -1124,13 +1292,18 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
 
 
 def replay_on_cpu(cpu, rec, outputs, what, start=0) -> dict:
-    """The recorded batches through a CPU processor, one at a time: every
-    sink's rows must equal the card's (ints exact, floats rtol 1e-4);
-    returns the rows per output."""
+    """The recorded batches through a CPU processor, one at a time, each
+    source's bytes as its poll returned them: every sink's rows must
+    equal the card's (ints exact, floats rtol 1e-4); returns the rows
+    per output."""
     rows_out = {n: 0 for n in outputs}
-    for b, ((data, base_ms), t_ms) in enumerate(zip(rec["encoded"], rec["times"])):
-        datasets, _m = cpu.dispatch_batch(
-            cpu.encode_json_bytes(data, base_ms), t_ms).collect_tables()
+    k = rec["sources"]
+    for b, t_ms in enumerate(rec["times"]):
+        raws = {
+            source or cpu.primary: cpu.encode_json_bytes(data, base_ms, source=source)
+            for data, base_ms, source in rec["encoded"][k * b:k * (b + 1)]
+        }
+        datasets, _m = cpu.dispatch_batch(raws, t_ms).collect_tables()
         for name in outputs:
             same_rows(rec["rows"][(t_ms, name)], datasets[name],
                       f"{what} batch {start + b} {name}")
@@ -1302,6 +1475,460 @@ def phase_host_cli(nvidia_smi: str) -> int:
     return launches
 
 
+class DispatchTimes:
+    """Records each processor's ``dispatch_batch`` times while entered,
+    less a manifest warm's (batch time 0)."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(list)
+
+    def __enter__(self):
+        # the processor class the host builds
+        from data_accelerator_tpu_torch.runtime.host import FlowProcessor
+
+        self._cls, self._orig = FlowProcessor, FlowProcessor.dispatch_batch
+        times = self.ms
+
+        def timed(proc, raw, batch_time_ms=None):
+            t0 = time.perf_counter()
+            h = self._orig(proc, raw, batch_time_ms)
+            if batch_time_ms != 0:
+                times[id(proc)].append((time.perf_counter() - t0) * 1e3)
+            return h
+
+        FlowProcessor.dispatch_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.dispatch_batch = self._orig
+
+
+def http_get_json(port: int, path: str):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return json.loads(r.read())
+
+
+def phase_gen_conf(nvidia_smi: str) -> dict:
+    """The conf the reference's control plane generates for the config-1
+    queries (``tests/data/generated_torch/``: alert rules, conformance
+    model, compile manifest) through ``runtime.host.main`` at full
+    capacity from the conf's local source, for two batches past the
+    conformance monitor's warm-up, so that its ratios are judged; before
+    it, the same conf without its manifest for the first batch's
+    dispatch time, freed before the peak memory restarts. Returns each
+    kernel's launches over both runs (the conf declares no kernel)."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.core.config import parse_conf_lines
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.obs import conformance as conf_mod
+    from data_accelerator_tpu_torch.obs.exposition import ObservabilityServer
+    from data_accelerator_tpu_torch.obs.histogram import HISTOGRAMS
+    from data_accelerator_tpu_torch.runtime import host as host_mod
+
+    allocated_at_start = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp:
+        conf_path = materialize_generated_conf(Path(tmp) / "job")
+        conf = parse_conf_lines(conf_path.read_text().splitlines())
+        warmup = int(conf.get("datax.job.process.conformance.warmup",
+                              conf_mod.DEFAULT_WARMUP_BATCHES))
+        batches = warmup + 2
+        cold_path = Path(tmp) / "cold.conf"
+        cold_path.write_text("".join(
+            line for line in conf_path.read_text().splitlines(keepends=True)
+            if not line.startswith("datax.job.process.compile.manifest=")))
+        runs = {}
+        launch.reset_launches()
+        with DispatchTimes() as dt:
+            t0 = time.perf_counter()
+            host = host_mod.main([f"conf={cold_path}", f"batches={CLI_BATCHES}"])
+            runs["no_manifest"] = (dt.ms[id(host.processor)], time.perf_counter() - t0)
+        # Hbm_PeakBytes (DX522's observation) is the allocator's peak since
+        # its last reset: the first host and its device tensors go first,
+        # so that the peak is the manifest run's own. Both runs write one
+        # flow's series into the process's metric store, read after the
+        # second
+        host.metric_logger.store.clear()
+        first = weakref.ref(host.processor)
+        del host
+        gc.collect()
+        torch.cuda.synchronize()
+        if first() is not None:
+            raise AssertionError("gen_conf: the first run's processor outlived its host")
+        allocated_before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with DispatchTimes() as dt:
+            t0 = time.perf_counter()
+            host = host_mod.main([f"conf={conf_path}", f"batches={batches}"])
+            runs["manifest"] = (dt.ms[id(host.processor)], time.perf_counter() - t0)
+        launches = process_launches()
+        dispatch_ms, seconds = runs["manifest"]
+        # the firing set as GET /alerts serves it, over the run's engine
+        srv = ObservabilityServer(host.health, histograms=HISTOGRAMS,
+                                  store=host.metric_logger.store, port=0,
+                                  alerts=host.alerts)
+        srv.start()
+        try:
+            alerts = http_get_json(srv.port, "/alerts")
+        finally:
+            srv.stop()
+    store = host.metric_logger.store
+    prefix = f"DATAX-{GEN_FLOW}:"
+
+    def series(metric):
+        return [p["val"] for p in store.points(prefix + metric)]
+
+    names = {k[len(prefix):] for k in store.keys(prefix)}
+    drift = store.points(prefix + "Conformance_Drift")
+    inputs = series("Input_DataXProcessedInput_Events_Count")
+    model = json.loads(conf["datax.job.process.conformance.model"])
+    warm_miss = series("Compile_WarmMiss_Count")
+    monitor = host.conformance
+    # the conf's maxrate is one batch a second: the host's backpressure
+    # may shrink a poll after a slow batch
+    if host.batches_processed != batches or inputs[0] != float(CAPACITY) \
+            or not all(inputs):
+        raise AssertionError(f"gen_conf: {host.batches_processed} batches of {inputs} rows")
+    if not host.processor._aot_warmed or len(series("Compile_ColdStart_Ms")) != 1:
+        raise AssertionError("gen_conf: the manifest warm did not run once")
+    if any(warm_miss):
+        raise AssertionError(f"gen_conf: Compile_WarmMiss_Count {warm_miss}")
+    if host.alerts is None or monitor is None or host.conf_audit is None:
+        raise AssertionError("gen_conf: alerts, conformance or the conf audit is off")
+    if series("Output_HeatAvg_Events_Count") != [8.0] * batches \
+            or not all(series("Output_OpenDoors_Events_Count")):
+        raise AssertionError("gen_conf: unexpected output counts")
+    # the monitor judged batches past its warm-up: D2H (DX501), occupancy
+    # (DX502) and retraces (DX503) hold on this flow; DX522 fires exactly
+    # when a judged HBM ratio is past its band
+    d2h_ratio = series("Conformance_D2HBytes_Ratio")
+    hbm_ratio = series("Conformance_Hbm_Ratio")
+    codes = [e["code"] for e in drift]
+    if monitor.batches != batches or len(d2h_ratio) != batches \
+            or len(hbm_ratio) != batches:
+        raise AssertionError(f"gen_conf: the monitor saw {monitor.batches} batches, "
+                             f"{len(d2h_ratio)} D2H and {len(hbm_ratio)} HBM ratios")
+    if any(c in ("DX501", "DX502", "DX503") for c in codes) \
+            or max(d2h_ratio[warmup:]) > monitor.d2h_ratio_high:
+        raise AssertionError(f"gen_conf: DX5xx {codes}, D2H ratios {d2h_ratio}")
+    judged_past = any(r > monitor.hbm_ratio_high for r in hbm_ratio[warmup:])
+    if judged_past != ("DX522" in codes):
+        raise AssertionError(f"gen_conf: DX522 events {codes} against HBM ratios "
+                             f"{hbm_ratio} (band {monitor.hbm_ratio_high})")
+    emit({
+        "phase": "gen_conf", "conf": str(GEN_FIXTURE.relative_to(ROOT)),
+        "batches": host.batches_processed, "conformance_warmup": warmup,
+        "capacity": CAPACITY, "input_rows": inputs,
+        "seconds": seconds, "engine_exception": None,
+        "alerts_firing": [a["name"] for a in alerts["firing"]],
+        "alert_rules": [(r["name"], r["state"]) for r in alerts["rules"]],
+        "dx5xx_events": [{k: e.get(k) for k in ("code", "metric", "ratio", "observed",
+                                               "predicted")} for e in drift],
+        "conformance_gauges": {n: series(n) for n in sorted(names)
+                               if n.startswith("Conformance_")
+                               and n != "Conformance_Drift"},
+        "hbm_peak_bytes": series("Hbm_PeakBytes"),
+        "allocated_at_phase_start_bytes": allocated_at_start,
+        "allocated_before_manifest_run_bytes": allocated_before,
+        "model_hbm_bytes": model["totals"]["hbmBytes"],
+        "model_d2h_bytes_per_batch": model["totals"]["d2hBytesPerBatch"],
+        "transfer_d2h_bytes": series("Transfer_D2HBytes"),
+        "conf_gauges": {n: series(n)[-1] for n in sorted(names)
+                        if n.startswith("Conf_") and n.endswith("_Count")},
+        "compile_cold_start_ms": series("Compile_ColdStart_Ms")[0],
+        "compile_warm_miss_count": sum(warm_miss),
+        "dispatch_ms": dispatch_ms,
+        "first_dispatch_ms": {k: v[0][0] for k, v in runs.items()},
+        "init_plus_run_s": {k: v[1] for k, v in runs.items()},
+        "launches": launches, "card": nvidia_smi,
+    })
+    return launches
+
+
+STORM_FLOW = "ChipSmokeStorm"
+
+
+def storm_host_conf(tmp: str, ckpt_dir: str, homes_csv: str) -> dict:
+    """The StormDoors flow from two sockets through the host: depth 2,
+    background landing, checkpoints every second, the pilot off."""
+    conf = storm_conf(tmp, capacity=CAPACITY, weather_capacity=WEATHER_CAPACITY,
+                      homes_csv=homes_csv, join_capacity=STORM_JOIN_CAPACITY)
+    conf.update({
+        "datax.job.name": STORM_FLOW,
+        "datax.job.input.sources.default.inputtype": "socket",
+        "datax.job.input.sources.default.socket.port": "0",
+        "datax.job.input.sources.weather.inputtype": "socket",
+        "datax.job.input.sources.weather.socket.port": "0",
+        "datax.job.input.default.eventhub.maxrate": str(HOST_MAXRATE),
+        "datax.job.input.default.eventhub.checkpointdir": ckpt_dir,
+        "datax.job.input.default.eventhub.checkpointinterval": "1 second",
+        "datax.job.process.pipeline.depth": "2",
+        "datax.job.process.pilot.enabled": "false",
+    })
+    for out in STORM_OUTPUTS:
+        conf[f"datax.job.output.{out}.console.maxrows"] = "0"
+    return conf
+
+
+class WeatherFeed:
+    """Sends the weather stream's line for batch b to its socket as the
+    host polls batch b (waiting up to 0.2 s for it to arrive), so the
+    stations report staggered; a line may still land one poll late."""
+
+    def __init__(self, host, lines):
+        import socket
+
+        self.src = host.sources["weather"]
+        self.lines = list(lines)
+        self.conn = socket.create_connection(("127.0.0.1", self.src.port), timeout=60)
+        poll = self.src.poll_raw
+
+        def poll_fed(max_events):
+            if self.lines:
+                line = self.lines.pop(0)
+                if line:
+                    before = self.src._seq + len(self.src._buf)
+                    self.conn.sendall(line)
+                    deadline = time.monotonic() + 0.2
+                    while (self.src._seq + len(self.src._buf) == before
+                           and time.monotonic() < deadline):
+                        time.sleep(0.002)
+            return poll(max_events)
+
+        self.src.poll_raw = poll_fed
+
+    def close(self):
+        self.conn.close()
+
+
+def profile_step(proc, raws, batch_time_ms) -> dict:
+    """One step under ``torch.profiler``: device busy time (kernels and
+    copies on the one stream) against its wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        proc.dispatch_batch(raws, batch_time_ms).collect_counts()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    rows = [e for e in prof.key_averages()
+            if not e.key.startswith("aten::") and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_activities": sum(e.count for e in rows)}
+
+
+def phase_storm(seed: int, nvidia_smi: str) -> dict:
+    """The two-stream window join through ``StreamingHost`` from two
+    sockets; returns each kernel's launches in the run (the conf declares
+    no kernel)."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.ops.join import sort_join_indices
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    rs = np.random.RandomState(seed + 2)
+    payloads = [iot_lines(rs, CAPACITY) for _ in range(BATCHES + 1)]
+    # this flow's peak; what was allocated before it is printed beside it
+    allocated_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    weather = [weather_lines(rs, b) for b in range(BATCHES + 1)]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(LineCount()):
+        homes = str(Path(tmp) / "homes.csv")
+        write_homes_csv(homes)
+        conf = SettingDictionary(storm_host_conf(tmp, str(Path(tmp) / "ckpt"), homes))
+        launch.reset_launches()
+        t0 = time.perf_counter()
+        host = StreamingHost(conf)
+        init_s = time.perf_counter() - t0
+        sync = ThreadSyncCount()
+        rec = record_host(host, sync)
+        feed = WeatherFeed(host, weather[:BATCHES])
+        try:
+            feed_s = feed_socket(host.source.port, payloads[:BATCHES],
+                                 BATCHES * CAPACITY, host.source)
+            torch.cuda.synchronize()
+            with sync:
+                t_run = time.perf_counter()
+                host.run_pipelined(max_batches=BATCHES)
+                run_s = time.perf_counter() - t_run
+            launches = process_launches()
+        finally:
+            feed.close()
+            host.stop()
+        host2 = StreamingHost(conf)
+        restored = host2.processor.snapshot_window_state()
+        rec2 = record_host(host2, ThreadSyncCount())
+        feed2 = WeatherFeed(host2, weather[BATCHES:])
+        try:
+            feed_socket(host2.source.port, payloads[BATCHES:], CAPACITY, host2.source)
+            host2.run_pipelined(max_batches=1)
+        finally:
+            feed2.close()
+            host2.stop()
+
+        m = rec["metrics"]
+        iot_in = [x["Input_DataXProcessedInput_Events_Count"] for x in m]
+        wx_in = [x["Input_Weather_Events_Count"] for x in m]
+        dropped = [x["Output_StormDoors_JoinRowsDropped"] for x in m]
+        fed = sum(1 for w in weather[:BATCHES] if w)
+        if host.batches_processed != BATCHES or iot_in != [float(CAPACITY)] * BATCHES:
+            raise AssertionError(f"storm: {host.batches_processed} batches of {iot_in}")
+        polled = sum(1 for data, _b, src in rec["encoded"] if src == "weather"
+                     for ln in data.splitlines() if ln)
+        if sum(wx_in) != polled or not fed - 1 <= polled <= fed:
+            raise AssertionError(f"storm: weather {wx_in}, polled {polled} of {fed}")
+        if any(dropped):
+            raise AssertionError(f"storm: join rows dropped {dropped}")
+        if sync.count:
+            raise AssertionError(f"storm: {sync.count} host syncs in poll, encode "
+                                 f"and dispatch: {sorted(sync.sites)}")
+        if host2.window_restored_from != "local" or set(restored["rings"]) != {
+                "DataXProcessedInput", "Weather"}:
+            raise AssertionError(f"storm restart: {host2.window_restored_from}, "
+                                 f"rings {sorted(restored['rings'])}")
+        same_snapshot(rec["last_snap"], restored, "storm restart: restored window")
+        cpu = FlowProcessor(conf, device="cpu")
+        rows_out = replay_on_cpu(cpu, rec, STORM_OUTPUTS, "storm")
+        if not rows_out["StormDoors"] or not rows_out["DoorHomes"]:
+            raise AssertionError(f"storm produced no joined rows: {rows_out}")
+        cpu2 = FlowProcessor(conf, device="cpu")
+        if not cpu2.restore_window_state(rec["last_snap"]):
+            raise AssertionError("storm restart: the CPU replay refused the snapshot")
+        replay_on_cpu(cpu2, rec2, STORM_OUTPUTS, "storm restart", start=BATCHES)
+
+        # the join's share of one profiled step: the step on the card
+        # from the restored window, and its join alone at the same inputs
+        gpu = FlowProcessor(conf)
+        gpu.restore_window_state(rec["last_snap"])
+        t_ms = rec["times"][-1] + 1000
+        raws = {src or gpu.primary: gpu.encode_json_bytes(data, base, source=src)
+                for data, base, src in rec["encoded"][-2:]}
+        step = profile_step(gpu, raws, t_ms)
+        ring = gpu.window_buffers["Weather"]
+        right_keys = ring.cols["stationId"].reshape(-1)
+        right_valid = ring.valid.reshape(-1)
+        left = raws["default"].unpack() if hasattr(raws["default"], "unpack") else raws["default"]
+        left_keys = left.cols["deviceDetails.homeId"]
+
+        def join():
+            return sort_join_indices([left_keys], [right_keys], left.valid, right_valid,
+                                     STORM_JOIN_CAPACITY)
+
+        join_ms = cuda_ms_turns({"join": join})["join"]
+
+    def stats(key):
+        vals = [x[key] for x in m if key in x]
+        return {"median": statistics.median(vals), "max": max(vals), "all": vals}
+
+    emit({
+        "phase": "storm", "capacity": CAPACITY, "weather_capacity": WEATHER_CAPACITY,
+        "join_capacity": STORM_JOIN_CAPACITY, "batches": BATCHES, "depth": 2,
+        "seed": seed, "init_s": init_s, "feed_s": feed_s, "run_s": run_s,
+        "events_per_s": BATCHES * CAPACITY / run_s,
+        "input_events": {"DataXProcessedInput": iot_in, "Weather": wx_in},
+        "join_rows_dropped": dropped,
+        "storm_rows": [x["Output_StormDoors_Events_Count"] for x in m],
+        "door_homes_rows": [x["Output_DoorHomes_Events_Count"] for x in m],
+        "dispatch_ms": rec["dispatch_ms"],
+        "dispatch_ms_median": statistics.median(rec["dispatch_ms"]),
+        "latency_batch_ms": stats("Latency-Batch"),
+        "background_land_ms": stats("Transfer_Background_LandMs"),
+        "hbm_peak_bytes": m[-1].get("Hbm_PeakBytes"),
+        "allocated_at_phase_start_bytes": allocated_at_start,
+        "checkpoints": len(rec["save_ms"]),
+        "host_syncs_poll_encode_dispatch": sync.count,
+        "rows_out": rows_out,
+        "restart": {"restored_from": host2.window_restored_from,
+                    "rings": sorted(restored["rings"]),
+                    "restored_slot_counter": restored["slot_counter"]},
+        "profiled_step": step, "join_device_ms": join_ms,
+        "join_right_rows": int(right_keys.shape[0]),
+        "join_share_of_step": join_ms / step["device_busy_ms"],
+        "launches": launches, "match_cpu": True, "card": nvidia_smi,
+    })
+    return launches
+
+
+JOIN_BIG = (CAPACITY, 10_240)
+JOIN_RESIDUAL = (4096, 4096)
+
+
+def phase_join_ops(seed: int, nvidia_smi: str) -> dict:
+    """The join ops alone on the card against the CPU: indices,
+    validity, ``is_null`` and ``dropped`` exact, 0 host syncs, and each
+    op's device time (CUDA events). Returns each kernel's launches in
+    the checked calls (the ops call none)."""
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.ops import join as J
+
+    rs = np.random.RandomState(seed + 3)
+
+    def side(n, key_range):
+        return (torch.from_numpy(rs.randint(0, key_range, n).astype(np.int32)),
+                torch.from_numpy(rs.uniform(size=n) < 0.9),
+                torch.from_numpy(rs.randint(0, 1000, n).astype(np.int32)))
+
+    n, m = JOIN_BIG
+    # keys over m values: about 0.8 n pairs, inside 2 n, past n / 64
+    big = (side(n, m), side(m, m))
+    n2, m2 = JOIN_RESIDUAL
+    small = (side(n2, 64), side(m2, 64))
+
+    def cases(dev):
+        (lk, lv, _), (rk, rv, _) = [[t.to(dev) for t in s] for s in big]
+        (slk, slv, sla), (srk, srv, sra) = [[t.to(dev) for t in s] for s in small]
+
+        def residual(i, j):
+            return sla[i] > sra[j]
+
+        return {
+            "sort_join_inner": lambda: J.sort_join_indices([lk], [rk], lv, rv, 2 * n),
+            "sort_join_left_outer": lambda: J.sort_join_indices(
+                [lk], [rk], lv, rv, 2 * n, left_outer=True),
+            "sort_join_overflow": lambda: J.sort_join_indices([lk], [rk], lv, rv, n // 64),
+            "inner_join_residual": lambda: J.inner_join_indices(
+                [slk], [srk], slv, srv, n2 * 64, residual),
+            "left_join_residual": lambda: J.left_join_indices(
+                [slk], [srk], slv, srv, n2 * 64, residual),
+        }
+
+    cpu, gpu = cases("cpu"), cases("cuda")
+    results = {}
+    launch.reset_launches()
+    for name, fn in gpu.items():
+        want = cpu[name]()
+        with SyncCount() as sync:
+            got = fn()
+        for a, b in zip(want, got):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"join_ops {name}: the card differs from the CPU")
+        if sync.count:
+            raise AssertionError(f"join_ops {name}: {sync.count} host syncs "
+                                 f"{sorted(sync.sites)}")
+        results[name] = {"pairs_valid": int(want[2].sum()), "dropped": int(want[-1]),
+                         "out_capacity": int(want[2].shape[0])}
+    launches = process_launches()
+    if results["sort_join_overflow"]["dropped"] <= 0:
+        raise AssertionError("join_ops: the overflow case dropped nothing")
+    ms = cuda_ms_turns(gpu, runs=10, warmup=2)
+    emit({"phase": "join_ops", "sizes": {"sort": JOIN_BIG, "residual": JOIN_RESIDUAL},
+          "ops": {k: {**v, "device_ms": ms[k]} for k, v in results.items()},
+          "host_syncs": 0, "match_cpu": True, "launches": launches,
+          "card": nvidia_smi})
+    return launches
+
+
 def phase_ground_truth() -> None:
     """Each bad twin of the host-sync fixtures (DX300, DX301, DX305)
     raises on CUDA tensors under sync debug mode "error", at the sync
@@ -1404,6 +2031,13 @@ def main(argv=None) -> int:
     }
     host_launches = phase_host(args.seed, nvidia_smi)
     cli_launches = phase_host_cli(nvidia_smi)
+    # this slice's paths declare no kernel: each kernel's process-wide
+    # count, set to 0 just before each path and read just after, stays 0
+    slice_launches = {"gen_conf": phase_gen_conf(nvidia_smi),
+                      "storm": phase_storm(args.seed, nvidia_smi),
+                      "join_ops": phase_join_ops(args.seed, nvidia_smi)}
+    if any(n for counts in slice_launches.values() for n in counts.values()):
+        raise AssertionError(f"kernel launches on this slice's paths: {slice_launches}")
     # each path's own launches, its counts set to 0 just before it
     by_path = {
         "anomaly_score": {"flow": launches["anomaly_score"],
@@ -1412,6 +2046,9 @@ def main(argv=None) -> int:
                           "host_cli": cli_launches},
         "dx305_double": {"udf_flow": launches["dx305_double"]},
     }
+    for path, counts in slice_launches.items():
+        for name, n in counts.items():
+            by_path[name][path] = n
     phase_ground_truth()
 
     kernels = [

@@ -8,8 +8,9 @@ planning/execution (CommonProcessorFactory.scala:249-293).
 
 Tables flow through as ``TableData`` (columns dict + validity mask);
 capacities are static and derived per statement (input capacity for
-project/filter/group-by, sum for unions). JOIN is not ported yet: it
-waits for ``ops/join.py``.
+project/filter/group-by, configured bound for joins, sum for unions).
+Each view records one ``JoinSite`` per JOIN it lowered, as the JAX
+package's planner records them in its ``StagePlan``.
 
 Deferred string columns (CONCAT results etc.) materialize their device
 inputs as hidden ``__defer.`` columns so they ride along through
@@ -28,6 +29,7 @@ from ..core.config import EngineException
 from ..core.schema import StringDictionary
 from ..ops import compact_indices, distinct_mask, group_ids, segment_aggregate
 from ..ops.groupby import INT32_MAX, INT32_MIN, lexsort
+from ..ops.join import inner_join_indices, left_join_indices, sort_join_indices
 from .exprs import (
     AGGREGATE_FNS,
     ArrayValue,
@@ -42,7 +44,7 @@ from .exprs import (
     _gather,
     is_device,
 )
-from .sqlparser import Col, Expr, Func, Select, SelectItem, Star
+from .sqlparser import BinOp, Col, Expr, Func, Select, SelectItem, Star
 
 # ---------------------------------------------------------------------------
 # Schemas and table data
@@ -118,6 +120,25 @@ class _OrderKeyScope(Scope):
             return (_SRC_BINDING_PREFIX + b, col)
 
 
+# ---------------------------------------------------------------------------
+# Join sites: what the planner DECIDED for each JOIN, recorded at lowering
+# time for static cost analysis. Shapes are static, so every capacity and
+# algorithm choice below is exact.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class JoinSite:
+    """One JOIN in a statement's FROM chain, as actually lowered."""
+
+    kind: str  # "INNER" | "LEFT"
+    right_table: str
+    left_rows: int  # static rows feeding the left side of this site
+    right_rows: int
+    out_rows: int  # shared statement join capacity
+    algorithm: str  # "sort-merge" | "match-matrix"
+    n_eq_keys: int  # compiled equality key pairs
+    has_residual: bool  # non-equi ON terms force the match matrix
+
+
 @dataclass
 class CompiledView:
     name: str
@@ -133,6 +154,9 @@ class CompiledView:
     # on the materialized host rows instead — [(column, ascending)]
     host_order: Optional[List[Tuple[str, bool]]] = None
     host_limit: Optional[int] = None
+    # the JOINs this view lowered, in FROM order (a union's: every
+    # branch's), for static cost analysis
+    joins: Tuple[JoinSite, ...] = ()
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +241,9 @@ def _has_aggregate(e: Expr) -> bool:
 # ---------------------------------------------------------------------------
 @dataclass(frozen=True)
 class PlannerConfig:
+    # flow-configured absolute join output bound (conf
+    # process.joincapacity); by default the largest side, at least 64
+    join_capacity: Optional[int] = None
     # grouped outputs are compacted to the front, so their capacity can be
     # bounded below the input capacity — this is what keeps downstream
     # shapes small when grouping huge windowed tables (groups beyond the
@@ -306,6 +333,7 @@ class SelectCompiler:
         view = CompiledView(
             name, schema, capacity, run,
             select_values=compiled[0].select_values,
+            joins=tuple(s for c in compiled for s in c.joins),
         )
         if order_by or limit is not None:
             view = self._apply_order_limit(view, order_by, limit)
@@ -316,8 +344,8 @@ class SelectCompiler:
         if sel.from_table is None:
             raise EngineException(f"SELECT without FROM not supported ({name})")
 
-        # 1. FROM scope
-        scope, build_scope, scope_capacity = self._compile_from(sel)
+        # 1. FROM/JOIN scope
+        scope, build_scope, scope_capacity, join_sites = self._compile_from(sel)
 
         compiler = _AggCollector(scope, self.dictionary, self.udfs, aux=self.aux)
 
@@ -352,6 +380,7 @@ class SelectCompiler:
                 name, sel, scope, compiler, build_scope, scope_capacity,
                 where_fn, out_types, deferred, flat_outputs, out_values,
                 having_fn=having_c.fn if having_c is not None else None,
+                join_sites=join_sites,
             )
             view.select_values = out_values
             if sel.order_by or sel.limit is not None:
@@ -387,11 +416,17 @@ class SelectCompiler:
                 env2 = EvalEnv(scopes, base_s, now_rel_ms, shape)
                 keys = [k.fn(env2) for k in distinct_keys]
                 valid = distinct_mask(keys, valid)
+            meta = scopes.get("__meta")
+            if meta is not None and "join_dropped" in meta:
+                # rows lost to the join capacity bound ride along as a
+                # hidden column -> Output_<n>_JoinRowsDropped metric
+                cols["__overflow.joins"] = meta["join_dropped"].expand(shape)
             return TableData(cols, valid)
 
         schema = ViewSchema(out_types, deferred)
         view = CompiledView(
             name, schema, scope_capacity, run, select_values=out_values,
+            joins=tuple(join_sites),
         )
         if sel.order_by or sel.limit is not None:
             # Spark rejects DISTINCT + ORDER BY on unselected columns
@@ -411,26 +446,296 @@ class SelectCompiler:
         return self.catalog[table]
 
     def _compile_from(self, sel: Select):
-        """Returns (scope, build_scope_fn, capacity).
+        """Returns (scope, build_scope_fn, capacity, join_sites).
 
         build_scope_fn(tables, base_s, now) -> (scopes dict, valid, shape)
         """
-        if sel.joins:
-            raise EngineException(
-                "JOIN is not ported yet: it waits for ops/join.py"
-            )
         base = sel.from_table
         base_schema = self._view(base.name)
-        scope = Scope(
-            tables={base.binding: dict(base_schema.types)},
-            deferred={base.binding: self._deferred_exprs(base.binding, base_schema)},
-        )
+        base_cap = self.capacities[base.name]
 
-        def build(tables, base_s, now_rel_ms, b=base):
-            t = tables[b.name]
-            return {b.binding: t.cols}, t.valid, t.valid.shape
+        if not sel.joins:
+            scope = Scope(
+                tables={base.binding: dict(base_schema.types)},
+                deferred={base.binding: self._deferred_exprs(base.binding, base_schema)},
+            )
 
-        return scope, build, self.capacities[base.name]
+            def build(tables, base_s, now_rel_ms, b=base):
+                t = tables[b.name]
+                return {b.binding: t.cols}, t.valid, t.valid.shape
+
+            return scope, build, base_cap, []
+
+        # join chain: fold joins left-to-right into one merged table
+        bindings = [(base.binding, base.name, base_schema)]
+        for j in sel.joins:
+            bindings.append((j.table.binding, j.table.name, self._view(j.table.name)))
+        if len({b for b, _, _ in bindings}) != len(bindings):
+            raise EngineException("duplicate table bindings in join")
+
+        # merged column names: bare when unique, else qualified
+        all_cols: Dict[str, int] = {}
+        for _, _, sch in bindings:
+            for c in sch.types:
+                all_cols[c] = all_cols.get(c, 0) + 1
+            for c in sch.deferred:
+                all_cols[c] = all_cols.get(c, 0) + 1
+
+        def merged_name(binding: str, col: str) -> str:
+            return col if all_cols[col] == 1 else f"{binding}.{col}"
+
+        merged_types: Dict[str, str] = {}
+        merged_deferred: Dict[str, Tuple[DeferredPart, ...]] = {}
+        for b, _, sch in bindings:
+            for c, t in sch.types.items():
+                merged_types[merged_name(b, c)] = t
+            for c, parts in sch.deferred.items():
+                merged_deferred[merged_name(b, c)] = tuple(
+                    p if isinstance(p, str) else (merged_name(b, p[0]), p[1])
+                    for p in parts
+                )
+
+        merged_schema = ViewSchema(merged_types, merged_deferred)
+        out_cap = self._join_capacity(sel)
+
+        # compile each join's ON condition against the two-sided scope
+        join_plans = []
+        left_bindings = [bindings[0]]
+        for j, jb in zip(sel.joins, bindings[1:]):
+            lscope = Scope(
+                tables={b: dict(sch.types) for b, _, sch in left_bindings},
+            )
+            rscope = Scope(tables={jb[0]: dict(jb[2].types)})
+            eq_pairs, residual = self._split_on(j.on, lscope, rscope)
+            join_plans.append((j, jb, eq_pairs, residual))
+            left_bindings.append(jb)
+
+        # record the lowering decisions per site (cost-model metadata):
+        # the left side of site 0 is the base table; every later site
+        # reads the previous site's capacity-bounded output
+        join_sites: List[JoinSite] = []
+        left_rows = base_cap
+        for j, jb, eq_pairs, residual in join_plans:
+            join_sites.append(JoinSite(
+                kind=j.kind,
+                right_table=jb[1],
+                left_rows=left_rows,
+                right_rows=self.capacities[jb[1]],
+                out_rows=out_cap,
+                algorithm="match-matrix" if residual is not None
+                else "sort-merge",
+                n_eq_keys=len(eq_pairs),
+                has_residual=residual is not None,
+            ))
+            left_rows = out_cap
+
+        def build(tables, base_s, now_rel_ms):
+            # the left side accumulates as one merged column dict keyed
+            # by (binding, col)
+            b0, n0, sch0 = bindings[0]
+            acc_cols = {(b0, c): tables[n0].cols[c] for c in sch0.types}
+            acc_valid = tables[n0].valid
+            acc_dropped = torch.zeros((), dtype=torch.int32, device=acc_valid.device)
+
+            for j, jb, eq_pairs, residual in join_plans:
+                rb, rn, _rsch = jb
+                right = tables[rn]
+                aux_tables = tables.get("__aux", {})
+                lscopes = {"__aux": aux_tables}
+                for (b, c), arr in acc_cols.items():
+                    lscopes.setdefault(b, {})[c] = arr
+                lenv = EvalEnv(lscopes, base_s, now_rel_ms, acc_valid.shape)
+                renv = EvalEnv(
+                    {rb: right.cols, "__aux": aux_tables},
+                    base_s, now_rel_ms, right.valid.shape,
+                )
+                lkeys = [le.fn(lenv) for le, _ in eq_pairs]
+                rkeys = [re_.fn(renv) for _, re_ in eq_pairs]
+
+                res_fn = None
+                if residual is not None:
+                    def res_fn(li, ri, residual=residual, lscopes=lscopes,
+                               right=right, rb=rb, aux_tables=aux_tables):
+                        pl_scopes = {
+                            b: {c: arr[li] for c, arr in cols.items()}
+                            for b, cols in lscopes.items()
+                            if b != "__aux"
+                        }
+                        pl_scopes[rb] = {c: arr[ri] for c, arr in right.cols.items()}
+                        pl_scopes["__aux"] = aux_tables
+                        env2 = EvalEnv(pl_scopes, base_s, now_rel_ms, li.shape)
+                        return residual.fn(env2)
+
+                if res_fn is None:
+                    # pure equi-join: sort-merge, O((n+m+cap) log), the
+                    # path that keeps batch x windowed-table joins off
+                    # the O(n*m) match-matrix cliff
+                    li, ri, valid, is_null, dropped = sort_join_indices(
+                        lkeys, rkeys, acc_valid, right.valid, out_cap,
+                        left_outer=(j.kind == "LEFT"),
+                    )
+                    if j.kind != "LEFT":
+                        is_null = None
+                elif j.kind == "LEFT":
+                    li, ri, valid, is_null, dropped = left_join_indices(
+                        lkeys, rkeys, acc_valid, right.valid, out_cap, res_fn
+                    )
+                else:
+                    li, ri, valid, dropped = inner_join_indices(
+                        lkeys, rkeys, acc_valid, right.valid, out_cap, res_fn
+                    )
+                    is_null = None
+                acc_dropped = acc_dropped + dropped
+
+                new_cols = {}
+                for (b, c), arr in acc_cols.items():
+                    new_cols[(b, c)] = arr[li]
+                for c, arr in right.cols.items():
+                    gathered = arr[ri]
+                    if is_null is not None:
+                        # a LEFT join's unmatched rows carry NULL (0) on
+                        # the right side
+                        gathered = torch.where(
+                            is_null, torch.zeros_like(gathered), gathered
+                        )
+                    new_cols[(rb, c)] = gathered
+                acc_cols = new_cols
+                acc_valid = valid
+
+            # merge to final names under a single "" binding + per-binding
+            final_scopes: Dict[str, Dict[str, torch.Tensor]] = {"": {}}
+            for (b, c), arr in acc_cols.items():
+                final_scopes[""][merged_name(b, c)] = arr
+                final_scopes.setdefault(b, {})[c] = arr
+            # pairs lost to the join capacity bound ride along as scope
+            # metadata (never row-shaped) so the output view can surface
+            # them as an overflow column for the runtime's metric
+            final_scopes["__meta"] = {"join_dropped": acc_dropped}
+            return final_scopes, acc_valid, acc_valid.shape
+
+        # scope: merged columns under "" plus per-binding scopes
+        scope_tables = {"": dict(merged_types)}
+        scope_deferred = {"": self._deferred_exprs("", merged_schema)}
+        for b, _, sch in bindings:
+            scope_tables[b] = dict(sch.types)
+            scope_deferred[b] = self._deferred_exprs(b, sch)
+        scope = Scope(tables=scope_tables, deferred=scope_deferred)
+        return scope, build, out_cap, join_sites
+
+    def _join_capacity(self, sel: Select) -> int:
+        if self.config.join_capacity is not None:
+            return self.config.join_capacity
+        caps = [self.capacities[sel.from_table.name]] + [
+            self.capacities[j.table.name] for j in sel.joins
+        ]
+        return max(64, max(caps))
+
+    def _split_on(self, on: Expr, lscope: Scope, rscope: Scope):
+        """Split ON into equi pairs (left expr, right expr) + residual."""
+        conjuncts: List[Expr] = []
+
+        def walk(e: Expr):
+            if isinstance(e, BinOp) and e.op == "AND":
+                walk(e.left)
+                walk(e.right)
+            else:
+                conjuncts.append(e)
+
+        walk(on)
+        eq_pairs = []
+        residual_parts: List[Expr] = []
+        for c in conjuncts:
+            if isinstance(c, BinOp) and c.op == "=":
+                sides = [self._side_of(s, lscope, rscope) for s in (c.left, c.right)]
+                if sides == ["L", "R"]:
+                    eq_pairs.append((c.left, c.right))
+                    continue
+                if sides == ["R", "L"]:
+                    eq_pairs.append((c.right, c.left))
+                    continue
+            residual_parts.append(c)
+        if not eq_pairs:
+            raise EngineException(
+                "JOIN requires at least one equality between the two tables"
+            )
+        compiled_pairs = []
+        for le, re_ in eq_pairs:
+            lc = self._expr_compiler(lscope)
+            rc = self._expr_compiler(rscope)
+            lv = lc.compile(le)
+            rv = rc.compile(re_)
+            if isinstance(lv, HostStr) or isinstance(rv, HostStr):
+                # computed-string join key: equate the device hash pair;
+                # a third pair tags NULLs differently per side so a NULL
+                # key never matches anything (SQL join semantics)
+                lk = lc.hash_keys(lv)
+                rk = rc.hash_keys(rv)
+                if lk is None or rk is None:
+                    raise EngineException(
+                        "JOIN on a computed string requires both sides "
+                        "built from string columns/literals: "
+                        f"{le!r} = {re_!r}"
+                    )
+                compiled_pairs.append((lk[0], rk[0]))
+                compiled_pairs.append((lk[1], rk[1]))
+                compiled_pairs.append(
+                    (_null_tag(lk[2], 1), _null_tag(rk[2], 2))
+                )
+            else:
+                for v, side in ((lv, "left"), (rv, "right")):
+                    if not is_device(v):
+                        raise EngineException(
+                            f"JOIN {side} key must be device-computable: "
+                            f"{le!r} = {re_!r}"
+                        )
+                compiled_pairs.append((lv, rv))
+        residual = None
+        if residual_parts:
+            expr = residual_parts[0]
+            for p in residual_parts[1:]:
+                expr = BinOp("AND", expr, p)
+            both = Scope(tables={**lscope.tables, **rscope.tables})
+            residual = self._expr_compiler(both).compile_device(expr)
+        return compiled_pairs, residual
+
+    def _side_of(self, e: Expr, lscope: Scope, rscope: Scope) -> str:
+        """Which side an expression's columns come from: 'L', 'R', or '?'."""
+        cols: List[Col] = []
+
+        def walk(x):
+            if isinstance(x, Col):
+                cols.append(x)
+            for attr in ("left", "right", "operand", "expr"):
+                sub = getattr(x, attr, None)
+                if sub is not None and not isinstance(sub, (str, tuple)):
+                    walk(sub)
+            if isinstance(x, Func):
+                for a in x.args:
+                    if not isinstance(a, Star):
+                        walk(a)
+
+        walk(e)
+        if not cols:
+            return "?"
+        sides = set()
+        for c in cols:
+            inl = self._resolves(lscope, c)
+            inr = self._resolves(rscope, c)
+            if inl and not inr:
+                sides.add("L")
+            elif inr and not inl:
+                sides.add("R")
+            else:
+                sides.add("?")
+        return sides.pop() if len(sides) == 1 else "?"
+
+    @staticmethod
+    def _resolves(scope: Scope, c: Col) -> bool:
+        try:
+            scope.resolve(c.parts)
+            return True
+        except EngineException:
+            return False
 
     # -- select item expansion -------------------------------------------
     def _deferred_exprs(
@@ -788,13 +1093,14 @@ class SelectCompiler:
         return CompiledView(
             view.name, view.schema, capacity, run,
             select_values=view.select_values,
+            joins=view.joins,
         )
 
     # -- grouped path ----------------------------------------------------
     def _compile_grouped(
         self, name, sel, scope, compiler, build_scope, scope_capacity,
         where_fn, out_types, deferred, flat_outputs, out_values,
-        having_fn=None,
+        having_fn=None, join_sites=(),
     ) -> CompiledView:
         # group keys: resolve against select aliases first, then scope
         alias_map = {}
@@ -938,8 +1244,8 @@ class SelectCompiler:
             rep_scopes = {
                 b: {c: arr[rep_idx] for c, arr in cols.items()}
                 for b, cols in scopes.items()
-                # dictionary tables are not row-shaped
-                if b != "__aux"
+                # dictionary tables and join metadata are not row-shaped
+                if b not in ("__aux", "__meta")
             }
             rep_scopes["__agg"] = agg_results
             rep_scopes["__aux"] = aux_tables
@@ -954,10 +1260,26 @@ class SelectCompiler:
             # emit it as an overflow metric (Output_<n>_GroupsDropped)
             dropped = torch.clamp(num_groups - capacity, min=0).to(torch.int32)
             cols["__overflow.groups"] = dropped.expand(capacity)
+            meta = scopes.get("__meta")
+            if meta is not None and "join_dropped" in meta:
+                cols["__overflow.joins"] = meta["join_dropped"].expand(capacity)
             return TableData(cols, out_valid)
 
         schema = ViewSchema(out_types, deferred)
-        return CompiledView(name, schema, capacity, run)
+        return CompiledView(
+            name, schema, capacity, run,
+            joins=tuple(join_sites),
+        )
+
+
+def _null_tag(null_expr: CompiledExpr, tag: int) -> CompiledExpr:
+    """0 for non-null rows, a per-side tag for null rows — joined as an
+    extra equality key so null never equals null across sides."""
+
+    def run(env, n=null_expr, tag=tag):
+        return torch.where(n.fn(env), tag, 0).to(torch.int32)
+
+    return CompiledExpr("long", run, deps=null_expr.deps)
 
 
 def _distinct_count(vals, order, seg, valid_s, capacity):

@@ -67,6 +67,14 @@ class MetricName:
     and sinks use: the JAX package's registry of every engine-emitted
     metric name (``RUNTIME_METRIC_PATTERNS``) is not copied."""
 
+    # runtime conf audit (runtime/confaudit.py, run at every
+    # StreamingHost init): keys audited against the conf registry, keys
+    # no registry row governs, and keys whose value violated its row's
+    # type/bounds — runtime DX1006
+    CONF_AUDITED = "Conf_Audited_Count"
+    CONF_UNKNOWN = "Conf_Unknown_Count"
+    CONF_OUT_OF_BOUNDS = "Conf_OutOfBounds_Count"
+
     MetricSinkPrefix = "Sink_"
     LatencyPrefix = "Latency-"
 

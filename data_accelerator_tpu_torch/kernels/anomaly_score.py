@@ -16,7 +16,7 @@ import torch
 from . import build
 from .build import Source
 from .launch import DTYPE_CODES as _DTYPE_CODES
-from .launch import run_on_device
+from .launch import count_launch, run_on_device
 
 SOURCE = "csrc/anomaly_score.cu"
 
@@ -30,7 +30,8 @@ def anomaly_score_plain(x: torch.Tensor, mu: torch.Tensor) -> torch.Tensor:
 
 
 class AnomalyScoreKernel:
-    """Launches the CUDA kernel on CUDA tensors; counts its launches.
+    """Launches the CUDA kernel on CUDA tensors; counts its launches, in
+    ``launches`` and in the process-wide ``launch.launches(name)``.
 
     Takes float32 or int32 ``x`` and ``mu`` of one length, contiguous, on
     one CUDA device, and raises on anything else. Launches on the current
@@ -92,4 +93,5 @@ class AnomalyScoreKernel:
         if rc != 0:
             raise RuntimeError(f"anomaly_score launch failed: CUDA error {rc}")
         self.launches += 1
+        count_launch(self.name)
         return out

@@ -17,6 +17,7 @@ reads. Nothing here runs at import.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,6 +43,8 @@ HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 # a shared library loads once per process; its handle serves every caller
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# the list of first loads that ``loads_recorded`` keeps for this thread
+_RECORD = threading.local()
 
 Source = Union[str, os.PathLike]
 
@@ -130,7 +133,26 @@ def load(source: Source) -> ctypes.CDLL:
             (path,) = build([source])
             lib = ctypes.CDLL(str(path))
             _LOADED[key] = lib
+            loads = getattr(_RECORD, "loads", None)
+            if loads is not None:
+                loads.append(key)
         return lib
+
+
+@contextlib.contextmanager
+def loads_recorded():
+    """Within the block, the sources this thread loads for the first time
+    in the process (each a build unless its library was current) are
+    appended to the list it yields: a processor reads it around its step
+    to count kernel loads its warm-up did not cover."""
+    outer = getattr(_RECORD, "loads", None)
+    _RECORD.loads = loads = []
+    try:
+        yield loads
+    finally:
+        _RECORD.loads = outer
+        if outer is not None:
+            outer.extend(loads)
 
 
 def build_host(source: Source) -> Path:

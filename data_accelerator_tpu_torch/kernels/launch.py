@@ -53,8 +53,15 @@ _LAUNCHES: Counter = Counter()
 
 
 def launches(entry: str) -> int:
-    """Launches of ``entry`` through ``cuda_call`` since the last reset."""
+    """Launches of kernel ``entry`` in this process since the last reset:
+    ``cuda_call``'s by entry symbol, a kernel wrapper's by its name."""
     return _LAUNCHES[entry]
+
+
+def count_launch(entry: str) -> None:
+    """One more launch of kernel ``entry``, counted where it launched."""
+    with _LOCK:
+        _LAUNCHES[entry] += 1
 
 
 def reset_launches() -> None:
@@ -192,6 +199,5 @@ def cuda_call(
     )
     if rc != 0:
         raise RuntimeError(f"cuda_call {entry}: launch failed, CUDA error {rc}")
-    with _LOCK:
-        _LAUNCHES[entry] += 1
+    count_launch(entry)
     return out

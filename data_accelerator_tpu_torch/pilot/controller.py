@@ -42,8 +42,6 @@ taken. ``Pilot_Actuations_Count`` / ``Pilot_Depth`` /
 metric series.
 
 Copy of the JAX package's ``pilot/controller.py``. Trimmed: the
-port's hosts have no alert engine (``obs/alerts.py`` is not ported and
-``process.alerts.rules`` is refused), so ``from_conf`` passes none; the
 replay CLI (``pilot/__main__.py``) is not ported yet.
 """
 
@@ -455,6 +453,7 @@ class PilotController:
             store=host.metric_logger.store,
             tracer=host.tracer,
             metric_logger=host.metric_logger,
+            alerts=host.alerts,
             bucket=bucket,
             actuators=actuators,
         )

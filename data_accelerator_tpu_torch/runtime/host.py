@@ -12,15 +12,23 @@ recovery invariants, the same metrics, checkpoints and pilot, over the
 port's ``FlowProcessor`` on a CUDA card (``device="cuda"``, the default,
 which raises without one) or on the CPU when the caller asks for it.
 
+As in the JAX host: the boot conf audit (``runtime/confaudit.py``:
+``Conf_*`` gauges, DX1006 events), the conformance monitor
+(``obs/conformance.py``, DX501-503 and DX522, and DX520/521 when
+``process.conformance.latency`` pins them) and the alert rules
+(``obs/alerts.py``: evaluated after each batch's store flush, served on
+``GET /alerts`` and ``datax_alert_firing``, and voted into the pilot).
+One source per ``input.sources.*`` entry: each batch polls, decodes,
+acks and checkpoints every source.
+
 Not ported yet, and refused by conf with an ``EngineException`` that
-names them (``_refuse_unported``): alert rules (``obs/alerts.py``),
-conformance monitoring (``obs/conformance.py``), the fleet telemetry
-publisher (``obs/publisher.py``), the protocol monitor
+names them (``_refuse_unported``): the mesh sharding model
+(``process.mesh.model``, ``dist/``), the fleet telemetry publisher
+(``obs/publisher.py``), the protocol monitor
 (``runtime/protocolmonitor.py``) and machine-profile calibration files
 (``obs/calibrate.py``). Absent without a conf to refuse: the ``Calib_*``
-gauges (calibration), the boot conf audit (``runtime/confaudit.py``:
-``Conf_*`` gauges, DX1006 events) and the on-demand ``/profile`` capture
-(``obs/profiler.py``).
+gauges (calibration, so DX520/521 have no computed predictions) and the
+on-demand ``/profile`` capture (``obs/profiler.py``).
 
 CUDA state is per thread in PyTorch: the current device and stream.
 The decode-ahead worker (which copies ``LocalSource`` columns to the
@@ -49,11 +57,14 @@ from ..constants import MetricName
 from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.confmanager import ConfigManager
 from ..obs import telemetry, tracing
+from ..obs.alerts import AlertEngine
+from ..obs.conformance import ConformanceMonitor
 from ..obs.exposition import HealthState, ObservabilityServer
 from ..obs.histogram import HISTOGRAMS
 from ..obs.metrics import MetricLogger
 from ..obs.tracing import Tracer
 from ..pilot.controller import PilotController
+from . import confaudit
 from .checkpoint import OffsetCheckpointer, WindowStateCheckpointer
 from .processor import FlowProcessor
 from .sinks import OutputDispatcher, build_output_operators
@@ -68,11 +79,9 @@ def _refuse_unported(dict_: SettingDictionary) -> None:
     proc = SettingNamespace.JobProcessPrefix
     obs = proc + "observability."
     checks = [
-        (bool(dict_.get(proc + "alerts.rules")),
-         "alert rules (process.alerts.rules, obs/alerts.py)"),
-        (bool(dict_.get_sub_dictionary(proc + "conformance.").dict)
-         or bool(dict_.get(proc + "mesh.model")),
-         "conformance monitoring (process.conformance.*, obs/conformance.py)"),
+        (bool(dict_.get(proc + "mesh.model")),
+         "the mesh sharding model (process.mesh.model, dist/, "
+         "multi-GPU slice 8)"),
         (bool(dict_.get(proc + "fleet.publishurl")),
          "fleet telemetry (process.fleet.publishurl, obs/publisher.py)"),
         ((dict_.get(proc + "debug.protocolmonitor") or "").lower() == "true",
@@ -126,6 +135,23 @@ class StreamingHost:
                 tele_conf0.get_or_else("tracing", "true") or ""
             ).lower() != "false",
             parent=tele_conf0.get("parenttrace"),
+        )
+        # model-vs-observed conformance: config generation embeds the
+        # cost-model report (process.conformance.model); the monitor
+        # compares windowed observations against it and emits
+        # Conformance_* gauges + DX5xx drift events
+        self.conformance = ConformanceMonitor.from_conf(
+            dict_, flow=dict_.get_job_name()
+        )
+        # boot-time conf audit: the conf this host started with, replayed
+        # through the DX10xx lattice validator; unknown/out-of-bounds keys
+        # flight-record DX1006 (conf/violation events + Conf_* gauges).
+        # Advisory: never blocks boot.
+        self.conf_audit = confaudit.from_conf(
+            dict_,
+            subject="host",
+            telemetry=self.telemetry,
+            metric_logger=self.metric_logger,
         )
 
         input_conf = dict_.get_sub_dictionary(SettingNamespace.JobInputPrefix)
@@ -183,6 +209,17 @@ class StreamingHost:
             stall_fail_ms=obs_conf.get_double_option("stallfailms"),
             stall_ewma_half_life_ms=obs_conf.get_double_option("stallewmams"),
         )
+        # declarative alert rules from the generated conf
+        # (process.alerts.rules): evaluated every batch finish and on
+        # every /alerts and /metrics request over the same
+        # store/histogram/health surfaces the dashboards read
+        self.alerts = AlertEngine.from_conf(
+            dict_,
+            flow=dict_.get_job_name(),
+            store=self.metric_logger.store,
+            histograms=HISTOGRAMS,
+            health=self.health,
+        )
         # live device-memory watermark sampling (observability.hbmsample,
         # default on): Hbm_BytesInUse/Hbm_PeakBytes each batch, absent
         # on the CPU, which reports no allocator stats
@@ -199,6 +236,7 @@ class StreamingHost:
                 histograms=HISTOGRAMS,
                 store=self.metric_logger.store,
                 port=obs_port,
+                alerts=self.alerts,
             )
             self.obs_server.start()
 
@@ -549,8 +587,34 @@ class StreamingHost:
                 v = HISTOGRAMS.percentile(self.health.flow, stage, q)
                 if v is not None:
                     metrics[f"{stem}-p{q}"] = v
+        # model-vs-observed conformance: ratio gauges join this batch's
+        # metrics; drift transitions become typed flight-recorder events
+        # and store rows
+        if self.conformance is not None:
+            gauges, drift_events = self.conformance.observe(
+                metrics, batch_time_ms
+            )
+            metrics.update(gauges)
+            for ev in drift_events:
+                props = ev.to_props()
+                self.telemetry.track_event("conformance/drift", props)
+                self.metric_logger.send_metric_events(
+                    "Conformance_Drift", [props], batch_time_ms
+                )
+                logger.warning(
+                    "conformance drift %s: %s", ev.code, ev.message
+                )
         self.telemetry.batch_end(batch_time_ms, {"latencyMs": metrics["Latency-Batch"]})
         self.metric_logger.send_batch_metrics(metrics, batch_time_ms)
+        # alert evaluation AFTER the store flush so window aggregates
+        # include this batch; the firing set rides the health payload
+        # (readyz) and the Alerts_Firing series
+        if self.alerts is not None:
+            firing = self.alerts.evaluate()
+            self.health.record_alerts(firing)
+            self.metric_logger.send_metric(
+                "Alerts_Firing", float(len(firing)), batch_time_ms
+            )
         logger.info(
             "batch %d: %s",
             self.batches_processed + 1,

@@ -24,15 +24,31 @@ host memory; ``PendingBatch.collect_counts`` is the batch's one blocking
 read and ``collect_tables`` lands the tables that are already on their
 way.
 
-This slice runs single-source flows on one device. Mesh execution,
-multiple sources, state tables, reference data, AOT warm-up, partitioned
-state and debug guards are not ported yet; a flow whose conf asks for
-one of them raises ``EngineException``.
+Sources: one per ``input.sources.<name>`` (plus ``input.default.*`` as
+the primary), each with its own schema, projection, target table,
+capacity, pooled ingest matrix and host-to-device copy per batch; the
+window rings of every target advance together. CSV reference data
+(``input.referencedata.*``) loads onto the device once and joins like
+any table.
+
+``process.compile.manifest`` has an eager meaning here, since nothing is
+traced: at init the processor dispatches one zero-filled batch (on CUDA
+that builds and launches every kernel UDF the step calls), runs one
+zero-filled sized transfer per output, capacity bucket and A/B slot, and
+then resets every adaptive state the warm touched. A failure in the warm
+raises, where the JAX package logs it and compiles at the first batch.
+``compile.cachedir`` and ``compile.cacheurl`` are read by nothing: there
+is no compile cache to route.
+
+Mesh execution, state tables, partitioned state and debug guards are not
+ported yet; a flow whose conf asks for one of them raises
+``EngineException``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import threading
 import time
@@ -49,6 +65,7 @@ from ..compile.stringops import _MAX_ROUNDS, AuxTableBuilder
 from ..constants import ColumnName, DatasetName
 from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.schema import ColType, Schema, StringDictionary
+from ..kernels import build as kernel_build
 from ..native import NativeDecoder, PackedBufferPool
 from ..ops.compact import compact_indices
 from ..udf import UdfRegistry, load_udfs_from_conf
@@ -60,6 +77,8 @@ from .timewindow import (
     update_buffers,
     window_table,
 )
+
+logger = logging.getLogger(__name__)
 
 # default in-flight window of a pipelined host (conf
 # datax.job.process.pipeline.depth): decode/dispatch of batch N+k
@@ -120,6 +139,21 @@ def projection_select(step_text: str, from_table: str):
     return parse_select("SELECT " + ", ".join(items) + f" FROM {from_table}")
 
 
+def window_target(wname: str, targets: List[str]) -> str:
+    """Bind a window name to its projected table: the longest target
+    ``T`` such that the window is named ``T_<duration>``. A single-source
+    flow may name windows freely (they can only mean its one table);
+    multi-source flows must prefix-match or set the window's ``table``
+    conf key."""
+    best = ""
+    for t in targets:
+        if wname.startswith(t + "_") and len(t) > len(best):
+            best = t
+    if best:
+        return best
+    return targets[0] if len(targets) == 1 else ""
+
+
 def _read_maybe_file(value: str) -> str:
     """Conf values may inline content or point at a file (the reference
     always loads from storage; one-box flows inline the schema JSON)."""
@@ -149,6 +183,65 @@ def _host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def load_reference_data_tables(
+    dict_: SettingDictionary, dictionary: StringDictionary,
+    device: torch.device,
+) -> Dict[str, Tuple[ViewSchema, TableData]]:
+    """CSV reference data as joinable tables on ``device``
+    (reference: handler/ReferenceDataHandler.scala:17-66): column types
+    inferred as long (int32), double (float32) or string (dictionary
+    ids), every row valid."""
+    import csv
+
+    out: Dict[str, Tuple[ViewSchema, TableData]] = {}
+    groups = dict_.group_by_sub_namespace(
+        SettingNamespace.JobInputPrefix + "referencedata."
+    )
+    for name, sub in groups.items():
+        path = sub.get_string("path")
+        delimiter = sub.get_or_else("delimiter", ",") or ","
+        header = (sub.get_or_else("header", "true") or "true").lower() == "true"
+        with open(path, "r", encoding="utf-8") as f:
+            rows = [r for r in csv.reader(f, delimiter=delimiter) if r]
+        if not rows:
+            continue
+        if header:
+            col_names, data_rows = rows[0], rows[1:]
+        else:
+            col_names = [f"_c{i}" for i in range(len(rows[0]))]
+            data_rows = rows
+        types = {
+            c: _infer_csv_type([r[j] for r in data_rows if j < len(r)])
+            for j, c in enumerate(col_names)
+        }
+        cols: Dict[str, torch.Tensor] = {}
+        for j, cname in enumerate(col_names):
+            t = types[cname]
+            if t == "long":
+                arr = np.array([int(r[j]) for r in data_rows], dtype=np.int32)
+            elif t == "double":
+                arr = np.array([float(r[j]) for r in data_rows], dtype=np.float32)
+            else:
+                arr = np.array(
+                    [dictionary.encode(r[j]) for r in data_rows], dtype=np.int32
+                )
+            cols[cname] = torch.from_numpy(arr).to(device)
+        valid = torch.ones((len(data_rows),), dtype=torch.bool, device=device)
+        out[name] = (ViewSchema(types), TableData(cols, valid))
+    return out
+
+
+def _infer_csv_type(vals: List[str]) -> str:
+    for cast, kind in ((int, "long"), (float, "double")):
+        try:
+            for v in vals:
+                cast(v)
+            return kind
+        except ValueError:
+            pass
+    return "string"
 
 
 @dataclass
@@ -294,56 +387,67 @@ def build_step_fn(
     ts_col: Optional[str],
     windows: Dict[str, Tuple[str, float]],
     output_datasets: List[str],
+    refdata_names: List[str],
     ring_tables: List[str],
     pipeline: Pipeline,
-    proj_views: list,
-    target: str,
+    source_targets: List[Tuple[str, str]],
+    proj_views: Dict[str, list],
+    primary_target: str,
 ):
     """Build the per-batch step from its compiled parts: the port of the
-    JAX package's fused step (``runtime/processor.py::build_step_fn``)
-    for one source.
+    JAX package's fused step (``runtime/processor.py::build_step_fn``).
 
-    ``step(raw, rings, base_s, now_rel_ms, counter, delta_ms, aux)``
-    takes the raw batch (a ``TableData`` or a ``PackedRaw`` on the
-    device, whose rows it splits into columns), the window rings
-    (updated in place), the 0-d
+    ``step(raw, rings, refdata, base_s, now_rel_ms, counter, delta_ms,
+    aux)`` takes one raw batch per source (a ``TableData`` or a
+    ``PackedRaw`` on the device, whose rows it splits into columns),
+    the window rings (updated in place), the reference tables, the 0-d
     int32 time tensors, the host-side batch counter and base delta, and
-    the string-op tables. It returns (compacted output tables, counts
-    vector) without reading anything back from the device.
+    the string-op tables. ``source_targets`` lists (source, target
+    table) pairs. It returns (compacted output tables, counts vector)
+    without reading anything back from the device.
     """
 
     def step(
-        raw: Union[TableData, PackedRaw],
+        raw: Dict[str, Union[TableData, PackedRaw]],
         rings: Dict[str, WindowBuffers],
+        refdata: Dict[str, TableData],
         base_s: torch.Tensor,
         now_rel_ms: torch.Tensor,
         counter: int,
         delta_ms: int,
         aux: Dict[str, torch.Tensor],
     ):
-        # 1. projection into the target table
-        if isinstance(raw, PackedRaw):
-            raw = raw.unpack()  # split the single-transfer matrix
-        env: Dict[str, TableData] = {
-            "Raw": raw,
-            DatasetName.DataStreamRaw: raw,
-            "__aux": aux,
-        }
-        for v in proj_views:
-            env[v.name] = v.fn(env, base_s, now_rel_ms)
-        projected = env[target]
+        # 1. per-source projection into its target table (each source
+        # gets its own env so `Raw` binds to ITS raw table)
+        projected: Dict[str, TableData] = {}
+        for sname, target in source_targets:
+            rt = raw[sname]
+            if isinstance(rt, PackedRaw):
+                rt = rt.unpack()  # split the single-transfer matrix
+            env: Dict[str, TableData] = {
+                "Raw": rt,
+                DatasetName.DataStreamRaw: rt,
+                "__aux": aux,
+            }
+            for v in proj_views[sname]:
+                env[v.name] = v.fn(env, base_s, now_rel_ms)
+            projected[target] = env[target]
 
         # 2. ring updates, in place; each ring's slot derives from the
         # shared batch counter on the host
         for table in ring_tables:
             buf = rings[table]
-            update_buffers(buf, projected, counter % buf.slots, delta_ms, ts_col)
+            update_buffers(
+                buf, projected[table], counter % buf.slots, delta_ms, ts_col
+            )
 
-        tables: Dict[str, TableData] = {target: projected}
+        tables: Dict[str, TableData] = dict(projected)
         for wname, (table, dur_s) in windows.items():
             tables[wname] = window_table(
                 rings[table], int(dur_s * 1000), now_rel_ms, ts_col
             )
+        for rname in refdata_names:
+            tables[rname] = refdata[rname]
 
         out = pipeline.run(tables, base_s, now_rel_ms, aux=aux)
 
@@ -351,7 +455,7 @@ def build_step_fn(
         # host copies only [:count] rows; every per-batch scalar rides
         # ONE int32 vector
         datasets = {}
-        counts = [projected.count()]
+        counts = [projected[primary_target].count()]
         for n in output_datasets:
             t = out[n]
             idx, ov = compact_indices(t.valid, t.valid.shape[0])
@@ -370,8 +474,9 @@ def build_step_fn(
                 counts.append(
                     out[n].cols[key][0] if key in out[n].cols else missing
                 )
-        # per-target projected input count (the multi-source slot layout)
-        counts.append(projected.count())
+        # per-target projected input counts (multi-source metrics)
+        for _sname, target in source_targets:
+            counts.append(projected[target].count())
         counts_vec = torch.stack([c.to(torch.int32) for c in counts])
         return datasets, counts_vec
 
@@ -380,9 +485,10 @@ def build_step_fn(
 
 @dataclass
 class SourceSpec:
-    """The flow's input stream: its schema, projection chain, the table
-    its projected rows land in, its batch capacity, and its input conf
-    (``datax.job.input.default.*``), from which a host builds its
+    """One named input stream of a flow: its schema, projection chain,
+    the table its projected rows land in, its batch capacity, and its
+    input conf (``datax.job.input.default.*`` or
+    ``datax.job.input.sources.<name>.*``), from which a host builds its
     source."""
 
     name: str
@@ -544,13 +650,46 @@ class FlowProcessor:
 
         self.planner_config = self._planner_config(process_conf)
 
-        self.spec = self._make_spec(
-            DEFAULT_SOURCE, input_conf, default_capacity,
-            process_conf.get_string_seq_option("projection"),
+        # -- named sources ------------------------------------------------
+        self.specs: Dict[str, SourceSpec] = {}
+        source_groups = dict_.group_by_sub_namespace(
+            SettingNamespace.JobPrefix + "input.sources."
         )
-        self.primary = DEFAULT_SOURCE
-        # every declared source by name, which a host iterates: one here
-        self.specs: Dict[str, SourceSpec] = {self.primary: self.spec}
+        global_projection = process_conf.get_string_seq_option("projection")
+        if source_groups:
+            # the flow's main input (input.default.*) joins the map as
+            # the primary source when it is declared and the sources map
+            # does not name its own "default": "main input + additional
+            # sources"
+            if (
+                DEFAULT_SOURCE not in source_groups
+                and input_conf.get("blobschemafile")
+            ):
+                self.specs[DEFAULT_SOURCE] = self._make_spec(
+                    DEFAULT_SOURCE, input_conf, default_capacity,
+                    global_projection,
+                )
+            for sname, sub in source_groups.items():
+                self.specs[sname] = self._make_spec(
+                    sname, sub, default_capacity,
+                    # the flow-level projection applies to the default
+                    # source only; others declare their own
+                    global_projection if sname == DEFAULT_SOURCE else None,
+                )
+        else:
+            self.specs[DEFAULT_SOURCE] = self._make_spec(
+                DEFAULT_SOURCE, input_conf, default_capacity, global_projection
+            )
+        targets = [sp.target for sp in self.specs.values()]
+        if len(set(targets)) != len(targets):
+            raise EngineException(
+                f"input sources project into duplicate tables: {targets}"
+            )
+        self.primary = (
+            DEFAULT_SOURCE if DEFAULT_SOURCE in self.specs
+            else next(iter(self.specs))
+        )
+        self.spec = self.specs[self.primary]
         self.batch_capacity = self.spec.capacity
         # what a host reads of features this port refuses by conf
         # (_refuse_unported): no mesh, no state-partition mirror, no
@@ -563,23 +702,58 @@ class FlowProcessor:
 
         self.transform_text = _read_maybe_file(process_conf.get("transform")) or ""
 
-        # time windows (handler/TimeWindowHandler.scala:23-68); with one
-        # source every window targets its one table
+        # reference data: CSV tables on the device, loaded once
+        self.refdata = load_reference_data_tables(
+            dict_, self.dictionary, self.device
+        )
+
+        # time windows (handler/TimeWindowHandler.scala:23-68); each
+        # window targets one projected table (conf `table`, else the
+        # longest target that prefixes the window name, else the one
+        # target of a single-source flow)
         self.windows: Dict[str, Tuple[str, float]] = {}
         for wname, sub in dict_.group_by_sub_namespace(
             SettingNamespace.JobProcessPrefix + "timewindow."
         ).items():
-            table = sub.get("table") or self.spec.target
-            if table != self.spec.target:
+            table = sub.get("table") or window_target(wname, targets)
+            if table not in targets:
                 raise EngineException(
                     f"timewindow {wname} targets unknown table {table!r} "
-                    f"(projected tables: {[self.spec.target]})"
+                    f"(projected tables: {targets})"
                 )
             self.windows[wname] = (table, sub.get_duration("windowduration"))
+
+        # step rebuilds after init (a UDF on_interval refresh), drained
+        # into the Retrace_Count metric, the conformance monitor's DX503
+        # input: eager PyTorch has no trace, and a rebuild is the work
+        # the steady-state model leaves out
+        self.retrace_count = 0
+
+        # the compile manifest (process.compile.manifest: inline JSON or
+        # a file path, as generation embeds it); with compile.aot
+        # (default on when a manifest is present) the processor warms at
+        # init. compile.cachedir/cacheurl are read by nothing here.
+        comp_conf = process_conf.get_sub_dictionary("compile.")
+        self.compile_manifest: Optional[dict] = None
+        manifest_raw = _read_maybe_file(comp_conf.get("manifest"))
+        if manifest_raw:
+            try:
+                self.compile_manifest = json.loads(manifest_raw)
+            except ValueError as e:
+                logger.warning("compile manifest does not parse: %s", e)
+        aot = (
+            (comp_conf.get_or_else("aot", "true") or "").lower() != "false"
+        ) and self.compile_manifest is not None
+        # Compile_* metric deltas drained at collect (ColdStart_Ms,
+        # WarmMiss_Count)
+        self.compile_stats: Dict[str, float] = {}
+        self._aot_warmed = False
 
         self._build_pipeline(output_datasets)
         self._init_device_state()
         self._build_step()
+        if aot:
+            self._aot_warm()
 
     # -- build -----------------------------------------------------------
     @staticmethod
@@ -587,22 +761,15 @@ class FlowProcessor:
         """Raise for conf that asks for a feature this port lacks, naming
         it, rather than run the flow without it."""
         proc = SettingNamespace.JobProcessPrefix
-        inp = SettingNamespace.JobInputPrefix
         truthy = lambda key: (dict_.get(key) or "").lower() == "true"  # noqa: E731
         checks = [
             ((dict_.get_int_option(proc + "numchips") or 1) > 1,
              "mesh execution (process.numchips > 1)"),
-            (bool(dict_.group_by_sub_namespace(SettingNamespace.JobPrefix + "input.sources.")),
-             "multi-source flows (input.sources.*)"),
             (bool(dict_.group_by_sub_namespace(proc + "statetable.")),
              "state tables (process.statetable.*)"),
-            (bool(dict_.group_by_sub_namespace(inp + "referencedata.")),
-             "reference data (input.referencedata.*)"),
             (any(truthy(proc + "debug." + k)
                  for k in ("nans", "tracerleaks", "buffersanitizer")),
              "debug guards (process.debug.*)"),
-            (bool(dict_.get(proc + "compile.manifest")),
-             "AOT warm-up (process.compile.manifest)"),
             ((dict_.get_int_option(proc + "state.replicacount") or 1) > 1
              or truthy(proc + "state.filteringest"),
              "partitioned state (process.state.replicacount/filteringest)"),
@@ -614,17 +781,25 @@ class FlowProcessor:
                 )
 
     def _planner_config(self, process_conf: SettingDictionary) -> PlannerConfig:
+        kwargs = {}
         maxgroups = (
             process_conf.get_int_option("maxgroups")
             or process_conf.get_int_option("groupcapacity")
         )
-        if maxgroups is None:
-            return PlannerConfig()
-        if maxgroups < 1:
-            raise EngineException(
-                f"process.maxgroups must be >= 1, got {maxgroups}"
-            )
-        return PlannerConfig(max_group_capacity=maxgroups)
+        if maxgroups is not None:
+            if maxgroups < 1:
+                raise EngineException(
+                    f"process.maxgroups must be >= 1, got {maxgroups}"
+                )
+            kwargs["max_group_capacity"] = maxgroups
+        joincap = process_conf.get_int_option("joincapacity")
+        if joincap is not None:
+            if joincap < 1:
+                raise EngineException(
+                    f"process.joincapacity must be >= 1, got {joincap}"
+                )
+            kwargs["join_capacity"] = joincap
+        return PlannerConfig(**kwargs)
 
     def _make_spec(
         self,
@@ -642,7 +817,9 @@ class FlowProcessor:
         capacity = (
             conf.get_int_option("streaming.maxbatchsize") or default_capacity
         )
-        target = conf.get("target") or DatasetName.DataStreamProjection
+        target = conf.get("target") or (
+            DatasetName.DataStreamProjection if name == DEFAULT_SOURCE else name
+        )
 
         raw_types = dict(schema_to_view(schema).types)
         raw_types.setdefault(ColumnName.RawPropertiesColumn, "string")
@@ -675,40 +852,44 @@ class FlowProcessor:
         # transform share string-op tables; see compile/stringops.py)
         self.aux_registry = pc.aux
 
-        # 1. projection pipeline: Raw -> target table
-        spec = self.spec
-        proj_catalog = {
-            "Raw": spec.raw_schema,
-            DatasetName.DataStreamRaw: spec.raw_schema,
-        }
-        proj_caps = {
-            "Raw": spec.capacity,
-            DatasetName.DataStreamRaw: spec.capacity,
-        }
-        cur_name = "Raw"
-        self.projection_views = []
-        for i, step_text in enumerate(spec.projection_steps):
-            sel = projection_select(step_text, cur_name)
-            compiler = SelectCompiler(
-                proj_catalog, proj_caps, self.dictionary, self.udfs,
-                self.planner_config, aux=pc.aux,
-            )
-            vname = (
-                spec.target
-                if i == len(spec.projection_steps) - 1
-                else f"__proj{i}"
-            )
-            view = compiler.compile_select(vname, sel)
-            self.projection_views.append(view)
-            proj_catalog[vname] = view.schema
-            proj_caps[vname] = view.capacity
-            cur_name = vname
-        self.projected_schema = proj_catalog[spec.target]
+        # 1. per-source projection pipelines: Raw -> <target table>
+        self.projection_views: Dict[str, list] = {}
+        self.target_schemas: Dict[str, ViewSchema] = {}
+        for spec in self.specs.values():
+            proj_catalog = {
+                "Raw": spec.raw_schema,
+                DatasetName.DataStreamRaw: spec.raw_schema,
+            }
+            proj_caps = {
+                "Raw": spec.capacity,
+                DatasetName.DataStreamRaw: spec.capacity,
+            }
+            cur_name = "Raw"
+            views = []
+            for i, step_text in enumerate(spec.projection_steps):
+                sel = projection_select(step_text, cur_name)
+                compiler = SelectCompiler(
+                    proj_catalog, proj_caps, self.dictionary, self.udfs,
+                    self.planner_config, aux=pc.aux,
+                )
+                vname = (
+                    spec.target
+                    if i == len(spec.projection_steps) - 1
+                    else f"__proj{i}"
+                )
+                view = compiler.compile_select(vname, sel)
+                views.append(view)
+                proj_catalog[vname] = view.schema
+                proj_caps[vname] = view.capacity
+                cur_name = vname
+            self.projection_views[spec.name] = views
+            self.target_schemas[spec.target] = proj_catalog[spec.target]
+        self.projected_schema = self.target_schemas[self.spec.target]
 
-        # 2. window slots of the target table
+        # 2. window slots per windowed target table
         self.ring_slots: Dict[str, int] = {}
         for wname, (table, dur_s) in self.windows.items():
-            if self.timestamp_column not in self.projected_schema.types:
+            if self.timestamp_column not in self.target_schemas[table].types:
                 raise EngineException(
                     f"timewindow {wname} requires timestamp column "
                     f"{self.timestamp_column!r} in table {table}"
@@ -716,14 +897,19 @@ class FlowProcessor:
             slots = num_slots(dur_s, self.watermark_s, self.interval_s)
             self.ring_slots[table] = max(self.ring_slots.get(table, 1), slots)
 
-        # 3. main pipeline inputs
+        # 3. main pipeline inputs: every target, every window, every
+        # reference table
+        target_caps = self._target_caps()
         inputs: Dict[str, Tuple[ViewSchema, int]] = {
-            spec.target: (self.projected_schema, spec.capacity)
+            t: (sch, target_caps[t]) for t, sch in self.target_schemas.items()
         }
         for wname, (table, _dur) in self.windows.items():
             inputs[wname] = (
-                self.projected_schema, self.ring_slots[table] * spec.capacity
+                self.target_schemas[table],
+                self.ring_slots[table] * target_caps[table],
             )
+        for rname, (rschema, rtable) in self.refdata.items():
+            inputs[rname] = (rschema, rtable.capacity)
         self.pipeline: Pipeline = pc.compile_transform(self.transform_text, inputs)
 
         try:
@@ -768,16 +954,23 @@ class FlowProcessor:
             ts_col=self.timestamp_column,
             windows=dict(self.windows),
             output_datasets=list(self.output_datasets),
+            refdata_names=list(self.refdata),
             ring_tables=list(self.ring_slots),
             pipeline=self.pipeline,
-            proj_views=list(self.projection_views),
-            target=self.spec.target,
+            source_targets=[(n, sp.target) for n, sp in self.specs.items()],
+            proj_views=dict(self.projection_views),
+            primary_target=self.spec.target,
         )
 
+    def _target_caps(self) -> Dict[str, int]:
+        return {sp.target: sp.capacity for sp in self.specs.values()}
+
     def _fresh_rings(self) -> Dict[str, WindowBuffers]:
+        target_caps = self._target_caps()
         return {
             table: make_buffers(
-                self.projected_schema, self.spec.capacity, slots, self.device
+                self.target_schemas[table], target_caps[table], slots,
+                self.device,
             )
             for table, slots in self.ring_slots.items()
         }
@@ -1030,11 +1223,12 @@ class FlowProcessor:
 
     # -- JSON ingest --------------------------------------------------------
     def _spec_for(self, source: Optional[str]) -> SourceSpec:
-        if source not in (None, self.primary):
+        spec = self.specs.get(self.primary if source is None else source)
+        if spec is None:
             raise EngineException(
-                f"unknown source {source!r} (declared: {[self.primary]})"
+                f"unknown source {source!r} (declared: {list(self.specs)})"
             )
-        return self.spec
+        return spec
 
     def encode_json_bytes(
         self,
@@ -1245,8 +1439,11 @@ class FlowProcessor:
     ) -> "PendingBatch":
         """Queue one micro-batch on the device and return a handle.
 
-        ``raw``: the source's TableData or PackedRaw (or ``{"default":
-        ...}``; None runs an empty batch). A PackedRaw still on the host
+        ``raw``: one TableData or PackedRaw (routed to the primary
+        source) or a dict {source name -> TableData or PackedRaw};
+        sources absent from the dict run with an empty batch, so
+        independent streams may tick at their own pace (None runs an
+        empty batch on every source). A PackedRaw still on the host
         crosses to the card in one copy here. The device runs
         asynchronously: the caller can encode the next batch while this
         one computes. The handle's result copies start at once on a side
@@ -1256,31 +1453,39 @@ class FlowProcessor:
         t0 = time.time()
         if batch_time_ms is None:
             batch_time_ms = int(time.time() * 1000)
-        if isinstance(raw, dict):
-            unknown = [n for n in raw if n != self.primary]
-            if unknown:
-                raise EngineException(
-                    f"dispatch_batch got unknown source {unknown[0]!r} "
-                    f"(declared: {[self.primary]})"
-                )
-            raw = raw.get(self.primary)
         if raw is None:
-            raw = self.encode_columns({}, 0)
-        ingest = None
-        if isinstance(raw, PackedRaw):
-            raw = self._ship(raw)
-            if raw.ingest_slot is not None:
-                ingest = (*raw.ingest_slot, raw.h2d_event)
+            raw = {}
+        elif not isinstance(raw, dict):
+            raw = {self.primary: raw}
+        for name in raw:
+            if name not in self.specs:
+                raise EngineException(
+                    f"dispatch_batch got unknown source {name!r} "
+                    f"(declared: {list(self.specs)})"
+                )
+        raws: Dict[str, Union[TableData, PackedRaw]] = {}
+        # (pool, matrix, h2d event) per pooled ingest matrix the batch
+        # rides on, owned by the batch until it lands
+        ingest: List[tuple] = []
+        for name, spec in self.specs.items():
+            r = raw.get(name)
+            if r is None:
+                r = self.encode_columns({}, 0, source=name)
+            elif isinstance(r, PackedRaw):
+                r = self._ship(r)
+                if r.ingest_slot is not None:
+                    ingest.append((*r.ingest_slot, r.h2d_event))
+            raws[name] = r
         try:
             with self._dispatch_lock:
                 out_datasets, counts_vec, new_base_ms = self._advance(
-                    raw, batch_time_ms
+                    raws, batch_time_ms
                 )
         except Exception:
-            # the step never launched: the pool slot may be reused once
-            # its copy (if any) is done
-            if ingest is not None:
-                ingest[0].release(ingest[1], ingest[2])
+            # the step never launched: the pool slots may be reused once
+            # their copies (if any) are done
+            for pool, mat, copied in ingest:
+                pool.release(mat, copied)
             raise
         # sized output transfer: shrink each output's copy to its
         # adaptive capacity (power-of-two bucket over the count EWMA),
@@ -1328,6 +1533,7 @@ class FlowProcessor:
         if registry.refresh(batch_time_ms):
             self._build_pipeline(self.output_datasets)
             self._build_step()
+            self.retrace_count += 1
         if registry.last_errors:
             self.udf_refresh_errors += len(registry.last_errors)
         # whole-second base so device absolute-time math is exact
@@ -1358,10 +1564,15 @@ class FlowProcessor:
         # encode (so they cover every id the batch can contain),
         # copied to the device only when the dictionary grew
         aux = self.aux_tables.tables()
-        out_datasets, counts_vec = self._step(
-            raw, self.window_buffers, base_s, now_rel_ms, counter,
-            delta_ms, aux,
-        )
+        refdata = {n: t for n, (_s, t) in self.refdata.items()}
+        with kernel_build.loads_recorded() as loads:
+            out_datasets, counts_vec = self._step(
+                raw, self.window_buffers, refdata, base_s, now_rel_ms,
+                counter, delta_ms, aux,
+            )
+        if self._aot_warmed and loads:
+            # a kernel of this flow first built or loaded after its warm
+            self._count_compile("WarmMiss_Count", len(loads))
         if self.device.type == "cuda":
             self._step_stream = torch.cuda.current_stream(self.device)
         return out_datasets, counts_vec, new_base_ms
@@ -1387,6 +1598,9 @@ class FlowProcessor:
         ):
             return view, (_pinned_like(view) if cuda else None)
         key = (name, cap)
+        if self._aot_warmed and key not in self._slots:
+            # a capacity bucket the warm did not stage
+            self._count_compile("WarmMiss_Count", 1)
         ring = self._slots.setdefault(key, [None] * OUTPUT_SLOT_BUFFERS)
         parity = self._slot_parity.get(name, 0) % OUTPUT_SLOT_BUFFERS
         self._slot_parity[name] = parity + 1
@@ -1457,6 +1671,63 @@ class FlowProcessor:
         with self._stats_lock:
             self.transfer_stats[key] = self.transfer_stats.get(key, 0) + 1
 
+    def _count_compile(self, key: str, n: float) -> None:
+        with self._stats_lock:
+            self.compile_stats[key] = self.compile_stats.get(key, 0.0) + n
+
+    def _drain_compile_stats(self) -> Dict[str, float]:
+        with self._stats_lock:
+            stats, self.compile_stats = self.compile_stats, {}
+        return stats
+
+    # -- the manifest warm ------------------------------------------------
+    def _aot_warm(self) -> None:
+        """The eager meaning of ``process.compile.manifest``: take every
+        first-use cost off the first real batch, at init.
+
+        One zero-filled batch per source goes through the step, and only
+        its counts are collected (on CUDA every kernel UDF the step calls
+        builds and launches there); then one zero-filled sized transfer
+        per output, capacity bucket and A/B slot makes each transfer
+        slot's device and pinned host buffers. After it, every adaptive
+        state the warm touched starts over: the window rings, slot
+        counter and time base, the transfer EWMA, boost and counters.
+        ``Compile_ColdStart_Ms`` reports the warm's cost. A failure here
+        raises: there is no compile-at-first-batch to fall back to."""
+        t0 = time.time()
+        handle = self.dispatch_batch(None, batch_time_ms=0)
+        handle.collect_counts()
+        handle.abandon()
+        self._warm_transfers(handle.out_datasets)
+        self._init_device_state()
+        self.transfer_ewma.clear()
+        self.transfer_boost.clear()
+        self._slot_parity.clear()
+        with self._stats_lock:
+            self.transfer_stats.clear()
+        self._aot_warmed = True
+        self._count_compile("ColdStart_Ms", (time.time() - t0) * 1000.0)
+
+    def _warm_transfers(self, out_datasets: Dict[str, TableData]) -> None:
+        """Stage and copy a zero-filled table into every transfer slot an
+        output can be fetched through: each bucket of
+        ``transfer_buckets`` (the full capacity alone without sized
+        transfer), both A/B slots."""
+        cuda = self.device.type == "cuda"
+        for name, t in out_datasets.items():
+            zero = _map_table(t, torch.zeros_like)
+            full_cap = t.capacity
+            caps = transfer_buckets(full_cap) if self.sized_transfer else [full_cap]
+            for cap in caps:
+                for _ in range(OUTPUT_SLOT_BUFFERS):
+                    dev, host = self._stage_output(name, zero, cap, full_cap, [])
+                    if cuda:
+                        for c, v in dev.cols.items():
+                            host.cols[c].copy_(v, non_blocking=True)
+                        host.valid.copy_(dev.valid, non_blocking=True)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+
     def _drain_stats(self) -> Tuple[Dict[str, int], Dict[str, int]]:
         """The ingest and transfer counters since the last drain."""
         with self._stats_lock:
@@ -1523,7 +1794,7 @@ class PendingBatch:
         fetch_tables: Dict[str, TableData],
         fetch_hosts: Dict[str, Optional[TableData]],
         fetch_caps: Dict[str, int],
-        ingest: Optional[tuple] = None,
+        ingest: Optional[List[tuple]] = None,
     ):
         self.proc = proc
         # THIS batch's pipeline: a UDF onInterval refresh may rebuild
@@ -1531,7 +1802,7 @@ class PendingBatch:
         # must decode against the schemas of the step that produced them
         self.pipeline = pipeline
         self.out_names = out_names
-        self.target_names = [proc.spec.target]
+        self.target_names = [sp.target for sp in proc.specs.values()]
         self.out_datasets = out_datasets  # the full-capacity fallback
         # sized-transfer views: what start_fetch copies and collect reads
         self.fetch_tables = fetch_tables
@@ -1546,9 +1817,9 @@ class PendingBatch:
         # abandoned): the signal slot rotation checks before writing
         # into this batch's transfer buffers again
         self._landed = threading.Event()
-        # (pool, matrix, h2d event) of the pooled ingest matrix this
-        # batch's raw input came in; given back exactly once
-        self._ingest = ingest
+        # (pool, matrix, h2d event) of each pooled ingest matrix this
+        # batch's raw inputs came in; given back exactly once
+        self._ingest = ingest or []
         self._stream = proc._d2h_stream  # None on the CPU
         self._step_done = self._counts_event = self._tables_event = None
         self._host_counts: Optional[torch.Tensor] = None
@@ -1556,9 +1827,8 @@ class PendingBatch:
         self._transferred_rows = 0
 
     def _release_ingest(self) -> None:
-        ingest, self._ingest = self._ingest, None
-        if ingest is not None:
-            pool, mat, copied = ingest
+        ingest, self._ingest = self._ingest, []
+        for pool, mat, copied in ingest:
             pool.release(mat, copied)
 
     def start_fetch(self) -> None:
@@ -1759,6 +2029,12 @@ class PendingBatch:
         if proc.udf_refresh_errors:
             metrics["UdfRefreshError"] = float(proc.udf_refresh_errors)
             proc.udf_refresh_errors = 0
+        # step rebuilds since the last collect: the DX503 input
+        if proc.retrace_count:
+            metrics["Retrace_Count"] = float(proc.retrace_count)
+            proc.retrace_count = 0
+        for k, v in proc._drain_compile_stats().items():
+            metrics[f"Compile_{k}"] = float(v)
         # sized-transfer accounting: bytes actually moved device->host
         # for this batch and the valid/transferred row ratio (1.0 = wire
         # minimum)

@@ -266,11 +266,8 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("key,value,feature", [
     ("datax.job.process.numchips", "4", "mesh"),
-    ("datax.job.input.sources.weather.blobschemafile", IOT_SCHEMA, "multi-source"),
     ("datax.job.process.statetable.peaks.schema", "deviceId long", "state tables"),
-    ("datax.job.input.default.referencedata.homes.path", "homes.csv", "reference data"),
     ("datax.job.process.debug.nans", "true", "debug guards"),
-    ("datax.job.process.compile.manifest", "{}", "AOT warm-up"),
     ("datax.job.process.state.filteringest", "true", "partitioned state"),
 ])
 def test_unported_features_raise_by_name(key, value, feature):

@@ -5,9 +5,9 @@ off, through ``run`` and ``run_pipelined`` at depths 1 and 2, from JSON
 bytes (the decoder path) and from ``LocalSource`` columns
 (``encode_columns``). Per-batch sink rows must match (ints and ids
 exactly, floats within rtol 1e-5, as ``test_torch_flow.py``), the set
-of metric names must match less the families the port does not emit
-(``Calib_*``, ``Conf_*``), and so must the values of the count-valued
-metrics.
+of metric names must match less the family the port does not emit
+(``Calib_*``), and so must the values of the count-valued metrics,
+the boot audit's ``Conf_*`` gauges among them.
 
 Also here: the processor repairs the host needs (``source=`` on the
 encoders, ``SourceSpec.conf`` and ``specs``, the attributes the host
@@ -61,8 +61,8 @@ ANOMALY_CLASSES = {
     "jax": "data_accelerator_tpu.udf.samples:anomalyscore",
     "torch": "data_accelerator_tpu_torch.udf.samples:anomalyscore",
 }
-# families the JAX host emits and this port does not (ROADMAP §C)
-ABSENT_PREFIXES = ("Calib_", "Conf_")
+# the family the JAX host emits and this port does not (ROADMAP §C)
+ABSENT_PREFIXES = ("Calib_",)
 # metrics whose value measures wall clock, or depends on when the landing
 # thread finished a batch relative to later dispatches
 TIMING_METRICS = (
@@ -265,7 +265,7 @@ def test_host_matches_jax_host(kind, mode, depth, monkeypatch):
         _assert_same_rows(jrows[key], trows[key], key)
     assert sum(len(r) for (_t, d), r in trows.items() if d == "AnomalyAlerts")
 
-    # metric names: the JAX host's, less the families the port lacks
+    # metric names: the JAX host's, less the family the port lacks
     assert any(n.startswith("Calib_") for n in jnames)
     assert not any(n.startswith(ABSENT_PREFIXES) for n in tnames)
     expected = {n for n in jnames if not n.startswith(ABSENT_PREFIXES)}
@@ -469,9 +469,7 @@ def test_snapshots_stay_consistent_under_concurrent_dispatch():
 
 # -- refusals, absent families, entry points --------------------------------
 @pytest.mark.parametrize("key,value,feature", [
-    ("datax.job.process.alerts.rules", '[{"name": "r"}]', "obs/alerts.py"),
-    ("datax.job.process.conformance.model", "{}", "obs/conformance.py"),
-    ("datax.job.process.conformance.latency", "{}", "obs/conformance.py"),
+    ("datax.job.process.mesh.model", '{"totals": {}}', "dist/"),
     ("datax.job.process.fleet.publishurl", "objstore://fleet", "obs/publisher.py"),
     ("datax.job.process.debug.protocolmonitor", "true", "runtime/protocolmonitor.py"),
     ("datax.job.process.observability.calibrationfile", "/x/cal.json", "obs/calibrate.py"),
@@ -484,19 +482,39 @@ def test_unported_host_features_are_refused(key, value, feature):
 
 
 def test_absent_families_and_profile_endpoint():
-    """No ``Calib_*`` (calibration), ``Conf_*`` (boot conf audit) or
-    ``Profiler_*`` series, and ``/profile`` answers 501 naming
-    ``obs/profiler.py``."""
+    """No ``Calib_*`` (calibration) or ``Profiler_*`` series, and
+    ``/profile`` answers 501 naming ``obs/profiler.py``. The boot conf
+    audit's ``Conf_*`` gauges equal the JAX host's on the same conf."""
     conf = _host_conf("HostAbsent", "torch", {
         "datax.job.process.observability.port": "0",
+        # one key no registry row governs, one out of its bounds
+        "datax.job.process.nosuchknob": "1",
+        "datax.job.process.pilot.maxdepth": "0",
     })
+    jconf = dict(conf, **{
+        "datax.job.process.jar.udf.anomalyscore.class": ANOMALY_CLASSES["jax"],
+    })
+    jhost = jhost_mod.StreamingHost(JSettingDictionary(jconf))
+    jhost.stop()
     host = thost_mod.StreamingHost(SettingDictionary(conf), device="cpu")
     try:
+        jconf_gauges = {k.split(":", 1)[1]: jhost.metric_logger.store.points(k)[-1]["val"]
+                        for k in jhost.metric_logger.store.keys("DATAX-HostAbsent:")
+                        if k.split(":", 1)[1].startswith("Conf_")
+                        and k.endswith("_Count")}
+        assert set(jconf_gauges) == {"Conf_Audited_Count", "Conf_Unknown_Count",
+                                     "Conf_OutOfBounds_Count"}
+        assert jconf_gauges["Conf_Unknown_Count"] >= 1
+        assert host.conf_audit.metric_deltas() == jhost.conf_audit.metric_deltas()
+        assert host.conf_audit.events() == jhost.conf_audit.events()
         host.run_pipelined(max_batches=2)
         names = [k.split(":", 1)[1]
                  for k in host.metric_logger.store.keys("DATAX-HostAbsent:")]
         assert "Output_HeatAvg_Events_Count" in names
-        assert not [n for n in names if n.startswith(("Calib_", "Conf_", "Profiler_"))]
+        assert not [n for n in names if n.startswith(("Calib_", "Profiler_"))]
+        tconf_gauges = {n: host.metric_logger.store.points(f"DATAX-HostAbsent:{n}")[-1]["val"]
+                        for n in names if n.startswith("Conf_") and n.endswith("_Count")}
+        assert tconf_gauges == jconf_gauges
         base = f"http://127.0.0.1:{host.obs_server.port}"
         with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
             assert r.status == 200

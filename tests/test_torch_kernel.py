@@ -53,11 +53,12 @@ def test_udf_on_cpu_tensors_uses_plain_version_without_launching():
     udf = anomalyscore()
     assert isinstance(udf, CudaKernelUdf)
     x, mu = _inputs(1025, np.int32, seed=7)
+    launch.reset_launches()
     out = udf.fn(torch.from_numpy(x), torch.from_numpy(mu))
     np.testing.assert_allclose(
         out.numpy(), np.asarray(jax_anomalyscore().fn(x, mu)), rtol=0, atol=1e-6
     )
-    assert udf.launches == 0
+    assert udf.launches == 0 and launch.launches("anomaly_score") == 0
 
 
 def test_wrapper_refuses_cpu_tensors():
@@ -259,13 +260,14 @@ def test_launch_count_follows_calls_through_the_udf_on_card(cuda_device):
     udf = anomalyscore()
     x = _card_rows(1025, np.float32, 1, 5, cuda_device)
     mu = _card_rows(1025, np.int32, 0, 6, cuda_device)
+    launch.reset_launches()
     for _ in range(5):
         udf.fn(x, mu)
     with pytest.raises(TypeError, match="float32 or int32"):
         udf.fn(x.double(), mu)
     udf.fn(x[:0], mu[:0])
     torch.cuda.synchronize()
-    assert udf.launches == 5
+    assert udf.launches == 5 and launch.launches("anomaly_score") == 5
 
 
 @pytest.mark.cuda

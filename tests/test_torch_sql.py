@@ -8,6 +8,8 @@ reference defines; floats within rtol 1e-6 (a segmented sum may add in
 another order), NaN matching NaN.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -141,6 +143,35 @@ QUERIES = {
         "C = SELECT a, s FROM T WHERE CONCAT(s, CAST(a AS STRING)) = 'u-3' "
         "OR CONCAT('v', CAST(b AS STRING)) = CONCAT(s, '2')"
     ),
+    # joins (T against itself): sort-merge and match-matrix, INNER and
+    # LEFT, past the default capacity (the dropped pairs ride in
+    # __overflow.joins), a computed-string key, grouped and ordered
+    "join_inner": (
+        "J = SELECT a.k, a.a, b.x, b.s FROM T a JOIN T b ON a.k = b.k AND a.b = b.b"
+    ),
+    "join_overflow": "J = SELECT a.a, b.a AS ba FROM T a JOIN T b ON a.k = b.k",
+    "join_left": (
+        "J = SELECT a.k, a.a, b.a AS ba FROM T a LEFT JOIN T b "
+        "ON a.a = b.a AND a.s = b.s"
+    ),
+    "join_residual": (
+        "J = SELECT a.a, b.a AS ba FROM T a JOIN T b ON a.b = b.b AND a.a > b.a + 10"
+    ),
+    "join_left_residual": (
+        "J = SELECT a.a, b.x FROM T a LEFT JOIN T b ON a.k = b.k AND a.x < b.x - 5.0"
+    ),
+    "join_string_key": (
+        "J = SELECT a.a, b.b FROM T a JOIN T b "
+        "ON CONCAT(a.s, 'z') = CONCAT(b.s, 'z') AND a.k = b.b"
+    ),
+    "join_grouped": (
+        "J = SELECT a.k, COUNT(*) AS c, SUM(b.a) AS sb FROM T a JOIN T b "
+        "ON a.k = b.k AND a.b = b.b GROUP BY a.k"
+    ),
+    "join_ordered": (
+        "J = SELECT a.a, b.x FROM T a JOIN T b ON a.s = b.s AND a.b = b.b "
+        "ORDER BY b.x DESC, a.a LIMIT 9"
+    ),
     "chained_union": (
         "A1 = SELECT k, a FROM T WHERE a > 0\n--DataXQuery--\n"
         "A2 = SELECT k, a FROM T WHERE a < -10\n--DataXQuery--\n"
@@ -178,9 +209,80 @@ def test_int_string_hash_is_bit_equal_to_host_hash():
         assert pl.tolist() == [pow_len(str(int(v)), p) for v in vals]
 
 
-def test_join_raises_until_ported():
-    with pytest.raises(EngineException, match="JOIN is not ported yet"):
-        PipelineCompiler(StringDictionary()).compile_transform(
-            "--DataXQuery--\nJ = SELECT a.k FROM T a JOIN T b ON a.k = b.k",
-            {"T": (ViewSchema(dict(TYPES)), CAP)},
-        )
+def test_join_refdata_matches_jax():
+    """``tests/test_sql_engine.py::test_join_refdata`` in both packages:
+    a two-key join of events against a reference table, and the join
+    site each planner records."""
+    jd, td = JStringDictionary(), StringDictionary()
+    for d in (jd, td):
+        for w in ("front", "back", "garage"):
+            d.encode(w)
+    events = {
+        "deviceId": np.int32([1, 2, 3, 1]),
+        "homeId": np.int32([150, 150, 99, 150]),
+        "status": np.int32([0, 1, 0, 1]),
+    }
+    ref = {
+        "deviceId": np.int32([1, 2]),
+        "homeId": np.int32([150, 150]),
+        "deviceName": np.int32([1, 2]),
+    }
+    schemas = {
+        "t": {"deviceId": "long", "homeId": "long", "status": "long"},
+        "r": {"deviceId": "long", "homeId": "long", "deviceName": "string"},
+    }
+    data = {"t": events, "r": ref}
+    transform = (
+        "--DataXQuery--\nj = SELECT t.deviceId, t.status, r.deviceName FROM t "
+        "JOIN r ON t.deviceId = r.deviceId AND t.homeId = r.homeId"
+    )
+    jpc, tpc = JPipelineCompiler(jd), PipelineCompiler(td)
+    jpipe = jpc.compile_transform(transform, {
+        n: (JViewSchema(sch), len(data[n]["deviceId"])) for n, sch in schemas.items()})
+    tpipe = tpc.compile_transform(transform, {
+        n: (ViewSchema(sch), len(data[n]["deviceId"])) for n, sch in schemas.items()})
+    jout = jpipe.run(
+        {n: JTableData({c: jnp.asarray(v) for c, v in cols.items()},
+                       jnp.ones(len(cols["deviceId"]), bool)) for n, cols in data.items()},
+        jnp.asarray(BASE_S, jnp.int32), jnp.asarray(0, jnp.int32),
+        aux=JAuxTableBuilder(jpc.aux, jd).tables(),
+    )
+    tout = tpipe.run(
+        {n: TableData({c: torch.from_numpy(v) for c, v in cols.items()},
+                      torch.ones(len(cols["deviceId"]), dtype=torch.bool))
+         for n, cols in data.items()},
+        torch.full((), BASE_S, dtype=torch.int32), torch.full((), 0, dtype=torch.int32),
+        aux=AuxTableBuilder(tpc.aux, td).tables(),
+    )
+    _assert_same_table(jout["j"], tout["j"], jpipe.schema_of("j"))
+    valid = tout["j"].valid.numpy()
+    rows = sorted(zip(tout["j"].cols["deviceId"].numpy()[valid].tolist(),
+                      tout["j"].cols["status"].numpy()[valid].tolist()))
+    assert rows == [(1, 0), (1, 1), (2, 1)]
+    (jsite,), (tsite,) = jpipe.views[0].plan.joins, tpipe.views[0].joins
+    assert tsite.__dict__ == jsite.__dict__
+    assert tsite.algorithm == "sort-merge" and tsite.n_eq_keys == 2
+
+
+def test_join_sites_match_jax():
+    """Every join query's recorded sites, view by view, against the JAX
+    planner's (its ``StagePlan.joins``)."""
+    for name in sorted(q for q in QUERIES if q.startswith("join")):
+        jpipe = JPipelineCompiler(JStringDictionary()).compile_transform(
+            "--DataXQuery--\n" + QUERIES[name], {"T": (JViewSchema(dict(TYPES)), CAP)})
+        tpipe = PipelineCompiler(StringDictionary()).compile_transform(
+            "--DataXQuery--\n" + QUERIES[name], {"T": (ViewSchema(dict(TYPES)), CAP)})
+        for jv, tv in zip(jpipe.views, tpipe.views):
+            assert [dataclasses.asdict(s) for s in tv.joins] == [
+                dataclasses.asdict(s) for s in jv.plan.joins], name
+        assert tpipe.views[-1].joins, name
+
+
+def test_joincapacity_below_one_is_refused():
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+    from test_torch_flow import _conf
+
+    with pytest.raises(EngineException, match="joincapacity must be >= 1, got 0"):
+        FlowProcessor(SettingDictionary(_conf(**{"datax.job.process.joincapacity": "0"})),
+                      batch_capacity=CAP, device="cpu")

@@ -281,12 +281,13 @@ def test_pool_matrix_is_gated_on_its_h2d_copy_on_card(cuda_device):
     pool, mat = raw.ingest_slot
     assert pool.pin and mat.is_pinned() and not raw.data.is_cuda
     h = tp.dispatch_batch(raw, BASE_MS)
-    copied = h._ingest[2]
+    ((owner, owned, copied),) = h._ingest  # one source, one matrix
+    assert owner is pool and owned is mat
     assert isinstance(copied, torch.cuda.Event)
     other = pool.acquire()  # the batch still owns the matrix
     assert other is not mat
     h.collect_counts()  # gives the matrix back, gated on its copy
-    assert h._ingest is None and copied.query()
+    assert h._ingest == [] and copied.query()
     assert pool.acquire() is mat
     h.collect_tables()
 
