@@ -67,6 +67,18 @@ Phases, each printing JSON lines:
    join's device time against one profiled step;
    join_ops: the join ops alone, exact against the CPU, 0 host syncs,
    timed with CUDA events;
+   state: BASELINE config 3's accumulator (``seen``, the largest value a
+   key) and a 10 s window count, with 16 state partitions mirrored
+   through an in-process ``ObjectStoreServer``: two predecessor replicas
+   (``filteringest``) each fed the same 4 socket batches, one after the
+   other under a pinned clock, stopped and freed without the cyclic
+   collector; then a successor on fresh directories pulls every
+   partition, merges the window rings, reloads ``seen`` and runs a
+   fifth batch. Each row owned once, ``seen`` equal to numpy's, the
+   window from ``partitions`` and its counts equal to one CPU replica's
+   over the same five batches, 0 host syncs, with the landing thread's
+   overwrite + persist ms, snapshot and state-copy bytes, pushes and the
+   handoff's times;
 8. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
@@ -1929,6 +1941,385 @@ def phase_join_ops(seed: int, nvidia_smi: str) -> dict:
     return launches
 
 
+# -- state tables: the accumulator and the partition handoff --
+STATE_FLOW = "ChipSmokeState"
+STATE_SCHEMA = json.dumps({"type": "struct", "fields": [
+    {"name": "k", "type": "long", "nullable": False, "metadata": {}},
+    {"name": "v", "type": "double", "nullable": False, "metadata": {}},
+]})
+# bench.py::bench_state_handoff's transform: the accumulator keeps each
+# key's largest value across batches, the window counts rows a key
+STATE_TRANSFORM = (
+    "--DataXQuery--\n"
+    "merged = SELECT k, v FROM DataXProcessedInput "
+    "UNION ALL SELECT k, v FROM seen\n"
+    "--DataXQuery--\n"
+    "seen = SELECT k, MAX(v) AS v FROM merged GROUP BY k\n"
+    "--DataXQuery--\n"
+    "Win = SELECT k, COUNT(*) AS c "
+    "FROM DataXProcessedInput_10seconds GROUP BY k\n"
+)
+STATE_PARTITIONS = 16
+STATE_BATCHES = 4
+
+
+def state_conf(hostdir: str, snapshot_url: str = None, capacity: int = CAPACITY,
+               replica_index: int = 1, replica_count: int = 1,
+               partitions: int = STATE_PARTITIONS) -> dict:
+    """The accumulator flow of one replica, its transform, checkpoints
+    and state under ``hostdir``: socket input at 8 x capacity, window
+    checkpoints every second, the state table's capacity (4 x the batch)
+    as the GROUP BY bound, ``partitions`` state partitions keyed on
+    ``k``, the objstore mirror at ``snapshot_url`` (none when None), the
+    key-routed ingest filter on when there are several replicas, the
+    pilot off and the console sink quiet."""
+    Path(hostdir).mkdir(parents=True, exist_ok=True)
+    tpath = Path(hostdir) / "state.transform"
+    tpath.write_text(STATE_TRANSFORM, encoding="utf-8")
+    conf = {
+        "datax.job.name": STATE_FLOW,
+        "datax.job.input.default.inputtype": "socket",
+        "datax.job.input.default.socket.port": "0",
+        "datax.job.input.default.blobschemafile": STATE_SCHEMA,
+        "datax.job.input.default.eventhub.maxrate": str(8 * capacity),
+        "datax.job.input.default.eventhub.checkpointdir": str(Path(hostdir) / "ckpt"),
+        "datax.job.input.default.eventhub.checkpointinterval": "1 second",
+        "datax.job.input.default.streaming.intervalinseconds": "1",
+        "datax.job.process.timestampcolumn": "ts",
+        "datax.job.process.watermark": "0 second",
+        "datax.job.process.transform": str(tpath),
+        "datax.job.process.batchcapacity": str(capacity),
+        "datax.job.process.maxgroups": str(4 * capacity),
+        "datax.job.process.pipeline.depth": "2",
+        "datax.job.process.timewindow.DataXProcessedInput_10seconds"
+        ".windowduration": "10 seconds",
+        "datax.job.process.statetable.seen.schema": "k long, v double",
+        "datax.job.process.statetable.seen.location": str(Path(hostdir) / "state" / "seen"),
+        "datax.job.process.state.partitions": str(partitions),
+        "datax.job.process.state.partitionkey": "k",
+        "datax.job.process.state.replicaindex": str(replica_index),
+        "datax.job.process.state.replicacount": str(replica_count),
+        "datax.job.process.pilot.enabled": "false",
+        "datax.job.output.Win.console.maxrows": "0",
+    }
+    if snapshot_url:
+        conf["datax.job.process.state.snapshoturl"] = snapshot_url
+    if replica_count > 1:
+        conf["datax.job.process.state.filteringest"] = "true"
+    return conf
+
+
+def state_batch(rs, n_rows: int, n_keys: int):
+    """One batch of the accumulator flow: keys uniform over
+    ``0..n_keys-1``, values uniform float32 in [0, 1); returns (JSON
+    lines, keys, values), every value written so it parses back to the
+    same float32."""
+    k = rs.randint(0, n_keys, n_rows).astype(np.int32)
+    v = rs.uniform(0, 1, n_rows).astype(np.float32)
+    lines = "".join(f'{{"k":{a},"v":{b:.9g}}}\n' for a, b in zip(k.tolist(), v.tolist()))
+    return lines.encode(), k, v
+
+
+def max_per_key(keys, values) -> dict:
+    """{key: the largest value} over every row, in numpy."""
+    k, v = np.concatenate(keys), np.concatenate(values)
+    order = np.lexsort((v, k))
+    last = np.r_[k[order][1:] != k[order][:-1], True]
+    return dict(zip(k[order][last].tolist(), v[order][last].tolist()))
+
+
+def table_map(t, key="k", value="v") -> dict:
+    """{key: value} over a state table's valid rows, on the host."""
+    valid = t.valid.cpu().numpy()
+    return dict(zip(t.cols[key].cpu().numpy()[valid].tolist(),
+                    t.cols[value].cpu().numpy()[valid].tolist()))
+
+
+class PinnedClock:
+    """The host module's ``time`` in the state phase: ``time()`` reads a
+    clock that the wrapped poll sets to its batch's time, so replicas
+    that would run side by side see the same batch times one after the
+    other, and every batch sits inside the 10 s window of the last."""
+
+    def __init__(self):
+        self.now = BASE_MS / 1000.0
+
+    def __call__(self):
+        return self.now
+
+    def module(self):
+        import types
+
+        return types.SimpleNamespace(time=self, sleep=time.sleep)
+
+
+class Instrumented:
+    """A state host's probes: poll (sets the pinned clock to the batch's
+    time) and dispatch (counted for host syncs, the handle's state copy
+    bytes kept), each state table's overwrite and persist timed on the
+    landing thread with the snapshot bytes they write, the window
+    partition pushes, and the batch metrics. ``remove`` takes every
+    probe off again, so that the host holds no reference to itself
+    through them."""
+
+    def __init__(self, host, sync, clock, times):
+        self.host, self.wrapped = host, []
+        self.rec = {"metrics": [], "state_d2h_bytes": [], "overwrite_ms": [],
+                    "persist_ms": [], "snapshot_bytes": [], "window_pushes": []}
+        proc, rec = host.processor, self.rec
+        times = list(times)
+        poll, dispatch = host._poll_and_encode, proc.dispatch_batch
+
+        def poll_at():
+            clock.now = times.pop(0)
+            return poll()
+
+        def dispatch_rec(raw, batch_time_ms):
+            h = dispatch(raw, batch_time_ms)
+            rec["state_d2h_bytes"].append(h.state_d2h_bytes)
+            return h
+
+        self._set(host, "_poll_and_encode", sync.wrap(poll_at))
+        self._set(proc, "dispatch_batch", sync.wrap(dispatch_rec))
+        for st in proc.state_tables.values():
+            written = [0]
+            put = st._local.put_files
+
+            def put_counted(prefix, side, files, put=put, written=written):
+                written[0] += sum(len(b) for b in files.values())
+                return put(prefix, side, files)
+
+            def timed(fn, key, written=written):
+                def call(*a, **k):
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    rec[key].append((time.perf_counter() - t0) * 1e3)
+                    if key == "persist_ms":
+                        rec["snapshot_bytes"].append(written[0])
+                        written[0] = 0
+                    return out
+                return call
+
+            self._set(st._local, "put_files", put_counted)
+            self._set(st, "overwrite", timed(st.overwrite, "overwrite_ms"))
+            self._set(st, "persist", timed(st.persist, "persist_ms"))
+        push = proc.push_window_partitions
+
+        def push_counted(snap):
+            n = push(snap)
+            rec["window_pushes"].append(n)
+            return n
+
+        self._set(proc, "push_window_partitions", push_counted)
+        send = host.metric_logger.send_batch_metrics
+
+        def send_rec(metrics, ts):
+            rec["metrics"].append(dict(metrics))
+            return send(metrics, ts)
+
+        self._set(host.metric_logger, "send_batch_metrics", send_rec)
+
+    def _set(self, obj, name, fn):
+        setattr(obj, name, fn)
+        self.wrapped.append((obj, name))
+
+    def remove(self):
+        for obj, name in self.wrapped:
+            obj.__dict__.pop(name, None)
+        self.wrapped, self.host = [], None
+
+
+def phase_state(seed: int, nvidia_smi: str) -> dict:
+    """BASELINE config 3's accumulator with partitioned state and the
+    ``objstore://`` handoff at full width: two predecessor replicas
+    (``filteringest``, 16 partitions between them) on the card, each fed
+    the same ``STATE_BATCHES`` batches from its socket and stopped; a
+    successor on fresh directories pulls every partition through the
+    in-process object store, merges the window rings, reloads the
+    accumulator and runs one batch. Checks each row owned once, the
+    reloaded accumulator against numpy, the window's source, the
+    successor's window counts against a single CPU replica fed the same
+    batches, 0 host syncs on the dispatch thread, and that a stopped
+    predecessor frees its memory by reference counting. Returns each
+    kernel's launches on the path (the conf declares none)."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.runtime import host as host_mod
+    from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreServer
+
+    rs = np.random.RandomState(seed + 4)
+    batches = [state_batch(rs, CAPACITY, CAPACITY) for _ in range(STATE_BATCHES + 1)]
+    payloads = [b[0] for b in batches]
+    want_seen = max_per_key([b[1] for b in batches[:STATE_BATCHES]],
+                            [b[2] for b in batches[:STATE_BATCHES]])
+    t0_s = BASE_MS / 1000.0
+    clock = PinnedClock()
+    real_time = host_mod.time
+    store = ObjectStoreServer(port=0).start()
+    url = f"objstore://127.0.0.1:{store.port}/smoke/state"
+    preds, memory, sync = [], [], ThreadSyncCount()
+    host_mod.time = clock.module()
+    try:
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(LineCount()):
+            launch.reset_launches()
+            for idx in (1, 2):
+                conf = SettingDictionary(state_conf(
+                    str(Path(tmp) / f"pred{idx}"), url, capacity=CAPACITY,
+                    replica_index=idx, replica_count=2))
+                # replica 2 starts a second later: its own time base
+                times = [t0_s + idx - 1 + b for b in range(STATE_BATCHES)]
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                host = host_mod.StreamingHost(conf)
+                probes = Instrumented(host, sync, clock, times)
+                feed_s = feed_socket(host.source.port, payloads[:STATE_BATCHES],
+                                     STATE_BATCHES * CAPACITY, host.source)
+                torch.cuda.synchronize()
+                with sync:
+                    t_run = time.perf_counter()
+                    host.run_pipelined(max_batches=STATE_BATCHES)
+                    run_s = time.perf_counter() - t_run
+                torch.cuda.synchronize()
+                alive = torch.cuda.memory_allocated()
+                peak = torch.cuda.max_memory_allocated()
+                t_stop = time.perf_counter()
+                host.stop()
+                stop_ms = (time.perf_counter() - t_stop) * 1e3
+                probes.remove()
+                done = host.batches_processed
+                proc_ref = weakref.ref(host.processor)
+                gc.disable()
+                try:
+                    del host
+                    freed = proc_ref() is None
+                    after = torch.cuda.memory_allocated()
+                finally:
+                    gc.enable()
+                if done != STATE_BATCHES or not freed:
+                    raise AssertionError(f"state replica {idx}: {done} batches, "
+                                         f"processor freed without the collector: {freed}")
+                memory.append({"allocated_before_bytes": before, "peak_bytes": peak,
+                               "allocated_before_stop_bytes": alive,
+                               "allocated_after_stop_bytes": after})
+                if after - before > 0.05 * (alive - before):
+                    raise AssertionError(f"state replica {idx}: {after - before} of "
+                                         f"{alive - before} bytes still allocated after "
+                                         "the stopped host went")
+                preds.append({"rec": probes.rec, "run_s": run_s, "feed_s": feed_s,
+                              "stop_ms": stop_ms})
+
+            # the successor: one replica, fresh directories, the mirror
+            # its only route to state
+            clock.now = t0_s + STATE_BATCHES
+            t_init = time.perf_counter()
+            succ = host_mod.StreamingHost(SettingDictionary(state_conf(
+                str(Path(tmp) / "succ"), url, capacity=CAPACITY)))
+            init_ms = (time.perf_counter() - t_init) * 1e3
+            handoff_ms = succ.processor.state_stats.get("Handoff_Ms")
+            seen = table_map(succ.processor.state_data["seen"])
+            restored_from = succ.window_restored_from
+            probes = Instrumented(succ, sync, clock, [t0_s + STATE_BATCHES + 1])
+            feed_socket(succ.source.port, payloads[STATE_BATCHES:], CAPACITY, succ.source)
+            win_rows = {}
+
+            class Recording:
+                kind = "recording"
+
+                def write(self, dataset, rows, batch_time_ms):
+                    win_rows[dataset] = rows
+                    return len(rows)
+
+            succ.dispatcher.operators["Win"].sinks.append(Recording())
+            with sync:
+                t_first = time.perf_counter()
+                succ.run_pipelined(max_batches=1)
+                first_ms = (time.perf_counter() - t_first) * 1e3
+            stop_to_first_ms = (time.perf_counter() - t_stop) * 1e3
+            succ.stop()
+            probes.remove()
+            succ_rec = probes.rec
+            launches = process_launches()
+
+            # one replica on the CPU, fed the same five batches
+            cpu = host_mod.StreamingHost(SettingDictionary(state_conf(
+                str(Path(tmp) / "cpu"), capacity=CAPACITY)), device="cpu")
+            cpu_rows = {}
+
+            class CpuRecording:
+                kind = "recording"
+
+                def write(self, dataset, rows, batch_time_ms):
+                    cpu_rows[batch_time_ms] = rows
+                    return len(rows)
+
+            cpu.dispatcher.operators["Win"].sinks.append(CpuRecording())
+            cpu_probes = Instrumented(cpu, ThreadSyncCount(), clock,
+                                      [t0_s + b for b in range(STATE_BATCHES + 1)])
+            feed_socket(cpu.source.port, payloads, (STATE_BATCHES + 1) * CAPACITY,
+                        cpu.source)
+            cpu.run_pipelined(max_batches=STATE_BATCHES + 1)
+            cpu.stop()
+            cpu_probes.remove()
+    finally:
+        host_mod.time = real_time
+        store.stop()
+
+    filtered = [p["rec"]["metrics"] for p in preds]
+    filtered = [sum(m.get("State_IngestFiltered_Count", 0.0) for m in ms) for ms in filtered]
+    if sum(filtered) != STATE_BATCHES * CAPACITY:
+        raise AssertionError(f"state: the replicas filtered {filtered} rows, not "
+                             f"{STATE_BATCHES * CAPACITY} between them")
+    if seen != want_seen:
+        bad = sorted(set(seen.items()) ^ set(want_seen.items()))[:5]
+        raise AssertionError(f"state: the successor's seen ({len(seen)} keys) differs "
+                             f"from numpy's ({len(want_seen)} keys): {bad}")
+    if restored_from != "partitions":
+        raise AssertionError(f"state: the successor's window came from {restored_from!r}")
+    got = sorted(win_rows["Win"], key=lambda r: r["k"])
+    want = sorted(cpu_rows[max(cpu_rows)], key=lambda r: r["k"])
+    same_rows(got, want, "state successor Win")
+    if sum(r["c"] for r in got) != (STATE_BATCHES + 1) * CAPACITY:
+        raise AssertionError(f"state: the successor's window counts "
+                             f"{sum(r['c'] for r in got)} rows")
+    if sync.count:
+        raise AssertionError(f"state: {sync.count} host syncs in poll, encode and "
+                             f"dispatch: {sorted(sync.sites)}")
+    if any(launches.values()):
+        raise AssertionError(f"state: kernel launches {launches}")
+    succ_metrics = succ_rec["metrics"][0]
+    emit({
+        "phase": "state", "capacity": CAPACITY, "batches": STATE_BATCHES,
+        "partitions": STATE_PARTITIONS, "state_capacity": 4 * CAPACITY, "seed": seed,
+        "predecessors": [{
+            "replica": i + 1, "events_per_s": STATE_BATCHES * CAPACITY / p["run_s"],
+            "run_s": p["run_s"], "feed_s": p["feed_s"], "stop_ms": p["stop_ms"],
+            "ingest_filtered": filtered[i],
+            "overwrite_ms": p["rec"]["overwrite_ms"], "persist_ms": p["rec"]["persist_ms"],
+            "overwrite_persist_ms": [a + b for a, b in zip(p["rec"]["overwrite_ms"],
+                                                           p["rec"]["persist_ms"])],
+            "snapshot_bytes": p["rec"]["snapshot_bytes"],
+            "state_d2h_bytes": p["rec"]["state_d2h_bytes"],
+            "window_pushes": p["rec"]["window_pushes"],
+            "state_push_counts": [m.get("State_Snapshot_Push_Count") for m in p["rec"]["metrics"]],
+            **memory[i],
+        } for i, p in enumerate(preds)],
+        "successor": {
+            "state_handoff_ms": handoff_ms, "init_ms": init_ms, "first_batch_ms": first_ms,
+            "stop_to_first_batch_ms": stop_to_first_ms, "window_restored_from": restored_from,
+            "seen_keys": len(seen), "win_rows": len(got),
+            "state_pull_count": succ_metrics.get("State_Snapshot_Pull_Count"),
+            "state_d2h_bytes": succ_rec["state_d2h_bytes"],
+            "overwrite_ms": succ_rec["overwrite_ms"], "persist_ms": succ_rec["persist_ms"],
+        },
+        "host_syncs_poll_encode_dispatch": sync.count, "launches": launches,
+        "match_cpu": True, "card": nvidia_smi,
+    })
+    return launches
+
+
 def phase_ground_truth() -> None:
     """Each bad twin of the host-sync fixtures (DX300, DX301, DX305)
     raises on CUDA tensors under sync debug mode "error", at the sync
@@ -2035,7 +2426,8 @@ def main(argv=None) -> int:
     # count, set to 0 just before each path and read just after, stays 0
     slice_launches = {"gen_conf": phase_gen_conf(nvidia_smi),
                       "storm": phase_storm(args.seed, nvidia_smi),
-                      "join_ops": phase_join_ops(args.seed, nvidia_smi)}
+                      "join_ops": phase_join_ops(args.seed, nvidia_smi),
+                      "state": phase_state(args.seed, nvidia_smi)}
     if any(n for counts in slice_launches.values() for n in counts.values()):
         raise AssertionError(f"kernel launches on this slice's paths: {slice_launches}")
     # each path's own launches, its counts set to 0 just before it

@@ -75,6 +75,25 @@ class MetricName:
     CONF_UNKNOWN = "Conf_Unknown_Count"
     CONF_OUT_OF_BOUNDS = "Conf_OutOfBounds_Count"
 
+    # partitioned state (runtime/statetable.py, runtime/statepartition.py),
+    # drained at each collect: the partition geometry this replica runs,
+    # the successor's handoff cost (state pull + restore at init),
+    # corrupt-snapshot fallbacks (DX530/531), snapshot pushes/pulls
+    # through the objstore mirror, rows the key-routed ingest filter
+    # dropped as un-owned, and window rows dropped when a merge overflowed
+    # a ring slot. The JAX package's State_Partition_Reassigned_Count is
+    # the control plane's rescale's (serve/jobs.py), not the engine's.
+    STATE_METRICS = (
+        "State_Partition_Count",
+        "State_Partition_Owned",
+        "State_Handoff_Ms",
+        "State_LoadFallback_Count",
+        "State_Snapshot_Push_Count",
+        "State_Snapshot_Pull_Count",
+        "State_IngestFiltered_Count",
+        "State_WindowRows_Dropped_Count",
+    )
+
     MetricSinkPrefix = "Sink_"
     LatencyPrefix = "Latency-"
 

@@ -2,9 +2,9 @@
 
 reference: datax-host ConfigManager.scala:18-136, utility/ArgumentsParser
 
-Copy of the JAX package's ``core/confmanager.py``. Trimmed: an
-``objstore://`` conf path needs the object-store client
-(``serve/objectstore.py``), which is not ported, so it raises.
+Copy of the JAX package's ``core/confmanager.py``: an ``objstore://``
+conf path reads through the port's object-store client
+(``serve/objectstore.py``).
 """
 
 from __future__ import annotations
@@ -101,13 +101,20 @@ class ConfigManager:
             raise EngineException(
                 "non-conf file is not supported as configuration input"
             )
-        if path.startswith(("objstore://", "objstore+https://")):
-            raise EngineException(
-                f"cannot read {path!r}: the objstore:// client is not "
-                "ported yet"
+        from ..serve.objectstore import fetch_objstore_url, is_objstore_url
+
+        if is_objstore_url(path):
+            # conf generated into the shared object store by the control
+            # plane (the reference's serve/storage.py ObjectRuntimeStorage)
+            # — workers on any host read it through the store, the role
+            # wasbs:// blob paths play for the reference's cluster jobs
+            text = fetch_objstore_url(
+                path, token=os.environ.get("DATAX_OBJSTORE_TOKEN")
             )
-        with open(path, "r", encoding="utf-8") as f:
-            props = parse_conf_lines(f.readlines(), d.dict)
+            props = parse_conf_lines(text.splitlines(True), d.dict)
+        else:
+            with open(path, "r", encoding="utf-8") as f:
+                props = parse_conf_lines(f.readlines(), d.dict)
         merged = d.with_settings(props)
         cls.set_active_dictionary(merged)
         return merged

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import logging
 import time
+import weakref
 from dataclasses import dataclass, fields
 from typing import Callable, Dict, List, Optional
 
@@ -293,6 +294,18 @@ class Actuator:
         raise NotImplementedError
 
 
+def _weak_method(method, dead_value):
+    """``method`` called through a weak reference to its object; once
+    the object is gone the call returns ``dead_value``."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        bound = ref()
+        return dead_value if bound is None else bound(*args)
+
+    return call
+
+
 class DepthActuator(Actuator):
     """Pipeline depth within ``[min_depth, max_depth]``. The setter
     (``StreamingHost.request_depth``) only RECORDS the target; the
@@ -437,10 +450,15 @@ class PilotController:
             base_rate=max(1.0, host.max_rate / max(host.interval_s, 1e-3)),
             min_fraction=cfg.min_poll_fraction,
         )
+        # the host holds the pilot, so the pilot holds the host's methods
+        # weakly: a stopped host (and the device tensors of its
+        # processor) is freed by reference counting, not at the cyclic
+        # collector's next run
+        live_depth = _weak_method(host.live_depth, 1)
         actuators: List[Actuator] = [
             DepthActuator(
-                get_depth=host.live_depth,
-                set_depth=host.request_depth,
+                get_depth=live_depth,
+                set_depth=_weak_method(host.request_depth, None),
                 min_depth=cfg.min_depth,
                 max_depth=cfg.max_depth,
             ),
@@ -457,7 +475,7 @@ class PilotController:
             bucket=bucket,
             actuators=actuators,
         )
-        pilot._depth_probe = host.live_depth
+        pilot._depth_probe = live_depth
         return pilot
 
     # -- host feed ---------------------------------------------------------

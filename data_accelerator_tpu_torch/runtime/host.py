@@ -44,6 +44,7 @@ Run one-box:
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import sys
 import time
@@ -71,6 +72,16 @@ from .sinks import OutputDispatcher, build_output_operators
 from .sources import LocalSource, StreamingSource, make_source
 
 logger = logging.getLogger(__name__)
+
+
+def _enter_stream(stream: Optional["torch.cuda.Stream"]) -> None:
+    """Make ``stream`` and its card current on the calling thread for
+    good (a worker thread's initializer; nothing on the CPU). It takes
+    the stream, not the host, so a worker thread that outlives its
+    host's stop keeps no reference to the host."""
+    if stream is not None:
+        torch.cuda.set_device(stream.device)
+        torch.cuda.set_stream(stream)
 
 
 def _refuse_unported(dict_: SettingDictionary) -> None:
@@ -244,6 +255,10 @@ class StreamingHost:
             positions = self.checkpointer.starting_positions()
             for s in self.sources.values():
                 s.start(positions)
+        # window restore, local first: a plain restart reloads its own
+        # window.npz; a RESCALE SUCCESSOR (fresh dirs, objstore mirror
+        # configured) pulls only the window partitions its replica
+        # index owns and merges them — the handoff path
         self.window_restored_from: Optional[str] = None
         if self.window_checkpointer:
             snap = self.window_checkpointer.load()
@@ -256,6 +271,23 @@ class StreamingHost:
                         "window-state checkpoint incompatible with current "
                         "flow config; starting with empty windows"
                     )
+        if (
+            self.window_restored_from is None
+            and self.processor.window_buffers
+            and self.processor.state_mirror is not None
+        ):
+            try:
+                if self.processor.restore_window_partitions():
+                    self.window_restored_from = "partitions"
+                    logger.info(
+                        "restored window state from %d assigned partitions",
+                        len(self.processor.state_owned),
+                    )
+            except Exception:  # noqa: BLE001 — empty windows beat a dead init
+                logger.exception(
+                    "window partition handoff failed; starting empty"
+                )
+        self._drain_state_events()
 
         # sink routing: dataset -> output names; default: each conf output
         # name routes its same-named dataset (S500 contract)
@@ -286,7 +318,8 @@ class StreamingHost:
         )
         self._landing_pool = (
             ThreadPoolExecutor(
-                1, thread_name_prefix="landing", initializer=self._enter_card
+                1, thread_name_prefix="landing",
+                initializer=functools.partial(_enter_stream, self._stream),
             )
             if self.background_transfer else None
         )
@@ -307,14 +340,21 @@ class StreamingHost:
         # depth, source admission) through typed actuators
         self.pilot = PilotController.from_conf(dict_, host=self)
 
-    # -- per-thread CUDA state --------------------------------------------
-    def _enter_card(self) -> None:
-        """Make the processor's card and the host's stream current on
-        the calling thread for good (a worker thread's initializer)."""
-        if self._stream is not None:
-            torch.cuda.set_device(self._stream.device)
-            torch.cuda.set_stream(self._stream)
+    def _drain_state_events(self) -> None:
+        """Flight-record the DX53x events the state loaders queued
+        (DX530 active-side fallback, DX531 both-sides-bad -> empty):
+        typed events beside conformance drift, so a corrupted snapshot
+        handoff is visible in the trace output and the recorder. The
+        list is emptied in place: every state table appends to it."""
+        events = list(self.processor.state_events)
+        del self.processor.state_events[:len(events)]
+        for ev in events:
+            try:
+                self.telemetry.track_event("state/fallback", dict(ev))
+            except Exception:  # noqa: BLE001 — telemetry never fails state
+                logger.exception("state event emit failed")
 
+    # -- per-thread CUDA state --------------------------------------------
     @contextlib.contextmanager
     def _on_card(self):
         """The processor's card and the host's stream, current on the
@@ -620,6 +660,9 @@ class StreamingHost:
             self.batches_processed + 1,
             " ".join(f"{k}={v:.1f}" for k, v in sorted(metrics.items())),
         )
+        # DX53x state events (load fallback / both-sides-bad) land in
+        # the flight recorder like conformance drift — typed, greppable
+        self._drain_state_events()
         # post-commit at-least-once replay cursor: the window snapshot
         # and the offset commit run AFTER the ack on purpose — a crash
         # between ack and checkpoint replays from the previous offsets
@@ -634,9 +677,14 @@ class StreamingHost:
                     # leaves old offsets + new rings (at-least-once
                     # duplicates); the reverse order would resume PAST
                     # events the restored rings never saw
-                    self.window_checkpointer.save(
-                        self.processor.snapshot_window_state()
-                    )
+                    snap = self.processor.snapshot_window_state()
+                    self.window_checkpointer.save(snap)
+                    if self.processor.state_mirror is not None:
+                        # ship the owned window partitions (A/B + pointer
+                        # per partition) so a rescale successor can pull
+                        # exactly its assigned range — fail-closed: a
+                        # dead store fails the batch, which requeues
+                        self.processor.push_window_partitions(snap)
                 self.checkpointer.checkpoint_batch(consumed)
             self._last_checkpoint = t0
             self.health.record_checkpoint()
@@ -761,7 +809,9 @@ class StreamingHost:
         background = self.background_transfer and self._landing_pool is not None
         # FIFO window of (PendingBatch, consumed, batch_time_ms, t0, trace)
         pending = deque()
-        pool = ThreadPoolExecutor(1, initializer=self._enter_card)
+        pool = ThreadPoolExecutor(
+            1, initializer=functools.partial(_enter_stream, self._stream)
+        )
         fut = None
         fut_trace = None  # the trace of the batch `fut` is decoding
         # batches started over the host's lifetime: landings may lag

@@ -40,9 +40,19 @@ raises, where the JAX package logs it and compiles at the first batch.
 ``compile.cachedir`` and ``compile.cacheurl`` are read by nothing: there
 is no compile cache to route.
 
-Mesh execution, state tables, partitioned state and debug guards are not
-ported yet; a flow whose conf asks for one of them raises
-``EngineException``.
+State tables (``process.statetable.*``, the ``--DataXStates--``
+accumulators) and partitioned state (``process.state.*``) run as in the
+JAX package: each table loads onto the device at init and is a step
+input; the step returns the new state, which leaves the card with the
+batch's outputs (the same side stream and pinned host memory) and is
+overwritten into its A/B partition snapshots from host memory at
+landing (``runtime/statetable.py``, ``runtime/statepartition.py``).
+``commit`` persists the pointers after the sinks, and with
+``state.snapshoturl`` the partitions and the window rings travel through
+the ``objstore://`` mirror to a successor replica.
+
+Mesh execution and debug guards are not ported yet; a flow whose conf
+asks for one of them raises ``EngineException``.
 """
 
 from __future__ import annotations
@@ -58,7 +68,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..compile.pipeline import Pipeline, PipelineCompiler
+from ..compile.pipeline import Pipeline, PipelineCompiler, parse_state_table_schema
 from ..compile.planner import PlannerConfig, SelectCompiler, TableData, ViewSchema
 from ..compile.sqlparser import parse_select
 from ..compile.stringops import _MAX_ROUNDS, AuxTableBuilder
@@ -70,6 +80,18 @@ from ..native import NativeDecoder, PackedBufferPool
 from ..ops.compact import compact_indices
 from ..udf import UdfRegistry, load_udfs_from_conf
 from .materialize import materialize_rows
+from .statepartition import (
+    DEFAULT_STATE_PARTITIONS,
+    ObjstoreSnapshotStore,
+    merge_window_snapshots,
+    other_side,
+    owned_partitions,
+    partition_ids,
+    snapshot_from_bytes,
+    snapshot_to_bytes,
+    split_window_snapshot,
+)
+from .statetable import StateTable
 from .timewindow import (
     WindowBuffers,
     make_buffers,
@@ -387,6 +409,7 @@ def build_step_fn(
     ts_col: Optional[str],
     windows: Dict[str, Tuple[str, float]],
     output_datasets: List[str],
+    state_names: List[str],
     refdata_names: List[str],
     ring_tables: List[str],
     pipeline: Pipeline,
@@ -397,19 +420,23 @@ def build_step_fn(
     """Build the per-batch step from its compiled parts: the port of the
     JAX package's fused step (``runtime/processor.py::build_step_fn``).
 
-    ``step(raw, rings, refdata, base_s, now_rel_ms, counter, delta_ms,
-    aux)`` takes one raw batch per source (a ``TableData`` or a
-    ``PackedRaw`` on the device, whose rows it splits into columns),
-    the window rings (updated in place), the reference tables, the 0-d
-    int32 time tensors, the host-side batch counter and base delta, and
-    the string-op tables. ``source_targets`` lists (source, target
-    table) pairs. It returns (compacted output tables, counts vector)
-    without reading anything back from the device.
+    ``step(raw, rings, state, refdata, base_s, now_rel_ms, counter,
+    delta_ms, aux)`` takes one raw batch per source (a ``TableData`` or
+    a ``PackedRaw`` on the device, whose rows it splits into columns),
+    the window rings (updated in place), the state tables, the
+    reference tables, the 0-d int32 time tensors, the host-side batch
+    counter and base delta, and the string-op tables.
+    ``source_targets`` lists (source, target table) pairs. It returns
+    (compacted output tables, counts vector, new state) without reading
+    anything back from the device. A state table's new value is the
+    statement that assigns its name (a GROUP BY's capacity, which may
+    differ from the loaded table's) or, without one, the old table.
     """
 
     def step(
         raw: Dict[str, Union[TableData, PackedRaw]],
         rings: Dict[str, WindowBuffers],
+        state: Dict[str, TableData],
         refdata: Dict[str, TableData],
         base_s: torch.Tensor,
         now_rel_ms: torch.Tensor,
@@ -448,8 +475,12 @@ def build_step_fn(
             )
         for rname in refdata_names:
             tables[rname] = refdata[rname]
+        for sname in state_names:
+            tables[sname] = state[sname]
 
         out = pipeline.run(tables, base_s, now_rel_ms, aux=aux)
+
+        new_state = {n: out.get(n, state[n]) for n in state_names}
 
         # compact outputs on the device (valid rows to the front) so the
         # host copies only [:count] rows; every per-batch scalar rides
@@ -478,7 +509,7 @@ def build_step_fn(
         for _sname, target in source_targets:
             counts.append(projected[target].count())
         counts_vec = torch.stack([c.to(torch.int32) for c in counts])
-        return datasets, counts_vec
+        return datasets, counts_vec, new_state
 
     return step
 
@@ -692,12 +723,61 @@ class FlowProcessor:
         self.spec = self.specs[self.primary]
         self.batch_capacity = self.spec.capacity
         # what a host reads of features this port refuses by conf
-        # (_refuse_unported): no mesh, no state-partition mirror, no
-        # buffer sanitizer, and no state tables whose loaders queue
-        # fallback events
+        # (_refuse_unported): no mesh and no buffer sanitizer
         self.mesh = None
-        self.state_mirror = None
         self.buffer_sanitizer = None
+
+        # partitioned state (datax.job.process.state.*): every stateful
+        # surface — accumulator tables AND window-ring snapshots —
+        # hashes onto `partitions` key-range partitions
+        # (runtime/statepartition.py); this replica owns the contiguous
+        # range `replicaindex`/`replicacount` assigns it, persists only
+        # those partitions, and (with `snapshoturl` set) ships them
+        # through the shared objstore:// store so a successor replica
+        # pulls exactly its assigned partitions on a rescale handoff.
+        # `partitionkey` names the key column (per-table override:
+        # statetable.<name>.partitionkey); `filteringest` drops rows of
+        # un-owned partitions at encode time (key-routed ingest).
+        state_conf = process_conf.get_sub_dictionary("state.")
+        sp = state_conf.get_int_option("partitions")
+        if sp is not None and sp < 1:
+            raise EngineException(
+                f"process.state.partitions must be >= 1, got {sp}"
+            )
+        self.state_partitions = sp or DEFAULT_STATE_PARTITIONS
+        self.state_replica_count = max(
+            1, state_conf.get_int_option("replicacount") or 1
+        )
+        self.state_replica_index = state_conf.get_int_option("replicaindex") or 1
+        if not 1 <= self.state_replica_index <= self.state_replica_count:
+            raise EngineException(
+                f"process.state.replicaindex must be in "
+                f"1..{self.state_replica_count}, got {self.state_replica_index}"
+            )
+        self.state_owned = owned_partitions(
+            self.state_replica_index, self.state_replica_count,
+            self.state_partitions,
+        )
+        self.state_partition_key = state_conf.get("partitionkey")
+        self.state_filter_ingest = (
+            (state_conf.get_or_else("filteringest", "false") or "")
+            .lower() == "true"
+        ) and self.state_replica_count > 1
+        self._filter_warned: set = set()
+        self.state_mirror = None
+        snapshot_url = state_conf.get("snapshoturl")
+        if snapshot_url:
+            try:
+                self.state_mirror = ObjstoreSnapshotStore(snapshot_url)
+            except ValueError as e:
+                raise EngineException(
+                    f"process.state.snapshoturl invalid: {e}"
+                ) from None
+        # State_* metric deltas drained at collect + DX53x events the
+        # host flight-records (shared with every StateTable). The ingest
+        # filter adds to the stats on the decode thread, collect drains
+        # them on the landing thread: both under _stats_lock.
+        self.state_stats: Dict[str, float] = {}
         self.state_events: List[dict] = []
 
         self.transform_text = _read_maybe_file(process_conf.get("transform")) or ""
@@ -722,6 +802,31 @@ class FlowProcessor:
                     f"(projected tables: {targets})"
                 )
             self.windows[wname] = (table, sub.get_duration("windowduration"))
+
+        # state tables — partitioned: each replica persists only its
+        # owned key-range partitions, mirrored through objstore:// when
+        # process.state.snapshoturl is set (the rescale-handoff path);
+        # capacity 4 x the batch capacity, as in the JAX package
+        self.state_tables: Dict[str, StateTable] = {}
+        for sname, sub in dict_.group_by_sub_namespace(
+            SettingNamespace.JobProcessPrefix + "statetable."
+        ).items():
+            schema = parse_state_table_schema(sub.get_string("schema"))
+            location = sub.get_or_else("location", f"/tmp/dxtpu-state/{sname}")
+            key = sub.get("partitionkey") or (
+                self.state_partition_key
+                if self.state_partition_key in schema.types else None
+            )
+            self.state_tables[sname] = StateTable(
+                sname, schema, self.batch_capacity * 4, location,
+                partitions=self.state_partitions,
+                owned=self.state_owned,
+                partition_key=key,
+                mirror=self.state_mirror,
+                stats=self.state_stats,
+                events=self.state_events,
+                device=self.device,
+            )
 
         # step rebuilds after init (a UDF on_interval refresh), drained
         # into the Retrace_Count metric, the conformance monitor's DX503
@@ -765,14 +870,9 @@ class FlowProcessor:
         checks = [
             ((dict_.get_int_option(proc + "numchips") or 1) > 1,
              "mesh execution (process.numchips > 1)"),
-            (bool(dict_.group_by_sub_namespace(proc + "statetable.")),
-             "state tables (process.statetable.*)"),
             (any(truthy(proc + "debug." + k)
                  for k in ("nans", "tracerleaks", "buffersanitizer")),
              "debug guards (process.debug.*)"),
-            ((dict_.get_int_option(proc + "state.replicacount") or 1) > 1
-             or truthy(proc + "state.filteringest"),
-             "partitioned state (process.state.replicacount/filteringest)"),
         ]
         for asked, feature in checks:
             if asked:
@@ -910,7 +1010,12 @@ class FlowProcessor:
             )
         for rname, (rschema, rtable) in self.refdata.items():
             inputs[rname] = (rschema, rtable.capacity)
-        self.pipeline: Pipeline = pc.compile_transform(self.transform_text, inputs)
+        state_inputs = {
+            sname: (st.schema, st.capacity) for sname, st in self.state_tables.items()
+        }
+        self.pipeline: Pipeline = pc.compile_transform(
+            self.transform_text, inputs, state_inputs
+        )
 
         try:
             max_rounds = self.dict.get_int_option(
@@ -954,6 +1059,7 @@ class FlowProcessor:
             ts_col=self.timestamp_column,
             windows=dict(self.windows),
             output_datasets=list(self.output_datasets),
+            state_names=list(self.state_tables),
             refdata_names=list(self.refdata),
             ring_tables=list(self.ring_slots),
             pipeline=self.pipeline,
@@ -977,6 +1083,17 @@ class FlowProcessor:
 
     def _init_device_state(self):
         self.window_buffers: Dict[str, WindowBuffers] = self._fresh_rings()
+        # state load is the handoff-critical path of a successor
+        # replica (pull owned partitions from the mirror): time it once
+        # so State_Handoff_Ms reports what the rescale actually cost
+        t0 = time.time()
+        self.state_data: Dict[str, TableData] = {
+            sname: st.load(self.dictionary) for sname, st in self.state_tables.items()
+        }
+        if self.state_tables:
+            self.state_stats.setdefault(
+                "Handoff_Ms", (time.time() - t0) * 1000.0
+            )
         self._slot_counter = 0
         self._base_ms: Optional[int] = None
         # held while a dispatch advances the rings, the slot counter and
@@ -1101,11 +1218,115 @@ class FlowProcessor:
             self._base_ms = int(base) if base is not None else None
         return True
 
+    # -- partitioned window state (the rescale-handoff path) --------------
+    WINDOW_STORE_NAME = "__window__"
+
+    def _window_key_cols(self) -> Dict[str, Tuple[str, str]]:
+        """Ring table -> (partition-key column, kind): the conf'd
+        ``state.partitionkey`` when the table carries it, else the
+        first non-timestamp column (rows of tables with no usable key
+        land in partition 0 — statepartition.split_window_snapshot)."""
+        out: Dict[str, Tuple[str, str]] = {}
+        for table in self.ring_slots:
+            types = self.target_schemas[table].types
+            if self.state_partition_key and self.state_partition_key in types:
+                key = self.state_partition_key
+            else:
+                key = next(
+                    (c for c in types if c != self.timestamp_column), None
+                )
+            if key is not None:
+                out[table] = (key, types[key])
+        return out
+
+    def push_window_partitions(self, snap: Dict[str, object]) -> int:
+        """Ship this replica's OWNED window partitions to the objstore
+        mirror as per-partition A/B snapshots + pointer (the same
+        layout the state tables use). Called on the checkpoint cadence
+        after commit; fail-closed like every state push."""
+        if self.state_mirror is None or not snap.get("rings"):
+            return 0
+        parts = split_window_snapshot(
+            snap, self.state_partitions, self._window_key_cols(),
+            dictionary=self.dictionary, only=self.state_owned,
+        )
+        for p, part_snap in parts.items():
+            prefix = f"{self.WINDOW_STORE_NAME}/p{p:02d}"
+            side = other_side(self.state_mirror.get_pointer(prefix) or "B")
+            self.state_mirror.put_files(
+                prefix, side, {"window.npz": snapshot_to_bytes(part_snap)}
+            )
+            self.state_mirror.put_pointer(prefix, side)
+        self._count_state("Snapshot_Push_Count", len(parts))
+        return len(parts)
+
+    def pull_window_partitions(self) -> List[Dict]:
+        """Fetch this replica's assigned window partitions from the
+        mirror — possibly written by SEVERAL predecessors. A corrupt
+        active side falls back to the standby (DX530 +
+        ``State_LoadFallback_Count``), both-bad loads nothing for that
+        partition (DX531) and the un-acked window replay re-aggregates."""
+        if self.state_mirror is None:
+            return []
+        out: List[Dict] = []
+        for p in self.state_owned:
+            prefix = f"{self.WINDOW_STORE_NAME}/p{p:02d}"
+            pointer = self.state_mirror.get_pointer(prefix)
+            if pointer is None:
+                continue
+            snap = None
+            for attempt, side in enumerate((pointer, other_side(pointer))):
+                data = self.state_mirror.get_file(prefix, side, "window.npz")
+                if data is None:
+                    continue
+                try:
+                    snap = snapshot_from_bytes(data)
+                    break
+                except Exception as e:  # noqa: BLE001 — corrupt snapshot
+                    self._count_state("LoadFallback_Count", 1)
+                    self.state_events.append({
+                        "code": "DX530" if attempt == 0 else "DX531",
+                        "table": self.WINDOW_STORE_NAME,
+                        "partition": p, "side": side,
+                        "message": (
+                            f"window partition {p} side {side} "
+                            f"unreadable ({e})"
+                        ),
+                        "ts": time.time(),
+                    })
+            if snap is not None:
+                out.append(snap)
+        if out:
+            self._count_state("Snapshot_Pull_Count", len(out))
+        return out
+
+    def restore_window_partitions(self) -> bool:
+        """The successor half of a window handoff: pull the assigned
+        partitions, merge them (re-packed per slot, timestamps rebased,
+        string ids remapped into the LIVE dictionary —
+        statepartition.merge_window_snapshots) and restore. False when
+        the mirror holds nothing usable."""
+        parts = self.pull_window_partitions()
+        if not parts:
+            return False
+        merged = merge_window_snapshots(
+            parts,
+            {t: dict(self.target_schemas[t].types) for t in self.ring_slots},
+            self.dictionary,
+            self.timestamp_column,
+        )
+        if merged is None:
+            return False
+        dropped = merged.pop("dropped_rows", 0)
+        if dropped:
+            self._count_state("WindowRows_Dropped_Count", dropped)
+        return self.restore_window_state(merged)
+
     def commit(self) -> None:
-        """Commit state after a batch's sinks succeed. The JAX package
-        persists its state tables' pointers here; this port has no state
-        tables (they are refused by conf), so there is nothing to
-        commit."""
+        """Commit state-table pointers after sinks succeed (and push the
+        committed partitions to the objstore mirror, fail-closed)."""
+        for st in self.state_tables.values():
+            st.persist()
 
     def device_memory_stats(self) -> Optional[Dict[str, int]]:
         """The device allocator's live watermark under the JAX package's
@@ -1163,13 +1384,22 @@ class FlowProcessor:
 
         spec = self._spec_for(source)
         stats: Dict[str, int] = {}
+        # encoded on the host, filtered there, then copied to the card
         b = batch_from_rows(
             rows, spec.schema, spec.capacity, self.dictionary,
-            base_ms, stats=stats, device=self.device,
+            base_ms, stats=stats,
         )
         for k, n in stats.items():
             self._count_ingest(k, n)
-        cols = dict(b.columns)
+        cols = {
+            c: _host_to_device(v.numpy(), self.device) for c, v in b.columns.items()
+        }
+        valid = b.valid.numpy()
+        if self.state_filter_ingest:
+            src = b.columns.get(self.state_partition_key)
+            valid = self._filter_unowned(
+                src.numpy() if src is not None else None, valid, spec
+            )
         if self.properties_enabled:
             default_id = self._properties_id(base_ms)
             props = np.full(spec.capacity, 0, np.int32)
@@ -1186,7 +1416,7 @@ class FlowProcessor:
                 extra,
                 torch.zeros((spec.capacity,), dtype=torch.int32, device=self.device),
             )
-        return TableData(cols, b.valid)
+        return TableData(cols, _host_to_device(valid, self.device))
 
     def encode_columns(
         self, np_cols: Dict[str, np.ndarray], n: int,
@@ -1219,6 +1449,13 @@ class FlowProcessor:
                 )
         valid = np.zeros(cap, dtype=bool)
         valid[: min(n, cap)] = True
+        if self.state_filter_ingest and n > 0:
+            key = self.state_partition_key
+            kv = None
+            if key in np_cols:
+                kv = np.zeros(cap, dtype=np_cols[key].dtype)
+                kv[: min(n, cap)] = np_cols[key][: min(n, cap)]
+            valid = self._filter_unowned(kv, valid, spec)
         return TableData(cols, _host_to_device(valid, self.device))
 
     # -- JSON ingest --------------------------------------------------------
@@ -1306,6 +1543,11 @@ class FlowProcessor:
                     )
                 else:
                     np_cols[extra] = np.zeros(cap, np.int32)
+        valid = np.asarray(valid)
+        if self.state_filter_ingest:
+            valid = self._filter_unowned(
+                np_cols.get(self.state_partition_key), valid, spec
+            )
         return TableData(
             {c: _host_to_device(a, self.device) for c, a in np_cols.items()},
             _host_to_device(valid, self.device),
@@ -1416,6 +1658,17 @@ class FlowProcessor:
                 host[i].fill(self._properties_id(base_ms))
             else:
                 host[i].fill(0)
+        if self.state_filter_ingest:
+            # the key row of the pinned matrix, filtered before the
+            # host-to-device copy
+            key = self.state_partition_key
+            kv = None
+            if key in names:
+                krow = host[names.index(key)]
+                kv = krow.view(np.float32) if dict(layout)[key] == "f32" else krow
+            host[valid_row] = self._filter_unowned(
+                kv, host[valid_row] != 0, spec
+            ).astype(np.int32)
         raw = PackedRaw(mat, layout, ingest_slot=(pool, mat))
         return self._ship(raw) if to_device else raw
 
@@ -1478,7 +1731,7 @@ class FlowProcessor:
             raws[name] = r
         try:
             with self._dispatch_lock:
-                out_datasets, counts_vec, new_base_ms = self._advance(
+                out_datasets, counts_vec, new_state, new_base_ms = self._advance(
                     raws, batch_time_ms
                 )
         except Exception:
@@ -1510,6 +1763,15 @@ class FlowProcessor:
             out_names=list(self.output_datasets),
             fetch_tables=fetch_tables, fetch_hosts=fetch_hosts,
             fetch_caps=fetch_caps, ingest=ingest,
+            # the table's own columns: a GROUP BY's state also carries
+            # its overflow count
+            state={
+                n: TableData(
+                    {c: new_state[n].cols[c] for c in st.schema.types},
+                    new_state[n].valid,
+                )
+                for n, st in self.state_tables.items()
+            },
         )
         # each staged slot is owned by THIS batch until its transfer
         # lands: the dispatch that next rotates onto the slot checks the
@@ -1524,7 +1786,10 @@ class FlowProcessor:
         """Advance the flow by one batch, under the dispatch lock: the
         UDF refresh, the time base and slot counter, and the step
         enqueued on the current stream. Returns (output tables, counts
-        vector, the batch's whole-second base)."""
+        vector, new state, the batch's whole-second base). The new state
+        is the next batch's state input: the step never writes a state
+        table in place, so an earlier batch still copying its own state
+        off the card reads what its step made."""
         # per-interval UDF refresh hooks; state changes rebuild the
         # pipeline (CommonProcessorFactory.scala:351-353 onInterval).
         # A throwing hook skips its refresh and surfaces as the
@@ -1566,16 +1831,17 @@ class FlowProcessor:
         aux = self.aux_tables.tables()
         refdata = {n: t for n, (_s, t) in self.refdata.items()}
         with kernel_build.loads_recorded() as loads:
-            out_datasets, counts_vec = self._step(
-                raw, self.window_buffers, refdata, base_s, now_rel_ms,
-                counter, delta_ms, aux,
+            out_datasets, counts_vec, new_state = self._step(
+                raw, self.window_buffers, self.state_data, refdata, base_s,
+                now_rel_ms, counter, delta_ms, aux,
             )
+        self.state_data = new_state
         if self._aot_warmed and loads:
             # a kernel of this flow first built or loaded after its warm
             self._count_compile("WarmMiss_Count", len(loads))
         if self.device.type == "cuda":
             self._step_stream = torch.cuda.current_stream(self.device)
-        return out_datasets, counts_vec, new_base_ms
+        return out_datasets, counts_vec, new_state, new_base_ms
 
     def _stage_output(
         self, name: str, t: TableData, cap: int, full_cap: int,
@@ -1670,6 +1936,51 @@ class FlowProcessor:
     def _bump_transfer_stat(self, key: str) -> None:
         with self._stats_lock:
             self.transfer_stats[key] = self.transfer_stats.get(key, 0) + 1
+
+    def _count_state(self, key: str, n: float) -> None:
+        with self._stats_lock:
+            self.state_stats[key] = self.state_stats.get(key, 0) + n
+
+    def _drain_state_stats(self) -> Dict[str, float]:
+        """The State_* deltas since the last drain. Cleared in place:
+        every StateTable holds the same dict."""
+        with self._stats_lock:
+            stats = dict(self.state_stats)
+            self.state_stats.clear()
+        return stats
+
+    def _filter_unowned(self, key_vals, valid: np.ndarray,
+                        spec: SourceSpec) -> np.ndarray:
+        """Key-routed ingest (``process.state.filteringest``): zero the
+        validity of rows whose key hashes to a partition this replica
+        does NOT own, so N replicas fed the same stream process each
+        key exactly once between them (the consumer-group contract
+        restated over key-range partitions). Dropped rows count into
+        ``State_IngestFiltered_Count``. No-op unless armed AND the
+        source's raw schema carries the conf'd partition key. Host
+        arrays only: it runs before the batch's copy to the card."""
+        key = self.state_partition_key
+        if not key or key not in spec.raw_schema.types:
+            if spec.name not in self._filter_warned:
+                self._filter_warned.add(spec.name)
+                logger.warning(
+                    "state.filteringest armed but source %r has no "
+                    "partition-key column %r; NOT filtering",
+                    spec.name, key,
+                )
+            return valid
+        if key_vals is None:
+            return valid
+        pids = partition_ids(
+            np.asarray(key_vals), self.state_partitions,
+            spec.raw_schema.types[key], dictionary=self.dictionary,
+        )
+        mask = np.isin(pids, np.asarray(self.state_owned, dtype=np.int64))
+        valid = np.asarray(valid)
+        dropped = int(np.count_nonzero(valid & ~mask))
+        if dropped:
+            self._count_state("IngestFiltered_Count", dropped)
+        return valid & mask
 
     def _count_compile(self, key: str, n: float) -> None:
         with self._stats_lock:
@@ -1782,10 +2093,13 @@ class PendingBatch:
     event recorded behind the step. ``collect_counts()`` waits only for
     the counts' copy, the batch's one blocking read; ``collect_tables()``
     waits for the tables' copy, re-fetches an output that overflowed its
-    sized capacity, and materializes rows, possibly on a background
-    landing thread. The handle holds its stream and events itself, since
-    PyTorch keeps the current stream per thread, and it keeps every
-    tensor the side stream reads referenced until that copy is done."""
+    sized capacity, materializes rows and overwrites each state table's
+    standby partitions from the batch's new state, which rides the same
+    side stream into pinned memory whole (its valid rows are not known
+    on the host until then), possibly on a background landing thread.
+    The handle holds its stream and events itself, since PyTorch keeps
+    the current stream per thread, and it keeps every tensor the side
+    stream reads referenced until that copy is done."""
 
     def __init__(
         self, proc: FlowProcessor, pipeline: Pipeline, out_datasets,
@@ -1795,6 +2109,7 @@ class PendingBatch:
         fetch_hosts: Dict[str, Optional[TableData]],
         fetch_caps: Dict[str, int],
         ingest: Optional[List[tuple]] = None,
+        state: Optional[Dict[str, TableData]] = None,
     ):
         self.proc = proc
         # THIS batch's pipeline: a UDF onInterval refresh may rebuild
@@ -1825,6 +2140,13 @@ class PendingBatch:
         self._host_counts: Optional[torch.Tensor] = None
         self._d2h_bytes = 0
         self._transferred_rows = 0
+        # THIS batch's new state on the device and, once start_fetch has
+        # queued its copies, its pinned host destination (the tensors
+        # themselves on the CPU); overwritten into the state tables at
+        # landing. ``state_d2h_bytes`` is what the copy moves.
+        self.state = state or {}
+        self.host_state: Dict[str, TableData] = {}
+        self.state_d2h_bytes = sum(_table_nbytes(t) for t in self.state.values())
 
     def _release_ingest(self) -> None:
         ingest, self._ingest = self._ingest, []
@@ -1843,6 +2165,7 @@ class PendingBatch:
         if self._stream is None:
             self._host_counts = self.counts_vec
             self.fetch_hosts = self.fetch_tables
+            self.host_state = self.state
             return
         self._step_done = torch.cuda.Event()
         self._step_done.record()
@@ -1858,6 +2181,11 @@ class PendingBatch:
             self._counts_event.record(self._stream)
             for n, t in self.fetch_tables.items():
                 host = self.fetch_hosts[n]
+                for c, v in t.cols.items():
+                    host.cols[c].copy_(v, non_blocking=True)
+                host.valid.copy_(t.valid, non_blocking=True)
+            for n, t in self.state.items():
+                host = self.host_state[n] = _pinned_like(t)
                 for c, v in t.cols.items():
                     host.cols[c].copy_(v, non_blocking=True)
                 host.valid.copy_(t.valid, non_blocking=True)
@@ -1987,6 +2315,11 @@ class PendingBatch:
                     if view.host_limit is not None:
                         rows = rows[: view.host_limit]
                 datasets[name] = rows
+            # persist state tables (A/B overwrite; persist() is the
+            # caller's post-sink commit) — from THIS batch's state, in
+            # host memory since _land waited for its copy
+            for sname, st in proc.state_tables.items():
+                st.overwrite(_numpy_table(self.host_state[sname]), proc.dictionary)
         finally:
             # the host copies are consumed (or the landing failed): this
             # batch's transfer slots and their pinned host buffers may
@@ -2044,6 +2377,16 @@ class PendingBatch:
                 sum(bc.dataset_counts.values()) / self._transferred_rows
                 if self._transferred_rows else 1.0
             )
+        # partitioned-state accounting: the partition geometry this
+        # replica runs (gauges) plus the deltas since the last collect
+        # — load fallbacks (DX530/531), snapshot pushes/pulls through
+        # the objstore mirror, the successor handoff cost, and rows the
+        # key-routed ingest filter dropped as un-owned
+        if proc.state_tables or proc.state_replica_count > 1:
+            metrics["State_Partition_Count"] = float(proc.state_partitions)
+            metrics["State_Partition_Owned"] = float(len(proc.state_owned))
+        for k, v in proc._drain_state_stats().items():
+            metrics[f"State_{k}"] = float(v)
         # bytes the blocking counts-only read moved
         metrics["Sync_CountsBytes"] = float(bc.counts.nbytes)
         for k, v in transfer_stats.items():

@@ -2,8 +2,9 @@
 
 A trimmed copy of the JAX package's ``utils/fs.py``: the port needs
 ``read_text``, ``read_lines``, ``write_text`` (atomic temp + rename),
-``ensure_parent_dir`` and ``list_files``. ``objstore://`` URLs need the
-object-store client, which is not ported yet, so they raise.
+``ensure_parent_dir`` and ``list_files``. ``objstore://`` and
+``objstore+https://`` URLs read through the port's object-store client
+(``serve/objectstore.py``).
 """
 
 from __future__ import annotations
@@ -14,8 +15,6 @@ import itertools
 import os
 import threading
 from typing import List, Optional
-
-from ..core.config import EngineException
 
 _TMP_COUNTER = itertools.count()
 
@@ -31,10 +30,17 @@ def is_gzip(path: str) -> bool:
 
 
 def read_text(path: str) -> str:
-    """Gzip-aware whole-file text read (HadoopClient gzip read path)."""
-    if path.startswith("objstore://") or path.startswith("objstore+https://"):
-        raise EngineException(
-            f"cannot read {path!r}: the objstore:// client is not ported yet"
+    """Gzip-aware whole-file text read (HadoopClient gzip read path).
+
+    This is the fs chokepoint (reference: HadoopClient.scala resolves
+    wasbs/abfs/local URIs in one place): ``objstore://`` URLs fetch from
+    the shared object store, so any engine conf value may point at a
+    file the control plane stored remotely."""
+    from ..serve.objectstore import fetch_objstore_url, is_objstore_url
+
+    if is_objstore_url(path):
+        return fetch_objstore_url(
+            path, token=os.environ.get("DATAX_OBJSTORE_TOKEN")
         )
     if is_gzip(path):
         with gzip.open(path, "rt", encoding="utf-8") as f:

@@ -178,3 +178,56 @@ def test_blob_pointer_file_time_format(tmp_path):
     assert rows[0]["__DataX_FileInfo"]["fileTimeMs"] == int(
         datetime(2024, 3, 1, 12, 30, tzinfo=timezone.utc).timestamp() * 1000
     )
+
+
+def test_batch_host_accumulates_state_across_chunks_like_jax(tmp_path):
+    """A batch run whose files span several chunks carries a state table
+    across them (each chunk's state committed after its sinks, in chunk
+    order): the persisted accumulator equals the JAX BatchHost's."""
+    import numpy as np
+
+    from data_accelerator_tpu.core.config import SettingDictionary as JSD
+    from data_accelerator_tpu.runtime.batchhost import BatchHost as JBatchHost
+
+    transform = tmp_path / "flow.transform"
+    transform.write_text(
+        "--DataXQuery--\n"
+        "merged = SELECT deviceId, temperature FROM DataXProcessedInput "
+        "UNION ALL SELECT deviceId, temperature FROM peaks\n"
+        "--DataXQuery--\n"
+        "peaks = SELECT deviceId, MAX(temperature) AS temperature FROM merged "
+        "GROUP BY deviceId\n"
+        "--DataXQuery--\n"
+        "Hot = SELECT deviceId, temperature FROM DataXProcessedInput "
+        "WHERE temperature > 50\n"
+    )
+    rs = np.random.RandomState(4)
+    rows = [{"deviceId": int(d), "temperature": float(np.float32(t))}
+            for d, t in zip(rs.randint(0, 5, 40), rs.uniform(0, 100, 40))]
+    _write_events(str(tmp_path / "in" / "2024-03-01" / "a.json"), rows[:25])
+    _write_events(str(tmp_path / "in" / "2024-03-01" / "b.json"), rows[25:])
+    loaded = {}
+    for pkg in ("jax", "torch"):
+        conf = dict(_batch_conf(tmp_path / pkg, str(transform)).dict)
+        conf.update({
+            "datax.job.input.default.blobschemafile": SCHEMA,
+            "datax.job.input.batch.blob.0.path":
+                str(tmp_path / "in" / "{yyyy-MM-dd}" / "*.json*"),
+            "datax.job.process.batchcapacity": "16",
+            "datax.job.process.statetable.peaks.schema": "deviceId long, temperature double",
+            "datax.job.process.statetable.peaks.location": str(tmp_path / pkg / "state"),
+        })
+        host = (JBatchHost(JSD(conf)) if pkg == "jax"
+                else BatchHost(SettingDictionary(conf), device="cpu"))
+        totals = host.run()
+        assert totals["Batch_Files_Count"] == 2
+        proc = host.processor
+        t = proc.state_tables["peaks"].load(proc.dictionary)
+        valid = np.asarray(t.valid)
+        loaded[pkg] = dict(zip(np.asarray(t.cols["deviceId"])[valid].tolist(),
+                               np.asarray(t.cols["temperature"])[valid].tolist()))
+    assert loaded["torch"] == loaded["jax"]
+    want = {}
+    for r in rows:
+        want[r["deviceId"]] = max(want.get(r["deviceId"], -1.0), r["temperature"])
+    assert loaded["torch"] == want

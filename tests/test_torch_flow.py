@@ -266,12 +266,61 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("key,value,feature", [
     ("datax.job.process.numchips", "4", "mesh"),
-    ("datax.job.process.statetable.peaks.schema", "deviceId long", "state tables"),
     ("datax.job.process.debug.nans", "true", "debug guards"),
-    ("datax.job.process.state.filteringest", "true", "partitioned state"),
 ])
 def test_unported_features_raise_by_name(key, value, feature):
     with pytest.raises(EngineException, match=feature):
         FlowProcessor(SettingDictionary(_conf(**{key: value})),
                       batch_capacity=CAPACITY, output_datasets=OUTPUTS,
                       device="cpu")
+
+
+# -- objstore:// reads, through the port's own object-store client -----------
+@pytest.fixture
+def objstore():
+    from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreServer
+
+    server = ObjectStoreServer(port=0).start()
+    yield server
+    server.stop()
+
+
+@pytest.mark.parametrize("route", ["fs", "confmanager", "conf-value"])
+def test_objstore_urls_read_through_the_object_store(objstore, tmp_path, route):
+    """An ``objstore://`` URL reads from the store wherever a path may
+    stand: ``utils.fs.read_text``, the conf file ``ConfigManager`` loads,
+    and a conf value (here the schema) a processor reads; an absent key
+    raises ``FileNotFoundError``."""
+    from data_accelerator_tpu_torch.core.confmanager import ConfigManager
+    from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreClient
+    from data_accelerator_tpu_torch.utils.fs import read_text
+
+    client = ObjectStoreClient(objstore.endpoint, "b")
+    if route == "fs":
+        client.put("dir/note.txt", "héllo\n".encode())
+        assert read_text(client.url_for("dir/note.txt")) == "héllo\n"
+        with pytest.raises(FileNotFoundError):
+            read_text(client.url_for("dir/absent.txt"))
+    elif route == "confmanager":
+        client.put("jobs/flow.conf", b"datax.job.name=FromStore\n"
+                                     b"datax.job.process.batchcapacity=${cap}\n")
+        ConfigManager.reset()
+        try:
+            ConfigManager.get_configuration_from_arguments(
+                [f"conf={client.url_for('jobs/flow.conf')}", "cap=32"])
+            d = ConfigManager.load_config()
+        finally:
+            ConfigManager.reset()
+        assert d.get_job_name() == "FromStore"
+        assert d.get("datax.job.process.batchcapacity") == "32"
+    else:
+        client.put("schemas/iot.json", IOT_SCHEMA.encode())
+        conf = _conf(BASE_TRANSFORM, **{
+            "datax.job.input.default.blobschemafile": client.url_for("schemas/iot.json")})
+        proc = FlowProcessor(SettingDictionary(conf), batch_capacity=CAPACITY,
+                             output_datasets=["OpenDoors"], device="cpu")
+        inline = FlowProcessor(SettingDictionary(_conf(BASE_TRANSFORM)),
+                               batch_capacity=CAPACITY, output_datasets=["OpenDoors"],
+                               device="cpu")
+        assert proc.spec.raw_schema.types == inline.spec.raw_schema.types
+        assert len(proc.spec.raw_schema.types) > 3

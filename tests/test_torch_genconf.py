@@ -36,6 +36,7 @@ import chip_smoke
 from data_accelerator_tpu.core.config import SettingDictionary as JSettingDictionary
 from data_accelerator_tpu.core.config import parse_conf_lines as jparse_conf_lines
 from data_accelerator_tpu.runtime import host as jhost_mod
+from data_accelerator_tpu.runtime import processor as jprocessor_mod
 from data_accelerator_tpu.runtime import sinks as jsinks
 from data_accelerator_tpu.runtime import sources as jsources
 from data_accelerator_tpu.runtime.processor import FlowProcessor as JFlowProcessor
@@ -183,6 +184,14 @@ def _drive(pkg, conf_path, batches, monkeypatch):
         "torch": (thost_mod, tsinks, tsources, SettingDictionary, parse_conf_lines),
     }[pkg]
     monkeypatch.setattr(mod, "time", clock.module())
+    if pkg == "jax":
+        # the JAX package's transfer-helper jit cache is process-wide:
+        # start it empty, so that its evictions of what earlier tests in
+        # this process compiled (Compile_JitCacheEvict_Count) stay out
+        # of this run, as in a process of its own
+        with jprocessor_mod._HELPER_JIT_LOCK:
+            jprocessor_mod._HELPER_JITS.clear()
+        jprocessor_mod.drain_jit_evictions()
     conf = SD(parse(conf_path.read_text(encoding="utf-8").splitlines()))
     src = _local_source(sources, [{c: a.copy() for c, a in b.items()} for b in batches],
                         clock)

@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from data_accelerator_tpu.core.config import SettingDictionary as JSettingDictionary
 from data_accelerator_tpu.runtime import host as jhost_mod
 from data_accelerator_tpu.runtime import sinks as jsinks
@@ -570,6 +572,49 @@ def test_main_runs_a_conf_file_on_the_cpu(tmp_path):
     assert "DATAX-HostMain:Output_HeatAvg_Events_Count" in keys
     assert (tmp_path / "ck" / "offsets.txt").exists()
     assert (tmp_path / "ck" / "window.npz").exists()
+
+
+@pytest.mark.parametrize("loop", ["main", "pipelined"])
+def test_a_stopped_host_frees_its_processor_without_the_collector(tmp_path, loop):
+    """With the cyclic collector off, a stopped host that goes frees its
+    processor and its window rings by reference counting: nothing the
+    host owns (the pilot's depth callbacks, the worker threads'
+    initializers) holds the host in a cycle, so on the card its tensors
+    go at once, before a successor host allocates its own."""
+    import gc
+    import weakref
+
+    gc.collect()
+    gc.disable()
+    try:
+        if loop == "main":
+            conf_path = chip_smoke.materialize_generated_conf(tmp_path)
+            # under a name of its own: the metric store and the latency
+            # histograms are per flow and process-wide, and
+            # test_torch_genconf.py reads the generated flow's from them
+            conf_path.write_text(conf_path.read_text(encoding="utf-8").replace(
+                "datax.job.name=GenConfig1\n", "datax.job.name=GenConfigFreed\n"),
+                encoding="utf-8")
+            host = thost_mod.main([f"conf={conf_path}", "batches=2", "device=cpu"])
+            assert host.health.flow == "GenConfigFreed"
+        else:
+            clock = _Clock()
+            conf = _host_conf("HostFreed", "torch", {
+                "datax.job.process.pilot.enabled": "true",
+                "datax.job.input.default.eventhub.checkpointdir": str(tmp_path / "ck"),
+            })
+            host = thost_mod.StreamingHost(
+                SettingDictionary(conf), source=_BytesSource(list(_feed("bytes")[1]), clock),
+                device="cpu")
+            host.run_pipelined(max_batches=3, depth=2)
+            host.stop()
+        assert host.pilot is not None and host.batches_processed >= 2
+        proc = weakref.ref(host.processor)
+        ring = weakref.ref(next(iter(host.processor.window_buffers.values())).valid)
+        del host
+        assert proc() is None and ring() is None
+    finally:
+        gc.enable()
 
 
 # -- window.npz across packages ------------------------------------------------

@@ -3,8 +3,8 @@ mirror of ``test_pipelined.py`` on ``data_accelerator_tpu_torch`` with
 ``device="cpu"``: results match the synchronous path, the streaming host
 runs at depth 2 with the pipeline/transfer metric family, the socket
 source holds two un-acked batches, and the decode-ahead never polls a
-batch it will not dispatch. The reference's state-table case waits for
-state tables (queue A, slice 4)."""
+batch it will not dispatch. The reference's state-table case is in
+``test_torch_state.py``, against the JAX package."""
 
 import functools
 import json

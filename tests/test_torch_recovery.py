@@ -7,9 +7,11 @@ window keeps FIFO commit and at-least-once requeue at depths 1/2/4 under
 a sink, dispatch or background-landing failure, with the pooled ingest
 matrices safe under the window and a UDF refresh mid-window.
 
-Not mirrored, with their modules: the state-table cases (slice 4), the
-profiler hook (``obs/profiler.py``) and the protocol monitor
-(``runtime/protocolmonitor.py``), which the port refuses by conf; the
+The state-table cases (restart resumes state, the torn write) are in
+``test_torch_state.py``, against the JAX package. Not mirrored, with
+their modules: the profiler hook (``obs/profiler.py``) and the protocol
+monitor (``runtime/protocolmonitor.py``), which the port refuses by
+conf; the
 reference arms the buffer sanitizer and the protocol monitor in its
 depth drills, which this port does not have.
 """
