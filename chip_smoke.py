@@ -46,6 +46,23 @@ Phases, each printing JSON lines:
    CPU replay continued from it;
    host_cli: ``runtime.host.main`` on a conf file it writes, local
    simulated input at full capacity, the default pilot, 3 batches;
+   observe: the observability plane. The card's machine profile with
+   the process cache emptied (every ``Calib_*``; HBM read and write at
+   or under the published 3,350 GB/s, D2H positive, a decode rate, the
+   probe's memory gone from the allocator's peak); then the host phase's
+   flow and bytes plus a passthrough output through ``run_pipelined``
+   at depth 2 with fleet frames every second to an in-process object
+   store, the protocol monitor and an observability port, a
+   ``torch.profiler`` capture of 2 s armed over ``POST /profile`` once the
+   first batch is dispatched; a restart successor on the same checkpoint
+   directory publishing as ``r2``. Rows against the CPU replay,
+   ``Calib_*`` on every batch, protocol events and no violation, one
+   ``profiler/capture`` span and a capture holding ``anomaly_score``
+   and the dispatch and landing threads' CPU ops, 0 host syncs; the
+   ``FleetView`` over the store (counters equal to the hosts' sums, the
+   merged batch histogram, both replicas completed, lineage ``r1`` ->
+   ``r2``, the DX54x audit conserved) and the ``obs`` CLI's ``spans
+   --aggregate`` and ``trace --stitch`` over the flight recorder;
 7. gen_conf: ``runtime.host.main`` on the conf the reference's control
    plane generates for the config-1 queries (committed under
    ``tests/data/generated_torch/`` at 262,144 rows a batch, with its alert
@@ -56,7 +73,12 @@ Phases, each printing JSON lines:
    a judged ratio is past its band), the ``Conf_*`` gauges, the
    manifest warm's ``Compile_ColdStart_Ms`` (no warm misses) and the
    first batch's dispatch time against the same conf without the
-   manifest, run first and freed before the peak memory restarts;
+   manifest, run first and freed before the peak memory restarts; the
+   manifest run's host calibrates the card at its init (the process
+   cache emptied): ``Calib_*`` on every batch, each stage's calibrated
+   prediction and whether it is judged, its ``Conformance_StageTime_*``
+   ratio on every batch, DX520/521 fired exactly when a judged ratio is
+   past its band, and DX522 silent;
    storm: the two-stream window join (``__graft_entry__``'s StormDoors
    flow, the port's copy, plus a reference-data query) through
    ``StreamingHost.run_pipelined`` at depth 2 from two sockets: 262,144
@@ -1334,9 +1356,10 @@ def same_snapshot(a, b, what) -> None:
             raise AssertionError(f"{what}: ring {table} differs")
 
 
-def phase_host(seed: int, nvidia_smi: str) -> int:
+def phase_host(seed: int, nvidia_smi: str) -> tuple:
     """The main path through the port's ``StreamingHost`` from socket
-    bytes; returns ``anomaly_score``'s launches in the run."""
+    bytes; returns ``anomaly_score``'s launches in the run and the run's
+    events/s."""
     import tempfile
 
     from data_accelerator_tpu_torch.core.config import SettingDictionary
@@ -1437,6 +1460,340 @@ def phase_host(seed: int, nvidia_smi: str) -> int:
         "launches": {"anomaly_score": launches},
         "match_cpu": True, "card": nvidia_smi,
     })
+    return launches, BATCHES * CAPACITY / run_s
+
+
+# -- the observability plane (slice 6) ---------------------------------------
+OBSERVE_FLOW = "ChipSmokeObserve"
+# a passthrough output: the fleet audit judges the output that emits the
+# most rows, and only one that emits every ingested row conserves
+OBSERVE_QUERY = (
+    "--DataXQuery--\n"
+    "Delivered = SELECT deviceDetails.deviceId AS deviceId "
+    "FROM DataXProcessedInput\n"
+)
+OBSERVE_OUTPUTS = OUTPUTS + ["Delivered"]
+CAPTURE_SECONDS = 2
+# the host's loop threads whose CPU ops a capture must hold
+CAPTURE_THREADS = ("dispatch", "landing")
+
+
+def observe_conf(ckpt_dir: str, fleet_url: str, tracefile: str, profiler_dir: str,
+                 replica: str) -> dict:
+    """The host phase's conf with the observability plane armed: fleet
+    frames every second to ``fleet_url`` as ``replica``, the protocol
+    monitor, an observability port, a flight recorder and calibration
+    (on by default)."""
+    conf = host_conf(ckpt_dir)
+    conf.update({
+        "datax.job.name": OBSERVE_FLOW,
+        "datax.job.process.transform": TRANSFORM + OBSERVE_QUERY,
+        "datax.job.output.Delivered.console.maxrows": "0",
+        "datax.job.process.fleet.publishurl": fleet_url,
+        "datax.job.process.fleet.windowseconds": "1",
+        "datax.job.process.fleet.replica": replica,
+        "datax.job.process.debug.protocolmonitor": "true",
+        "datax.job.process.observability.port": "0",
+        "datax.job.process.observability.profilerdir": profiler_dir,
+        "datax.job.process.telemetry.tracefile": tracefile,
+    })
+    return conf
+
+
+def observe_calib(nvidia_smi: str):
+    """The machine profile of the card, measured with the process cache
+    emptied: every reading within the card's published peak, and the
+    probe's memory absent from the allocator's peak afterwards."""
+    from data_accelerator_tpu_torch.obs import calibrate
+
+    calibrate.clear_cache()
+    torch.cuda.synchronize()
+    peak_before = torch.cuda.max_memory_allocated()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    profile = calibrate.get_profile()
+    seconds = time.perf_counter() - t0
+    peak_after = torch.cuda.max_memory_allocated()
+    allocated_after = torch.cuda.memory_allocated()
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    peak_gbps = PEAK_BYTES_PER_S / 1e9
+    emit({"phase": "observe_calib", **profile.metrics(), "probe_ms": profile.probe_ms,
+          "seconds": seconds, "backend": profile.backend,
+          "device_kind": profile.device_kind, "l2_bytes": l2,
+          "probe_bytes": 4 * max(calibrate.PROBE_ELEMS,
+                                 calibrate.CARD_L2_MULTIPLE * l2 // 4),
+          "matmul_n": calibrate.CARD_MATMUL_N, "published_hbm_gbps": peak_gbps,
+          "peak_bytes_before": peak_before, "peak_bytes_after": peak_after,
+          "allocated_bytes_before": allocated_before,
+          "allocated_bytes_after": allocated_after, "card": nvidia_smi})
+    for name in ("hbm_read_gbps", "hbm_write_gbps"):
+        if not 0 < getattr(profile, name) <= peak_gbps:
+            raise AssertionError(f"observe calib: {name} {getattr(profile, name)} "
+                                 f"outside (0, {peak_gbps}]: the probe read the L2")
+    if not profile.d2h_gbps > 0 or profile.decode_rows_per_sec is None:
+        raise AssertionError(f"observe calib: {profile}")
+    if profile.backend != "torch-cuda" or calibrate.get_profile() is not profile:
+        raise AssertionError("observe calib: the card's profile is not cached as the card's")
+    if peak_after > peak_before or allocated_after != allocated_before:
+        raise AssertionError(f"observe calib: the probe left memory behind: peak "
+                             f"{peak_before} -> {peak_after} B, allocated "
+                             f"{allocated_before} -> {allocated_after} B")
+    return profile
+
+
+def watch_threads(host) -> dict:
+    """The native ids of the host loop's threads, recorded as each one
+    first runs its part of a batch."""
+    ids = {}
+
+    def recording(name, fn):
+        def run(*a, **k):
+            ids.setdefault(name, threading.get_native_id())
+            return fn(*a, **k)
+        return run
+
+    host._dispatch_traced = recording("dispatch", host._dispatch_traced)
+    host._poll_and_encode = recording("decode", host._poll_and_encode)
+    host._finish_tail = recording("landing", host._finish_tail)
+    return ids
+
+
+def read_capture(path: str, thread_ids: dict) -> dict:
+    """What a capture's Chrome trace holds: its kernels by name, the
+    host's stages, and which of the host loop's threads ran CPU ops or
+    stage ranges in it."""
+    from data_accelerator_tpu_torch.obs.profiler import TRACE_FILE
+
+    trace_path = Path(path) / TRACE_FILE
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    kernels = collections.Counter(e.get("name", "") for e in events
+                                  if e.get("cat") == "kernel")
+    # torch ops, and the ranges the host's spans open during a capture
+    op_tids = {e.get("tid") for e in events
+               if e.get("cat") in ("cpu_op", "user_annotation")}
+    return {
+        "trace_bytes": trace_path.stat().st_size, "events": len(events),
+        "kernel_launches": sum(kernels.values()), "kernel_names": len(kernels),
+        "anomaly_score": sum(n for k, n in kernels.items() if "anomaly_score" in k),
+        "top_kernels": kernels.most_common(5),
+        "cpu_op_threads": len(op_tids),
+        "stage_ranges": sorted({e.get("name") for e in events
+                                if e.get("cat") == "user_annotation"}),
+        "loop_threads_with_ops": sorted(n for n, t in thread_ids.items() if t in op_tids),
+    }
+
+
+def run_obs_cli(argv) -> tuple:
+    """``python -m data_accelerator_tpu_torch.obs <argv>``, in process:
+    (exit code, stdout)."""
+    from data_accelerator_tpu_torch.obs.__main__ import main as obs_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = obs_main(list(argv))
+    return rc, out.getvalue()
+
+
+def phase_observe(seed: int, nvidia_smi: str, host_events_per_s: float) -> int:
+    """The observability plane on the main path: the card's machine
+    profile (``observe_calib``), then the host phase's flow and bytes
+    (plus a passthrough output) through ``StreamingHost.run_pipelined``
+    at depth 2 with fleet frames, the protocol monitor and an
+    observability port, a ``torch.profiler`` capture armed over ``POST
+    /profile`` once the first batch is dispatched; a restart successor
+    on the same checkpoint directory publishes as ``r2``; then
+    ``FleetView`` over the store and the ``obs`` CLI over the flight
+    recorder. Returns ``anomaly_score``'s launches over both hosts."""
+    import tempfile
+    import urllib.request
+
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.obs.__main__ import load_spans
+    from data_accelerator_tpu_torch.obs.fleetview import FleetView
+    from data_accelerator_tpu_torch.obs.histogram import HISTOGRAMS
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+    from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreServer
+
+    profile = observe_calib(nvidia_smi)
+    rs = np.random.RandomState(seed + 1)  # the host phase's bytes
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(BATCHES + 1)]
+    store = ObjectStoreServer().start()
+    fleet_url = f"objstore://127.0.0.1:{store.port}/fleet"
+    armed = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(LineCount()):
+            tracefile = str(Path(tmp) / "telemetry.jsonl")
+            ckpt, prof_dir = str(Path(tmp) / "ckpt"), str(Path(tmp) / "profiler")
+            conf1 = SettingDictionary(observe_conf(ckpt, fleet_url, tracefile,
+                                                   prof_dir, "r1"))
+            # each replica is a process of its own in a deployment: its
+            # frames carry its own latency histograms
+            HISTOGRAMS.clear()
+            host = StreamingHost(conf1)
+            sync = ThreadSyncCount()
+            rec = record_host(host, sync)
+            thread_ids = watch_threads(host)
+            udf = host.processor.udfs["anomalyscore"]
+            # the capture is armed while batches flow: on the dispatch
+            # thread, once the first batch is dispatched and before the
+            # loop goes on, so that the profiler runs before the first
+            # tail starts on the landing thread; a later tail drains it
+            dispatch = host.processor.dispatch_batch
+
+            def dispatch_and_arm(raw, batch_time_ms):
+                h = dispatch(raw, batch_time_ms)
+                if not armed:
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{host.obs_server.port}/profile"
+                        f"?seconds={CAPTURE_SECONDS}", data=b"", method="POST")
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        armed.update(json.loads(r.read()), status=r.status)
+                return h
+
+            host.processor.dispatch_batch = dispatch_and_arm
+            try:
+                feed_socket(host.source.port, payloads[:BATCHES],
+                            BATCHES * CAPACITY, host.source)
+                udf.kernel.launches = 0
+                torch.cuda.synchronize()
+                with sync:
+                    t_run = time.perf_counter()
+                    host.run_pipelined(max_batches=BATCHES)
+                    run_s = time.perf_counter() - t_run
+                launches = udf.launches
+            finally:
+                host.stop()
+            HISTOGRAMS.clear()
+            host2 = StreamingHost(SettingDictionary(
+                observe_conf(ckpt, fleet_url, tracefile, prof_dir, "r2")))
+            restored = host2.processor.snapshot_window_state()
+            rec2 = record_host(host2, ThreadSyncCount())
+            udf2 = host2.processor.udfs["anomalyscore"]
+            try:
+                feed_socket(host2.source.port, payloads[BATCHES:], CAPACITY,
+                            host2.source)
+                udf2.kernel.launches = 0
+                host2.run_pipelined(max_batches=1)
+                launches += udf2.launches
+            finally:
+                host2.stop()
+            capture = read_capture(armed["path"], thread_ids) if "path" in armed else {}
+            spans = load_spans(tracefile)
+            violations = [r for r in map(json.loads, Path(tracefile).read_text().splitlines())
+                          if r.get("name") == "protocol/violation"]
+            cli = {name: run_obs_cli(argv + ["--file", tracefile]) for name, argv in (
+                ("spans", ["spans", "--aggregate"]),
+                ("trace", ["trace", str(rec["times"][0]), "--stitch"]),
+                ("stitch", ["trace", "all", "--stitch"]),
+            )}
+        t0 = time.perf_counter()
+        view = FleetView(url=fleet_url)
+        frames = view.refresh()
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        fm = view.fleet_metrics(OBSERVE_FLOW)
+    finally:
+        store.stop()
+    mstore = host.metric_logger.store
+    publish_ms = [p["val"] for p in mstore.points(
+        f"DATAX-{OBSERVE_FLOW}:Fleet_FramePublish_Ms")]
+    frame_bytes = [p["val"] for p in mstore.points(
+        f"DATAX-{OBSERVE_FLOW}:Fleet_Frame_Bytes")]
+
+    # the rows: the CPU replay of r1's bytes, then r2's continued from
+    # the last window r1 saved
+    if host.batches_processed != BATCHES or host2.batches_processed != 1:
+        raise AssertionError(f"observe: {host.batches_processed} + "
+                             f"{host2.batches_processed} batches")
+    if launches != BATCHES + 1:
+        raise AssertionError(f"observe: anomaly_score launched {launches} times")
+    if sync.count:
+        raise AssertionError(f"observe: {sync.count} host syncs in poll, encode and "
+                             f"dispatch: {sorted(sync.sites)}")
+    same_snapshot(rec["last_snap"], restored, "observe restart: restored window")
+    cpu = FlowProcessor(conf1, device="cpu")
+    rows_out = replay_on_cpu(cpu, rec, OBSERVE_OUTPUTS, "observe")
+    cpu2 = FlowProcessor(conf1, device="cpu")
+    if not cpu2.restore_window_state(rec["last_snap"]):
+        raise AssertionError("observe restart: the CPU replay refused the snapshot")
+    replay_on_cpu(cpu2, rec2, OBSERVE_OUTPUTS, "observe restart", start=BATCHES)
+
+    # calibration rides every batch; the protocol holds
+    metrics = rec["metrics"] + rec2["metrics"]
+    calib = profile.metrics()
+    if any({k: m.get(k) for k in calib} != calib for m in metrics):
+        raise AssertionError("observe: a batch without the card's Calib_* gauges")
+    protocol_events = sum(m.get("Protocol_Events_Count", 0.0) for m in metrics)
+    monitors = (host.protocol_monitor, host2.protocol_monitor)
+    if protocol_events <= 0 or any(pm.violations for pm in monitors) or violations \
+            or any("Protocol_Violation_Count" in m for m in metrics):
+        raise AssertionError(f"observe: {protocol_events} protocol events, "
+                             f"{[pm.violations for pm in monitors]} violations")
+
+    # exactly one capture, drained into one batch trace, holding the
+    # anomaly kernel and the loop threads' CPU ops
+    captures = [s for s in spans if s.get("name") == "profiler/capture"]
+    counted = [m["Profiler_Captures_Count"] for m in rec["metrics"]
+               if "Profiler_Captures_Count" in m]
+    if armed.get("status") != 200 or len(captures) != 1 or not counted \
+            or max(counted) != 1.0 or captures[0]["properties"]["path"] != armed["path"]:
+        raise AssertionError(f"observe: capture {armed}, spans {captures}, "
+                             f"Profiler_Captures_Count {counted}")
+    if not capture.get("anomaly_score") \
+            or not set(CAPTURE_THREADS) <= set(capture["loop_threads_with_ops"]):
+        raise AssertionError(f"observe: the capture holds {capture}")
+
+    # the fleet view: sums, histograms, statuses, lineage, the audit
+    summed = {n: v for n, v in fm["counters"].items() if n.endswith("_Count")}
+    wrong = {n: (v, sum(m.get(n, 0.0) for m in metrics)) for n, v in summed.items()
+             if v != sum(m.get(n, 0.0) for m in metrics)}
+    batch_hist = fm["histograms"].get("batch", {}).get("count")
+    statuses = {r: v["status"] for r, v in fm["replicas"].items()}
+    lineage = [seg["replica"] for seg in fm["lineage"]]
+    audit = fm["audit"]
+    if not summed or wrong or batch_hist != BATCHES + 1 \
+            or statuses != {"r1": "completed", "r2": "completed"} \
+            or lineage != ["r1", "r2"] or not audit["conserved"] \
+            or audit["output"] != "Delivered" or any(audit["counts"].values()):
+        raise AssertionError(f"observe fleet: counters off {wrong}, batch histogram "
+                             f"{batch_hist}, {statuses}, lineage {lineage}, {audit}")
+
+    # the CLI over the flight recorder: stages, and both replicas
+    stages = {ln.split()[0] for ln in cli["spans"][1].splitlines()[1:] if ln.strip()}
+    stitched = cli["stitch"][1]
+    if any(rc for rc, _out in cli.values()) \
+            or not {"decode", "dispatch", "device-step", "sync", "collect",
+                    "sinks", "streaming/batch"} <= stages \
+            or "replica r1" not in stitched or "replica r2" not in stitched \
+            or "replica r1" not in cli["trace"][1]:
+        raise AssertionError(f"observe cli: {cli}")
+
+    def stats(key):
+        vals = [m[key] for m in rec["metrics"] if key in m]
+        return {"median": statistics.median(vals), "max": max(vals), "all": vals}
+
+    emit({
+        "phase": "observe", "capacity": CAPACITY, "batches": BATCHES, "depth": 2,
+        "seed": seed, "run_s": run_s, "events_per_s": BATCHES * CAPACITY / run_s,
+        "host_phase_events_per_s": host_events_per_s,
+        "latency_batch_ms": stats("Latency-Batch"),
+        "background_land_ms": stats("Transfer_Background_LandMs"),
+        "fleet_frame_publish_ms": publish_ms, "fleet_frame_bytes": frame_bytes,
+        "fleet": {"frames": frames, "refresh_ms": refresh_ms,
+                  "counters_checked": len(summed), "batch_histogram_count": batch_hist,
+                  "replicas": statuses, "lineage": lineage,
+                  "audit": {k: audit[k] for k in ("output", "ingested", "emitted",
+                                                   "conserved", "counts")}},
+        "protocol_events": protocol_events,
+        "protocol_violations": sum(pm.violations for pm in monitors),
+        "capture": {"seconds": CAPTURE_SECONDS, "armed_status": armed["status"],
+                    "duration_ms": captures[0]["durationMs"], **capture,
+                    "thread_ids": thread_ids},
+        "calib_on_every_batch": True, "host_syncs_poll_encode_dispatch": sync.count,
+        "cli_stages": sorted(stages), "rows_out": rows_out,
+        "launches": {"anomaly_score": launches}, "match_cpu": True, "card": nvidia_smi,
+    })
     return launches
 
 
@@ -1534,7 +1891,9 @@ def phase_gen_conf(nvidia_smi: str) -> dict:
     import tempfile
 
     from data_accelerator_tpu_torch.core.config import parse_conf_lines
+    from data_accelerator_tpu_torch.constants import MetricName
     from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.obs import calibrate
     from data_accelerator_tpu_torch.obs import conformance as conf_mod
     from data_accelerator_tpu_torch.obs.exposition import ObservabilityServer
     from data_accelerator_tpu_torch.obs.histogram import HISTOGRAMS
@@ -1571,6 +1930,9 @@ def phase_gen_conf(nvidia_smi: str) -> dict:
             raise AssertionError("gen_conf: the first run's processor outlived its host")
         allocated_before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        # the manifest run's host calibrates the card at its init, after
+        # its processor is built: its probe must not show in the peak
+        calibrate.clear_cache()
         with DispatchTimes() as dt:
             t0 = time.perf_counter()
             host = host_mod.main([f"conf={conf_path}", f"batches={batches}"])
@@ -1629,6 +1991,34 @@ def phase_gen_conf(nvidia_smi: str) -> dict:
     if judged_past != ("DX522" in codes):
         raise AssertionError(f"gen_conf: DX522 events {codes} against HBM ratios "
                              f"{hbm_ratio} (band {monitor.hbm_ratio_high})")
+    # the calibration ran in this host's init: the flow's own peak stays
+    # beside the model, and DX522 silent
+    if "DX522" in codes or judged_past:
+        raise AssertionError(f"gen_conf: HBM ratios {hbm_ratio} past "
+                             f"{monitor.hbm_ratio_high} (DX522 {codes})")
+    # the card's profile rides every batch and prices the model's
+    # stages; a stage at or over the floor is judged: its ratio appears
+    # every batch, and DX520/521 fire exactly when a judged ratio past
+    # the warm-up is over its band
+    calib = {n: series(n) for n in sorted(names) if n.startswith("Calib_")}
+    if not calib or any(len(v) != batches for v in calib.values()):
+        raise AssertionError(f"gen_conf: Calib_* series {calib}")
+    predictions = {}
+    for stage, ms in sorted(monitor.latency.items()):
+        camel = MetricName.stage_metric(stage)[len("Latency-"):]
+        ratios = series(f"Conformance_StageTime_{camel}_Ratio")
+        judged = ms >= monitor.stage_time_floor_ms
+        predictions[stage] = {"predicted_ms": ms, "judged": judged, "ratios": ratios}
+        if judged and len(ratios) != batches:
+            raise AssertionError(f"gen_conf: stage {stage} judged, ratios {ratios}")
+    if not predictions:
+        raise AssertionError("gen_conf: no calibrated stage predictions")
+    stage_past = any(r > monitor.stage_time_ratio_high
+                     for p in predictions.values() if p["judged"]
+                     for r in p["ratios"][warmup:])
+    if stage_past != any(c in ("DX520", "DX521") for c in codes):
+        raise AssertionError(f"gen_conf: DX520/521 events {codes} against stage "
+                             f"predictions {predictions}")
     emit({
         "phase": "gen_conf", "conf": str(GEN_FIXTURE.relative_to(ROOT)),
         "batches": host.batches_processed, "conformance_warmup": warmup,
@@ -1642,6 +2032,10 @@ def phase_gen_conf(nvidia_smi: str) -> dict:
                                if n.startswith("Conformance_")
                                and n != "Conformance_Drift"},
         "hbm_peak_bytes": series("Hbm_PeakBytes"),
+        "calib": {n: v[-1] for n, v in calib.items()},
+        "stage_predictions": predictions,
+        "stage_time_floor_ms": monitor.stage_time_floor_ms,
+        "stage_time_band": monitor.stage_time_ratio_high,
         "allocated_at_phase_start_bytes": allocated_at_start,
         "allocated_before_manifest_run_bytes": allocated_before,
         "model_hbm_bytes": model["totals"]["hbmBytes"],
@@ -2420,8 +2814,9 @@ def main(argv=None) -> int:
         "anomaly_score": phase_flow(args.seed, udf),
         "dx305_double": phase_udf_flow(args.seed, udf),
     }
-    host_launches = phase_host(args.seed, nvidia_smi)
+    host_launches, host_events_per_s = phase_host(args.seed, nvidia_smi)
     cli_launches = phase_host_cli(nvidia_smi)
+    observe_launches = phase_observe(args.seed, nvidia_smi, host_events_per_s)
     # this slice's paths declare no kernel: each kernel's process-wide
     # count, set to 0 just before each path and read just after, stays 0
     slice_launches = {"gen_conf": phase_gen_conf(nvidia_smi),
@@ -2435,7 +2830,8 @@ def main(argv=None) -> int:
         "anomaly_score": {"flow": launches["anomaly_score"],
                           "ingest": ingest_launches,
                           "host": host_launches,
-                          "host_cli": cli_launches},
+                          "host_cli": cli_launches,
+                          "observe": observe_launches},
         "dx305_double": {"udf_flow": launches["dx305_double"]},
     }
     for path, counts in slice_launches.items():

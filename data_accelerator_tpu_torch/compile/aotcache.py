@@ -1,4 +1,5 @@
-"""``objstore://`` URL parsing for the state-snapshot mirror.
+"""``objstore://`` URL parsing for the port's object-store clients (the
+state-snapshot mirror, fleet frames, shared machine profiles).
 
 A trimmed copy of the JAX package's ``compile/aotcache.py``: only
 ``_parse_objstore_url``. The rest of that module is JAX's persistent

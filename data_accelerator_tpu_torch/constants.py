@@ -67,6 +67,17 @@ class MetricName:
     and sinks use: the JAX package's registry of every engine-emitted
     metric name (``RUNTIME_METRIC_PATTERNS``) is not copied."""
 
+    # fleet telemetry plane (obs/publisher.py + obs/fleetview.py):
+    # publisher self-metrics and aggregator-side counters, referenced
+    # by name from both modules so the emit sites and the registry
+    # cannot drift
+    FLEET_FRAMES = "Fleet_Frames_Count"
+    FLEET_FRAME_BYTES = "Fleet_Frame_Bytes"
+    FLEET_FRAME_PUBLISH_MS = "Fleet_FramePublish_Ms"
+    FLEET_FRAME_PUBLISH_ERROR = "Fleet_FramePublishError_Count"
+    FLEET_FRAME_DECODE_ERROR = "Fleet_FrameDecodeError_Count"
+    FLEET_MERGE_LATENCY_MS = "Fleet_MergeLatency_Ms"
+
     # runtime conf audit (runtime/confaudit.py, run at every
     # StreamingHost init): keys audited against the conf registry, keys
     # no registry row governs, and keys whose value violated its row's

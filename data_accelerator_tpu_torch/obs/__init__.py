@@ -1,9 +1,10 @@
 """Observability: metric store, metric logger, telemetry, tracing,
 latency histograms, Prometheus/health exposition.
 
-Copy of the JAX package's ``obs/__init__.py``; the modules it does not
-name (alerts, conformance, calibration, the profiler, the fleet
-publisher) are not ported yet."""
+Copy of the JAX package's ``obs/__init__.py``. The modules it does not
+import (alerts, conformance, calibration, the profiler, the fleet
+publisher and view, the ``obs`` CLI in ``__main__.py``) are imported
+where they are used."""
 
 from .store import MetricStore, METRIC_STORE
 from .metrics import MetricLogger

@@ -26,24 +26,18 @@ counts — against those predictions and exports:
   | DX522 | hbm-footprint-drift | live HBM peak (``Hbm_PeakBytes``, the per-window ``memory_stats`` sample) drifted above the DX2xx modeled footprint band |
 
 The DX52x trio is the *time* half of the loop: S620 embeds the
-byte+FLOP closed forms, and per-stage predicted milliseconds (here: an
-operator pin) are judged against the same windowed
+byte+FLOP closed forms, and per-stage predicted milliseconds (computed
+by ``latency_predictions`` from the host's calibrated machine profile,
+or an operator pin) are judged against the same windowed
 ``Latency-<Stage>-p50`` histogram series the dashboards read.
 
 Events fire on the *transition* into drift (and re-arm on recovery), so
 a sustained drift is one event, not one per batch; the cumulative
 ``Conformance_Drift_Count`` gauge keeps the total visible.
 
-Copy of the JAX package's ``obs/conformance.py``. Trimmed:
-
-- ``ConformanceModel.latency_predictions`` and its import of
-  ``analysis/costmodel.py``: the predictions exist only with a
-  calibrated machine profile (``obs/calibrate.py``), which the port does
-  not have yet. DX520/DX521 therefore stay silent unless an operator
-  pins them with ``process.conformance.latency``, as in the JAX package
-  without a calibration.
-- DX510/DX511 and the ``process.mesh.model`` half of the model: the
-  port runs on one card and its host refuses ``process.mesh.model``.
+Copy of the JAX package's ``obs/conformance.py``. Trimmed: DX510/DX511
+and the ``process.mesh.model`` half of the model: the port runs on one
+card and its host refuses ``process.mesh.model``.
 
 In the port ``Retrace_Count`` counts rebuilds of the step after init
 (a UDF ``on_interval`` refresh): eager PyTorch has no trace, and a
@@ -181,6 +175,37 @@ class ConformanceModel:
             return None
         return cls.from_json(raw)
 
+    def latency_predictions(self, profile: dict) -> tuple:
+        """The DX520 comparison baseline: roofline per-stage latency
+        under ``profile`` (a calibrated ``MachineProfile.to_dict()``).
+        Bytes and FLOPs travel in the conf-embedded model; this turns
+        them into milliseconds on the machine that will be judged.
+        Returns ``(predictions, compute_ms, overhead_ms)`` —
+        predictions keyed by runtime histogram stage, and the model's
+        compute-vs-dispatch-overhead split (the DX521 input: a stage
+        whose predicted time is all fixed overhead has nothing to gain
+        from bandwidth, only from batching/fusing dispatches)."""
+        from ..analysis.costmodel import (
+            latency_model,
+            stage_latency_predictions,
+        )
+
+        model = latency_model(
+            self.stages,
+            {
+                "d2hBytesPerBatch": self.d2h_bytes_per_batch,
+                "flops": self.flops,
+            },
+            profile,
+            profile_source="calibrated",
+        )
+        totals = model["totals"]
+        return (
+            stage_latency_predictions(model),
+            float(totals["computeMs"]),
+            float(totals["dispatchOverheadMs"]),
+        )
+
 
 class ConformanceMonitor:
     """Windowed model-vs-observed comparison, fed once per batch finish
@@ -296,8 +321,9 @@ class ConformanceMonitor:
         pinned: bool = False,
     ) -> None:
         """Arm the DX520/DX521 checks with per-stage predicted ms
-        (an explicit conf pin in the port — a pin wins over computed
-        predictions and is never overwritten by them)."""
+        (``ConformanceModel.latency_predictions`` output, or an
+        explicit conf pin — a pin wins over computed predictions and
+        is never overwritten by the host's calibration)."""
         if self.latency_pinned and not pinned:
             return
         self.latency = {

@@ -18,9 +18,9 @@ directly:
 The same rendering functions back the website server's endpoints, so
 the control plane and every runtime host speak one exposition dialect.
 
-Copy of the JAX package's ``obs/exposition.py``. Trimmed: the
-on-demand profiler (``obs/profiler.py``) is not ported, so ``/profile``
-answers 501 and names it, and the server takes no profiler.
+Copy of the JAX package's ``obs/exposition.py``; ``GET /profile`` and
+``POST /profile?seconds=N`` drive the port's ``torch.profiler`` surface
+(``obs/profiler.py``).
 """
 
 from __future__ import annotations
@@ -368,13 +368,6 @@ def render_prometheus(
 
 
 # -- the runtime host's observability server -------------------------------
-# the on-demand profiler surface of the JAX package is not ported
-_PROFILE_UNPORTED = json.dumps({
-    "error": "on-demand profiling (obs/profiler.py) is not ported to "
-             "data_accelerator_tpu_torch yet",
-}).encode()
-
-
 class ObservabilityServer:
     """Tiny HTTP server exposing /metrics, /healthz, /readyz for one
     runtime host (the website server exposes the same paths for the
@@ -388,11 +381,13 @@ class ObservabilityServer:
         host: str = "127.0.0.1",
         port: int = 0,
         alerts=None,
+        profiler=None,
     ):
         self.health = health
         self.histograms = histograms if histograms is not None else HISTOGRAMS
         self.store = store if store is not None else METRIC_STORE
         self.alerts = alerts  # obs.alerts.AlertEngine | None
+        self.profiler = profiler  # obs.profiler.ProfilerSurface | None
         obs = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -448,19 +443,63 @@ class ObservabilityServer:
                         "application/json",
                     )
                 elif path == "/profile":
-                    self._send(501, _PROFILE_UNPORTED, "application/json")
+                    # capture state for pollers (POST starts one)
+                    if obs.profiler is None:
+                        self._send(
+                            501,
+                            b'{"error": "profiler surface disabled"}',
+                            "application/json",
+                        )
+                        return
+                    payload = {
+                        "available": obs.profiler.available,
+                        "active": obs.profiler.active(),
+                        "captures": obs.profiler.captures_count,
+                    }
+                    self._send(
+                        200, json.dumps(payload).encode(),
+                        "application/json",
+                    )
                 else:
                     self._send(
                         404, b'{"error": "not found"}', "application/json"
                     )
 
             def do_POST(self):
-                if self.path.partition("?")[0] != "/profile":
+                path, _, query = self.path.partition("?")
+                if path != "/profile":
                     self._send(
                         404, b'{"error": "not found"}', "application/json"
                     )
                     return
-                self._send(501, _PROFILE_UNPORTED, "application/json")
+                if obs.profiler is None or not obs.profiler.available:
+                    self._send(
+                        501,
+                        json.dumps({
+                            "error": "torch.profiler unavailable "
+                                     "(surface disabled or a torch "
+                                     "without profiler support)",
+                        }).encode(),
+                        "application/json",
+                    )
+                    return
+                seconds = None
+                for part in query.split("&"):
+                    k, _, v = part.partition("=")
+                    if k == "seconds":
+                        try:
+                            seconds = float(v)
+                        except ValueError:
+                            pass
+                from .profiler import DEFAULT_SECONDS
+
+                result = obs.profiler.start(
+                    seconds if seconds is not None else DEFAULT_SECONDS
+                )
+                status = 200 if "error" not in result else 409
+                self._send(
+                    status, json.dumps(result).encode(), "application/json"
+                )
 
         self._server = ThreadingHTTPServer((host, port), Handler)
         self._server.daemon_threads = True

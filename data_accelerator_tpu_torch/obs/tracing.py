@@ -28,8 +28,13 @@ Design notes:
   (obs/histogram.py) when the tracer holds a registry — spans and
   histograms cannot disagree because they share the one measurement.
 
-Copy of the JAX package's ``obs/tracing.py``, unchanged but for this
-note: the trace CLI it names (``obs/__main__.py``) is not ported yet.
+Copy of the JAX package's ``obs/tracing.py``. The trace CLI is
+``python -m data_accelerator_tpu_torch.obs trace`` (``obs/__main__.py``).
+Added: while an on-demand ``torch.profiler`` capture runs
+(``obs/profiler.py`` sets ``PROFILER_RANGES``), every child span also
+opens a ``torch.profiler.record_function`` range of its name, so the
+capture's timeline shows each thread's batch stages, the landing
+thread's Python work among them, which runs few torch ops of its own.
 """
 
 from __future__ import annotations
@@ -42,9 +47,14 @@ import threading
 import time
 from typing import Dict, Iterator, Optional
 
+import torch
+
 from .histogram import HistogramRegistry
 
 _local = threading.local()
+
+# set while a profiler capture runs: spans then open profiler ranges
+PROFILER_RANGES = threading.Event()
 
 _trace_counter = itertools.count(1)
 
@@ -242,8 +252,13 @@ class TraceContext:
             # nest further children under this span on the same thread
             stack.append((self, span_id))
             pushed = True
+        profiled = (
+            torch.profiler.record_function(name) if PROFILER_RANGES.is_set()
+            else contextlib.nullcontext()
+        )
         try:
-            yield
+            with profiled:
+                yield
         finally:
             if pushed:
                 stack.pop()

@@ -14,21 +14,24 @@ which raises without one) or on the CPU when the caller asks for it.
 
 As in the JAX host: the boot conf audit (``runtime/confaudit.py``:
 ``Conf_*`` gauges, DX1006 events), the conformance monitor
-(``obs/conformance.py``, DX501-503 and DX522, and DX520/521 when
-``process.conformance.latency`` pins them) and the alert rules
-(``obs/alerts.py``: evaluated after each batch's store flush, served on
-``GET /alerts`` and ``datax_alert_firing``, and voted into the pilot).
-One source per ``input.sources.*`` entry: each batch polls, decodes,
-acks and checkpoints every source.
+(``obs/conformance.py``, DX501-503, DX520/521 and DX522) and the alert
+rules (``obs/alerts.py``: evaluated after each batch's store flush,
+served on ``GET /alerts`` and ``datax_alert_firing``, and voted into the
+pilot). One source per ``input.sources.*`` entry: each batch polls,
+decodes, acks and checkpoints every source. The observability plane
+(slice 6): machine-profile calibration of the host's device at init
+(``obs/calibrate.py``, ``observability.calibration``/``calibrationfile``/
+``calibrationurl``), whose ``Calib_*`` gauges ride every batch and whose
+profile prices the conf's cost model into the DX520/521 predictions; the
+on-demand ``torch.profiler`` capture behind ``POST /profile``
+(``obs/profiler.py``, ``observability.profiler``/``profilerdir``); fleet
+telemetry frames (``obs/publisher.py``, ``process.fleet.publishurl``);
+and the delivery-protocol monitor (``runtime/protocolmonitor.py``,
+``process.debug.protocolmonitor``, runtime DX906).
 
 Not ported yet, and refused by conf with an ``EngineException`` that
-names them (``_refuse_unported``): the mesh sharding model
-(``process.mesh.model``, ``dist/``), the fleet telemetry publisher
-(``obs/publisher.py``), the protocol monitor
-(``runtime/protocolmonitor.py``) and machine-profile calibration files
-(``obs/calibrate.py``). Absent without a conf to refuse: the ``Calib_*``
-gauges (calibration, so DX520/521 have no computed predictions) and the
-on-demand ``/profile`` capture (``obs/profiler.py``).
+names it (``_refuse_unported``): the mesh sharding model
+(``process.mesh.model``, ``dist/``).
 
 CUDA state is per thread in PyTorch: the current device and stream.
 The decode-ahead worker (which copies ``LocalSource`` columns to the
@@ -46,11 +49,13 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
+import os
 import sys
+import tempfile
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -59,13 +64,16 @@ from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.confmanager import ConfigManager
 from ..obs import telemetry, tracing
 from ..obs.alerts import AlertEngine
+from ..obs.calibrate import get_profile
 from ..obs.conformance import ConformanceMonitor
 from ..obs.exposition import HealthState, ObservabilityServer
 from ..obs.histogram import HISTOGRAMS
 from ..obs.metrics import MetricLogger
+from ..obs.profiler import ProfilerSurface
+from ..obs.publisher import TelemetryFramePublisher
 from ..obs.tracing import Tracer
 from ..pilot.controller import PilotController
-from . import confaudit
+from . import confaudit, protocolmonitor
 from .checkpoint import OffsetCheckpointer, WindowStateCheckpointer
 from .processor import FlowProcessor
 from .sinks import OutputDispatcher, build_output_operators
@@ -87,26 +95,11 @@ def _enter_stream(stream: Optional["torch.cuda.Stream"]) -> None:
 def _refuse_unported(dict_: SettingDictionary) -> None:
     """Raise for conf that asks for a host feature this port lacks,
     naming it, rather than run the flow without it."""
-    proc = SettingNamespace.JobProcessPrefix
-    obs = proc + "observability."
-    checks = [
-        (bool(dict_.get(proc + "mesh.model")),
-         "the mesh sharding model (process.mesh.model, dist/, "
-         "multi-GPU slice 8)"),
-        (bool(dict_.get(proc + "fleet.publishurl")),
-         "fleet telemetry (process.fleet.publishurl, obs/publisher.py)"),
-        ((dict_.get(proc + "debug.protocolmonitor") or "").lower() == "true",
-         "the protocol monitor (process.debug.protocolmonitor, "
-         "runtime/protocolmonitor.py)"),
-        (bool(dict_.get(obs + "calibrationfile") or dict_.get(obs + "calibrationurl")),
-         "machine-profile calibration (observability.calibrationfile/"
-         "calibrationurl, obs/calibrate.py)"),
-    ]
-    for asked, feature in checks:
-        if asked:
-            raise EngineException(
-                f"{feature} is not ported to data_accelerator_tpu_torch yet"
-            )
+    if dict_.get(SettingNamespace.JobProcessPrefix + "mesh.model"):
+        raise EngineException(
+            "the mesh sharding model (process.mesh.model, dist/, "
+            "multi-GPU slice 8) is not ported to data_accelerator_tpu_torch yet"
+        )
 
 
 class StreamingHost:
@@ -153,6 +146,14 @@ class StreamingHost:
         # Conformance_* gauges + DX5xx drift events
         self.conformance = ConformanceMonitor.from_conf(
             dict_, flow=dict_.get_job_name()
+        )
+        # process.debug.protocolmonitor arms the dynamic half of the
+        # DX9xx exactly-once defense: the batch tail records its actual
+        # protocol-event sequence and every sealed batch's linearization
+        # is validated against the declared spec; violations fire
+        # runtime DX906
+        self.protocol_monitor = protocolmonitor.from_conf(
+            dict_.get_sub_dictionary(SettingNamespace.JobProcessPrefix + "debug.")
         )
         # boot-time conf audit: the conf this host started with, replayed
         # through the DX10xx lattice validator; unknown/out-of-bounds keys
@@ -231,6 +232,49 @@ class StreamingHost:
             histograms=HISTOGRAMS,
             health=self.health,
         )
+        # fleet telemetry plane: when process.fleet.publishurl is conf'd,
+        # every batch finish folds into a windowed frame shipped to the
+        # shared objstore for the control plane's FleetView rollup.
+        # None = per-process only.
+        self.fleet_publisher = TelemetryFramePublisher.from_conf(
+            dict_,
+            flow=dict_.get_job_name(),
+            metric_logger=self.metric_logger,
+            histograms=HISTOGRAMS,
+        )
+        # machine-profile calibration of this host's device: torch
+        # micro-probes, cached per process and device and persisted/
+        # shared through observability.calibrationfile / calibrationurl.
+        # The profile prices the conf-embedded byte+FLOP model into the
+        # DX520/DX521 roofline predictions and exports as the Calib_*
+        # series on every batch. Off with observability.calibration=false
+        # (the monitor's latency checks then stay disarmed unless
+        # conformance.latency pins them).
+        self._calib_metrics: Dict[str, float] = {}
+        if (obs_conf.get_or_else("calibration", "true") or "").lower() \
+                != "false":
+            try:
+                profile = get_profile(
+                    cache_file=obs_conf.get("calibrationfile"),
+                    share_url=obs_conf.get("calibrationurl"),
+                    device=self.device,
+                )
+                self._calib_metrics = profile.metrics()
+                if self.conformance is not None \
+                        and not self.conformance.latency_pinned:
+                    preds, compute_ms, overhead_ms = (
+                        self.conformance.model.latency_predictions(
+                            profile.to_dict()
+                        )
+                    )
+                    self.conformance.set_latency(
+                        preds, compute_ms, overhead_ms
+                    )
+            except Exception:  # noqa: BLE001 — calibration is optional
+                logger.exception(
+                    "machine-profile calibration failed; "
+                    "DX52x latency checks disarmed"
+                )
         # live device-memory watermark sampling (observability.hbmsample,
         # default on): Hbm_BytesInUse/Hbm_PeakBytes each batch, absent
         # on the CPU, which reports no allocator stats
@@ -238,6 +282,28 @@ class StreamingHost:
             (obs_conf.get_or_else("hbmsample", "true") or "").lower()
             != "false"
         )
+
+        # on-demand profiler surface: POST /profile?seconds=N on the
+        # observability port arms a torch.profiler capture that lands
+        # beside the flight recorder (observability.profilerdir
+        # overrides). Off with observability.profiler=false.
+        self.profiler: Optional[ProfilerSurface] = None
+        if (obs_conf.get_or_else("profiler", "true") or "").lower() \
+                != "false":
+            prof_dir = obs_conf.get("profilerdir")
+            if not prof_dir:
+                tracefile = tele_conf0.get("tracefile")
+                base = (
+                    os.path.dirname(os.path.abspath(tracefile))
+                    if tracefile else tempfile.gettempdir()
+                )
+                prof_dir = os.path.join(
+                    base, f"profiler-{dict_.get_job_name() or 'flow'}"
+                )
+            self.profiler = ProfilerSurface(
+                prof_dir, flow=dict_.get_job_name(),
+                cuda=self.device.type == "cuda",
+            )
 
         self.obs_server: Optional[ObservabilityServer] = None
         obs_port = obs_conf.get_int_option("port")
@@ -248,6 +314,7 @@ class StreamingHost:
                 store=self.metric_logger.store,
                 port=obs_port,
                 alerts=self.alerts,
+                profiler=self.profiler,
             )
             self.obs_server.start()
 
@@ -576,6 +643,7 @@ class StreamingHost:
         """The batch tail behind the counts sync: land the streamed
         tables, run sinks, commit state, ack sources, emit metrics,
         checkpoint."""
+        pm = self.protocol_monitor
         try:
             with trace.activate():
                 land_t0 = time.time()
@@ -584,9 +652,15 @@ class StreamingHost:
                 land_ms = (time.time() - land_t0) * 1000.0
                 with tracing.span("sinks"):
                     self.dispatcher.dispatch(datasets, batch_time_ms)
+                if pm is not None:
+                    pm.record("SINK_EMIT", detail="dispatcher.dispatch")
                 self.processor.commit()
-                for s in self.sources.values():
+                if pm is not None:
+                    pm.record("POINTER_FLIP", detail="processor.commit")
+                for name, s in self.sources.items():
                     s.ack()
+                    if pm is not None:
+                        pm.record("FIFO_ACK", source=name)
         except Exception as e:
             self.telemetry.track_exception(
                 e, {"event": "error/streaming/process", "batchTime": batch_time_ms}
@@ -596,8 +670,12 @@ class StreamingHost:
             )
             trace.end(status="error")
             if requeue_on_error:
-                for s in self.sources.values():
+                for name, s in self.sources.items():
                     s.requeue_unacked()
+                    if pm is not None:
+                        pm.record("REQUEUE", source=name)
+            if pm is not None:
+                pm.seal_batch(batch_time_ms, failed=True)
             logger.exception("batch processing failed; rethrowing for retry")
             raise
 
@@ -612,6 +690,9 @@ class StreamingHost:
             metrics["Transfer_Background_Pending"] = float(backlog)
             metrics["Transfer_Background_LandMs"] = land_ms
         self.health.record_stall(stall_ms)
+        # the calibrated machine profile rides every batch as Calib_*
+        # gauges (constant per process and device)
+        metrics.update(self._calib_metrics)
         # live device-memory watermark: the caching allocator's
         # in-use/peak bytes, absent on the CPU
         if self.hbm_sample:
@@ -644,16 +725,43 @@ class StreamingHost:
                 logger.warning(
                     "conformance drift %s: %s", ev.code, ev.message
                 )
+        # finished profiler captures stitch into THIS batch's trace as
+        # span events (the capture path is then one `obs trace` away
+        # from the batches it overlapped) and bump the capture counter
+        if self.profiler is not None:
+            for cap in self.profiler.drain_finished():
+                trace.record(
+                    "profiler/capture", cap["startedTs"],
+                    cap.get("durationMs") or 0.0, path=cap["path"],
+                )
+            if self.profiler.captures_count:
+                metrics["Profiler_Captures_Count"] = float(
+                    self.profiler.captures_count
+                )
+        if pm is not None:
+            # Protocol_Events_Count for this batch's recorded prefix
+            # (the post-ack checkpoint trio drains on the next batch)
+            metrics.update(pm.drain_metric_deltas())
         self.telemetry.batch_end(batch_time_ms, {"latencyMs": metrics["Latency-Batch"]})
         self.metric_logger.send_batch_metrics(metrics, batch_time_ms)
         # alert evaluation AFTER the store flush so window aggregates
         # include this batch; the firing set rides the health payload
         # (readyz) and the Alerts_Firing series
+        firing: List[dict] = []
         if self.alerts is not None:
             firing = self.alerts.evaluate()
             self.health.record_alerts(firing)
             self.metric_logger.send_metric(
                 "Alerts_Firing", float(len(firing)), batch_time_ms
+            )
+        # fleet telemetry frame accumulation: the acked batch's metric
+        # deltas + consumed offset ranges fold into the open window;
+        # record_batch is fail-open and thread-safe (this tail may run
+        # on the landing thread)
+        if self.fleet_publisher is not None:
+            self.fleet_publisher.record_batch(
+                metrics, consumed, batch_time_ms,
+                health=self.health.health(), alerts=firing,
             )
         logger.info(
             "batch %d: %s",
@@ -663,7 +771,19 @@ class StreamingHost:
         # DX53x state events (load fallback / both-sides-bad) land in
         # the flight recorder like conformance drift — typed, greppable
         self._drain_state_events()
-        # post-commit at-least-once replay cursor: the window snapshot
+        # runtime DX906: protocol-monitor ordering violations from
+        # previously sealed batches join the recorder the same way
+        if pm is not None:
+            for ev in pm.drain_events():
+                try:
+                    self.telemetry.track_event("protocol/violation", ev)
+                    self.metric_logger.send_metric_events(
+                        "Protocol_Violation", [ev], batch_time_ms
+                    )
+                except Exception:  # noqa: BLE001 — telemetry never kills a batch
+                    logger.exception("protocol event emit failed")
+                logger.warning("protocol monitor %s", ev.get("message"))
+        # dx-proto: post-commit at-least-once replay cursor: the window snapshot
         # and the offset commit run AFTER the ack on purpose — a crash
         # between ack and checkpoint replays from the previous offsets
         # into rings that already hold the events (duplicates, never
@@ -679,15 +799,31 @@ class StreamingHost:
                     # events the restored rings never saw
                     snap = self.processor.snapshot_window_state()
                     self.window_checkpointer.save(snap)
+                    if pm is not None:
+                        pm.record(
+                            "DURABLE_WRITE",
+                            detail="window_checkpointer.save",
+                        )
                     if self.processor.state_mirror is not None:
                         # ship the owned window partitions (A/B + pointer
                         # per partition) so a rescale successor can pull
                         # exactly its assigned range — fail-closed: a
                         # dead store fails the batch, which requeues
                         self.processor.push_window_partitions(snap)
+                        if pm is not None:
+                            pm.record(
+                                "STATE_PUSH",
+                                detail="push_window_partitions",
+                            )
                 self.checkpointer.checkpoint_batch(consumed)
+                if pm is not None:
+                    pm.record(
+                        "OFFSET_COMMIT", detail="checkpoint_batch",
+                    )
             self._last_checkpoint = t0
             self.health.record_checkpoint()
+        if pm is not None:
+            pm.seal_batch(batch_time_ms)
         self.batches_processed += 1
         self.health.record_batch(
             batch_time_ms, ok=True, latency_ms=metrics["Latency-Batch"]
@@ -707,6 +843,11 @@ class StreamingHost:
         """Dispatch under the batch's trace, marking the dispatch-done
         instant the later device-step span measures from."""
         trace.add(batchTime=batch_time_ms)
+        if self.fleet_publisher is not None:
+            # replica identity on every batch root span: what lets
+            # `obs trace --stitch` group a shared flight recorder's
+            # spans into the flow's cross-replica lineage segments
+            trace.add(replica=self.fleet_publisher.replica)
         self.telemetry.batch_begin(batch_time_ms)
         with trace.activate(), tracing.span("dispatch"):
             handle = self.processor.dispatch_batch(raw, batch_time_ms)
@@ -756,14 +897,23 @@ class StreamingHost:
     def run(self, max_batches: Optional[int] = None) -> None:
         """Paced loop (streaming.intervalInSeconds cadence,
         StreamingHost.scala:66-67)."""
-        while not self._stop:
-            start = time.time()
-            self.run_batch()
-            if max_batches is not None and self.batches_processed >= max_batches:
-                break
-            sleep = self.interval_s - (time.time() - start)
-            if sleep > 0:
-                time.sleep(sleep)
+        try:
+            while not self._stop:
+                start = time.time()
+                self.run_batch()
+                if max_batches is not None and self.batches_processed >= max_batches:
+                    break
+                sleep = self.interval_s - (time.time() - start)
+                if sleep > 0:
+                    time.sleep(sleep)
+        finally:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        """Close any in-flight on-demand capture so its trace is written
+        before the loop (or the process) goes away."""
+        if self.profiler is not None:
+            self.profiler.stop()
 
     def run_pipelined(
         self,
@@ -901,6 +1051,7 @@ class StreamingHost:
             if fut_trace is not None:
                 fut_trace.end(status="aborted")  # idempotent
             pool.shutdown(wait=False, cancel_futures=True)
+            self._stop_profiler()
 
     def stop(self, close_sources: bool = True) -> None:
         """``close_sources=False`` tears the host down but leaves its
@@ -908,12 +1059,18 @@ class StreamingHost:
         source/checkpoint state the way a rescheduled job takes over its
         partitions."""
         self._stop = True
+        self._stop_profiler()
         if self._landing_pool is not None:
             # let queued landings flush their sinks/acks before the
             # dispatcher and sources close underneath them
             self._settle_landings()
             self._landing_pool.shutdown(wait=True)
             self._landing_pool = None
+        if self.fleet_publisher is not None:
+            # ship the tail window with the final drain marker — the
+            # fleet view's clean-shutdown signal (a replica that dies
+            # before this goes DX542-stale instead)
+            self.fleet_publisher.flush(final=True)
         if self.obs_server is not None:
             self.obs_server.stop()
             self.obs_server = None

@@ -77,6 +77,7 @@ from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.schema import ColType, Schema, StringDictionary
 from ..kernels import build as kernel_build
 from ..native import NativeDecoder, PackedBufferPool
+from ..obs import tracing
 from ..ops.compact import compact_indices
 from ..udf import UdfRegistry, load_udfs_from_conf
 from .materialize import materialize_rows
@@ -1830,7 +1831,9 @@ class FlowProcessor:
         # copied to the device only when the dictionary grew
         aux = self.aux_tables.tables()
         refdata = {n: t for n, (_s, t) in self.refdata.items()}
-        with kernel_build.loads_recorded() as loads:
+        # child span of the host's "dispatch" when a batch trace is
+        # active; a no-op without one
+        with tracing.span("device-enqueue"), kernel_build.loads_recorded() as loads:
             out_datasets, counts_vec, new_state = self._step(
                 raw, self.window_buffers, self.state_data, refdata, base_s,
                 now_rel_ms, counter, delta_ms, aux,
@@ -2214,10 +2217,11 @@ class PendingBatch:
         gated on its copy's event. Idempotent."""
         if self._counts is not None:
             return self._counts
-        if self._counts_event is not None:
-            self._counts_event.synchronize()
-            self._release_ingest()
-        counts = self._host_counts.numpy()
+        with tracing.span("sync-counts"):
+            if self._counts_event is not None:
+                self._counts_event.synchronize()
+                self._release_ingest()
+            counts = self._host_counts.numpy()
         names = self.out_names
         self._counts = BatchCounts(
             counts=counts,
@@ -2274,9 +2278,10 @@ class PendingBatch:
                 proc._bump_transfer_stat("Overflow")
                 proc.transfer_ewma[n] = float(cnt)
                 proc.transfer_boost[n] = OVERFLOW_BOOST_BATCHES
-                t = _numpy_table(
-                    self._fetch_now(_slice_table(self.out_datasets[n], cnt))
-                )
+                with tracing.span("device-refetch"):
+                    t = _numpy_table(
+                        self._fetch_now(_slice_table(self.out_datasets[n], cnt))
+                    )
                 self._d2h_bytes += _table_nbytes(t)
                 self._transferred_rows += cnt
                 host_tables[n] = t
@@ -2300,21 +2305,24 @@ class PendingBatch:
         names = self.out_names
         datasets: Dict[str, List[dict]] = {}
         try:
-            for name, table in self._land(bc).items():
-                rows = materialize_rows(
-                    table, self.pipeline.schema_of(name), proc.dictionary,
-                    self.base_ms,
-                )
-                view = self.pipeline.view_by_name(name)
-                if view is not None and view.host_order:
-                    # ORDER BY over computed-string columns: the device
-                    # has no id to sort by, so the ordering (and limit)
-                    # applies to the materialized rows (planner
-                    # host-order path)
-                    _host_sort(rows, view.host_order)
-                    if view.host_limit is not None:
-                        rows = rows[: view.host_limit]
-                datasets[name] = rows
+            with tracing.span("device-fetch"):
+                tables = self._land(bc)
+            with tracing.span("materialize"):
+                for name, table in tables.items():
+                    rows = materialize_rows(
+                        table, self.pipeline.schema_of(name), proc.dictionary,
+                        self.base_ms,
+                    )
+                    view = self.pipeline.view_by_name(name)
+                    if view is not None and view.host_order:
+                        # ORDER BY over computed-string columns: the
+                        # device has no id to sort by, so the ordering
+                        # (and limit) applies to the materialized rows
+                        # (planner host-order path)
+                        _host_sort(rows, view.host_order)
+                        if view.host_limit is not None:
+                            rows = rows[: view.host_limit]
+                    datasets[name] = rows
             # persist state tables (A/B overwrite; persist() is the
             # caller's post-sink commit) — from THIS batch's state, in
             # host memory since _land waited for its copy

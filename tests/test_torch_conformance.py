@@ -210,7 +210,9 @@ def test_monitors_agree_on_one_stream():
 
 def test_mesh_drift_codes_are_not_ported():
     assert set(tconf.DRIFT_CODES) == set(jconf.DRIFT_CODES) - {"DX510", "DX511"}
-    assert not hasattr(tconf.ConformanceModel, "latency_predictions")
+    fields = set(tconf.ConformanceModel.__dataclass_fields__)
+    assert fields == set(jconf.ConformanceModel.__dataclass_fields__) - {
+        "ici_wire_bytes_per_batch", "reshard_count"}
 
 
 # -- the port's host on confs from the control plane ---------------------------

@@ -15,9 +15,11 @@ carries ``process.alerts.rules``, and unless the designer opts out
   ``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_genconf.py``.
 - The same designer flow generated at 256 rows a batch runs on both
   packages' ``StreamingHost`` batch for batch: rows and metrics equal,
-  less the families the port does not emit (``Calib_*`` and the
-  ``Conformance_StageTime_*`` ratios priced from it: no calibration yet;
-  ``Compile_Cache_*``: the port reads ``compile.cachedir`` nowhere).
+  less what the port does not emit (``Compile_Cache_*``: the port reads
+  ``compile.cachedir`` nowhere; ``Calib_IciGBps``: no ICI probe on one
+  card). The machine profiles' ``Calib_*`` gauges and the
+  ``Conformance_StageTime_*`` ratios priced from them appear on both,
+  their values measured by each package's own probes.
 - The manifest's eager meaning in the port: a warm at init that leaves
   no adaptive state behind, reports ``Compile_ColdStart_Ms``, counts a
   bucket or kernel first met after it as ``Compile_WarmMiss_Count``,
@@ -166,13 +168,14 @@ def test_fixture_holds_the_three_keys_and_the_config1_queries(tmp_path):
 
 
 # -- both hosts, batch for batch ---------------------------------------------------
-# metrics of wall clock, and the families only the JAX host emits: the
-# calibration gauges and the stage-time ratios priced from them (the
-# port has no calibration yet), and the compile cache's counts (the port
-# has no compile cache)
+# metrics of wall clock (the calibration gauges and the stage-time
+# ratios priced from them among them), and what only the JAX host emits:
+# the compile cache's counts (the port has no compile cache) and the ICI
+# gauge (the JAX package measures a link between the tests' 8 virtual
+# CPU devices; the port has no ICI probe until multi-GPU)
 UNCOMPARED = ("Latency-", "Pipeline_Stall_Ms", "Decode_RowsPerSec",
-              "Compile_ColdStart_Ms")
-JAX_ONLY = ("Calib_", "Conformance_StageTime_", "Compile_Cache_")
+              "Compile_ColdStart_Ms", "Calib_", "Conformance_StageTime_")
+JAX_ONLY = ("Compile_Cache_", "Calib_IciGBps")
 BATCHES = 8
 CAP = 256
 
@@ -247,6 +250,8 @@ def test_generated_conf_runs_on_both_hosts_batch_for_batch(tmp_path, monkeypatch
     # alert engine, the warm's cold start on the first batch only
     assert any(n.startswith("Conf_") for n in tnames)
     assert "Conformance_D2HBytes_Ratio" in tm[-1][1]
+    assert "Calib_HbmReadGBps" in tm[-1][1]
+    assert "Conformance_StageTime_DeviceStep_Ratio" in tm[-1][1]
     assert thost.alerts is not None and thost.conformance is not None
     assert thost.processor._aot_warmed
     assert [("Compile_ColdStart_Ms" in m) for _t, m in tm] == [True] + [False] * (BATCHES - 1)

@@ -5,22 +5,25 @@ off, through ``run`` and ``run_pipelined`` at depths 1 and 2, from JSON
 bytes (the decoder path) and from ``LocalSource`` columns
 (``encode_columns``). Per-batch sink rows must match (ints and ids
 exactly, floats within rtol 1e-5, as ``test_torch_flow.py``), the set
-of metric names must match less the family the port does not emit
-(``Calib_*``), and so must the values of the count-valued metrics,
-the boot audit's ``Conf_*`` gauges among them.
+of metric names must match, and so must the values of the count-valued
+metrics, the boot audit's ``Conf_*`` gauges among them.
 
 Also here: the processor repairs the host needs (``source=`` on the
 encoders, ``SourceSpec.conf`` and ``specs``, the attributes the host
 reads, one consistent window snapshot under a concurrent dispatch), the
-host features refused by conf, the absent families, the entry point,
-the cross-package ``window.npz`` round trip, and on the card the host at
+host feature refused by conf, the ``Calib_*`` and ``Profiler_*``
+families and ``/profile`` against the JAX host's, the entry point, the
+cross-package ``window.npz`` round trip, and on the card the host at
 depth 2 and a snapshot taken under an in-flight batch.
 """
 
+import json
 import threading
+import time
 import types
 import urllib.error
 import urllib.request
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -63,16 +66,18 @@ ANOMALY_CLASSES = {
     "jax": "data_accelerator_tpu.udf.samples:anomalyscore",
     "torch": "data_accelerator_tpu_torch.udf.samples:anomalyscore",
 }
-# the family the JAX host emits and this port does not (ROADMAP §C)
-ABSENT_PREFIXES = ("Calib_",)
-# metrics whose value measures wall clock, or depends on when the landing
-# thread finished a batch relative to later dispatches
+# metrics whose value measures wall clock (the machine profile's probes
+# among them), or depends on when the landing thread finished a batch
+# relative to later dispatches
 TIMING_METRICS = (
-    "Latency-", "Pipeline_Stall_Ms", "Transfer_Background_",
+    "Calib_", "Latency-", "Pipeline_Stall_Ms", "Transfer_Background_",
     "Decode_RowsPerSec", "Decode_BufferReuse_Count", "Transfer_D2HBytes",
     "Transfer_Efficiency", "Transfer_SlotContended_Count",
     "Transfer_Overflow_Count",
 )
+# the JAX package measures a link between the tests' 8 virtual CPU
+# devices; the port has no ICI probe until multi-GPU (slice 8)
+ICI_GAUGE = "Calib_IciGBps"
 # names that appear only when the landing thread's timing allows
 OPTIONAL_METRICS = ("Decode_BufferReuse_Count", "Transfer_SlotContended_Count",
                     "Transfer_Overflow_Count")
@@ -267,17 +272,14 @@ def test_host_matches_jax_host(kind, mode, depth, monkeypatch):
         _assert_same_rows(jrows[key], trows[key], key)
     assert sum(len(r) for (_t, d), r in trows.items() if d == "AnomalyAlerts")
 
-    # metric names: the JAX host's, less the family the port lacks
+    # metric names: the JAX host's, the machine profile's among them
     assert any(n.startswith("Calib_") for n in jnames)
-    assert not any(n.startswith(ABSENT_PREFIXES) for n in tnames)
-    expected = {n for n in jnames if not n.startswith(ABSENT_PREFIXES)}
-    assert tnames - set(OPTIONAL_METRICS) == expected - set(OPTIONAL_METRICS)
+    assert tnames - set(OPTIONAL_METRICS) == jnames - set(OPTIONAL_METRICS) - {ICI_GAUGE}
 
     # count-valued metrics, batch for batch; ingest counters in total
     assert [t for t, _m in tmetrics] == [t for t, _m in jmetrics]
     totals = {"jax": {}, "torch": {}}
     for (t, tm), (_t, jm) in zip(tmetrics, jmetrics):
-        jm = {k: v for k, v in jm.items() if not k.startswith(ABSENT_PREFIXES)}
         assert {k for k in tm if _per_batch(k)} == {k for k in jm if _per_batch(k)}
         for k, v in tm.items():
             if _per_batch(k):
@@ -469,13 +471,9 @@ def test_snapshots_stay_consistent_under_concurrent_dispatch():
     assert taken[0] > 0 and not bad, bad[:3]
 
 
-# -- refusals, absent families, entry points --------------------------------
+# -- refusals, the observability families, entry points ---------------------
 @pytest.mark.parametrize("key,value,feature", [
     ("datax.job.process.mesh.model", '{"totals": {}}', "dist/"),
-    ("datax.job.process.fleet.publishurl", "objstore://fleet", "obs/publisher.py"),
-    ("datax.job.process.debug.protocolmonitor", "true", "runtime/protocolmonitor.py"),
-    ("datax.job.process.observability.calibrationfile", "/x/cal.json", "obs/calibrate.py"),
-    ("datax.job.process.observability.calibrationurl", "objstore://cal", "obs/calibrate.py"),
 ])
 def test_unported_host_features_are_refused(key, value, feature):
     conf = _host_conf("HostRefuse", "torch", {key: value})
@@ -483,52 +481,88 @@ def test_unported_host_features_are_refused(key, value, feature):
         thost_mod.StreamingHost(SettingDictionary(conf), device="cpu")
 
 
-def test_absent_families_and_profile_endpoint():
-    """No ``Calib_*`` (calibration) or ``Profiler_*`` series, and
-    ``/profile`` answers 501 naming ``obs/profiler.py``. The boot conf
-    audit's ``Conf_*`` gauges equal the JAX host's on the same conf."""
+def _profile_request(base, method, seconds=None):
+    """``(status, payload)`` of ``/profile`` on a host's port."""
+    url = base + "/profile" + (f"?seconds={seconds}" if seconds else "")
+    req = urllib.request.Request(url, method=method,
+                                 data=b"" if method == "POST" else None)
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _profiled_run(host, store_prefix):
+    """A capture armed over ``/profile`` while the host runs two
+    batches, drained by two more: the ``/profile`` answers, the
+    ``Profiler_Captures_Count`` points and the metric names."""
+    base = f"http://127.0.0.1:{host.obs_server.port}"
+    armed = _profile_request(base, "POST", seconds=0.2)
+    busy = _profile_request(base, "POST", seconds=0.2)
+    host.run_pipelined(max_batches=2)  # its end closes the capture
+    deadline = time.monotonic() + 30  # the JAX package's stop may be the timer's
+    while host.profiler.captures_count == 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    host.run_pipelined(max_batches=4)  # a batch tail drains it
+    state = _profile_request(base, "GET")
+    captures = [p["val"] for p in host.metric_logger.store.points(
+        store_prefix + "Profiler_Captures_Count")]
+    names = {k.split(":", 1)[1] for k in host.metric_logger.store.keys(store_prefix)}
+    return armed, busy, state, captures, names
+
+
+def test_absent_families_and_profile_endpoint(tmp_path):
+    """The ``Calib_*`` gauges and ``Profiler_Captures_Count`` appear as
+    on the JAX host, and ``/profile`` answers as the JAX host's: a POST
+    arms a capture (200, its path under ``profilerdir``), a second POST
+    during it conflicts (409), and GET reports the surface. The boot
+    conf audit's ``Conf_*`` gauges equal the JAX host's on the same
+    conf."""
     conf = _host_conf("HostAbsent", "torch", {
         "datax.job.process.observability.port": "0",
         # one key no registry row governs, one out of its bounds
         "datax.job.process.nosuchknob": "1",
         "datax.job.process.pilot.maxdepth": "0",
     })
-    jconf = dict(conf, **{
-        "datax.job.process.jar.udf.anomalyscore.class": ANOMALY_CLASSES["jax"],
-    })
-    jhost = jhost_mod.StreamingHost(JSettingDictionary(jconf))
-    jhost.stop()
-    host = thost_mod.StreamingHost(SettingDictionary(conf), device="cpu")
-    try:
-        jconf_gauges = {k.split(":", 1)[1]: jhost.metric_logger.store.points(k)[-1]["val"]
-                        for k in jhost.metric_logger.store.keys("DATAX-HostAbsent:")
-                        if k.split(":", 1)[1].startswith("Conf_")
-                        and k.endswith("_Count")}
-        assert set(jconf_gauges) == {"Conf_Audited_Count", "Conf_Unknown_Count",
-                                     "Conf_OutOfBounds_Count"}
-        assert jconf_gauges["Conf_Unknown_Count"] >= 1
-        assert host.conf_audit.metric_deltas() == jhost.conf_audit.metric_deltas()
-        assert host.conf_audit.events() == jhost.conf_audit.events()
-        host.run_pipelined(max_batches=2)
-        names = [k.split(":", 1)[1]
-                 for k in host.metric_logger.store.keys("DATAX-HostAbsent:")]
+    prefix = "DATAX-HostAbsent:"
+    runs = {}
+    for pkg, mod, SD, kw in (("jax", jhost_mod, JSettingDictionary, {}),
+                             ("torch", thost_mod, SettingDictionary, {"device": "cpu"})):
+        pconf = dict(conf, **{
+            "datax.job.process.jar.udf.anomalyscore.class": ANOMALY_CLASSES[pkg],
+            "datax.job.process.observability.profilerdir": str(tmp_path / pkg),
+        })
+        host = mod.StreamingHost(SD(pconf), **kw)
+        try:
+            conf_gauges = {
+                k.split(":", 1)[1]: host.metric_logger.store.points(k)[-1]["val"]
+                for k in host.metric_logger.store.keys(prefix)
+                if k.split(":", 1)[1].startswith("Conf_") and k.endswith("_Count")}
+            runs[pkg] = (host, conf_gauges, *_profiled_run(host, prefix))
+        finally:
+            host.stop()
+        host.metric_logger.store.clear()
+    (jhost, jconf_gauges, *jrun), (host, tconf_gauges, *trun) = runs["jax"], runs["torch"]
+    assert set(jconf_gauges) == {"Conf_Audited_Count", "Conf_Unknown_Count",
+                                 "Conf_OutOfBounds_Count"}
+    assert jconf_gauges["Conf_Unknown_Count"] >= 1
+    assert tconf_gauges == jconf_gauges
+    assert host.conf_audit.metric_deltas() == jhost.conf_audit.metric_deltas()
+    assert host.conf_audit.events() == jhost.conf_audit.events()
+    for pkg, (armed, busy, state, captures, names) in (("jax", jrun), ("torch", trun)):
+        assert armed[0] == 200 and armed[1]["path"].startswith(str(tmp_path / pkg))
+        assert armed[1]["seconds"] == 0.2 and armed[1]["active"] is True
+        assert busy == (409, {"error": "capture already in progress",
+                              "path": armed[1]["path"]})
+        assert state == (200, {"available": True, "active": None, "captures": 1})
+        assert captures and set(captures) == {1.0}
         assert "Output_HeatAvg_Events_Count" in names
-        assert not [n for n in names if n.startswith(("Calib_", "Profiler_"))]
-        tconf_gauges = {n: host.metric_logger.store.points(f"DATAX-HostAbsent:{n}")[-1]["val"]
-                        for n in names if n.startswith("Conf_") and n.endswith("_Count")}
-        assert tconf_gauges == jconf_gauges
-        base = f"http://127.0.0.1:{host.obs_server.port}"
-        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
-            assert r.status == 200
-        for method in ("GET", "POST"):
-            req = urllib.request.Request(base + "/profile", method=method,
-                                         data=b"" if method == "POST" else None)
-            with pytest.raises(urllib.error.HTTPError) as e:
-                urllib.request.urlopen(req, timeout=10)
-            assert e.value.code == 501
-            assert b"obs/profiler.py" in e.value.read()
-    finally:
-        host.stop()
+    assert {n for n in trun[4] if n.startswith(("Calib_", "Profiler_"))} == \
+        {n for n in jrun[4] if n.startswith(("Calib_", "Profiler_"))} - {ICI_GAUGE}
+    assert "Calib_HbmReadGBps" in trun[4] and ICI_GAUGE not in trun[4]
+    # the port's capture is a Chrome trace of the process
+    assert (Path(trun[0][1]["path"]) / "trace.json").stat().st_size > 0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")

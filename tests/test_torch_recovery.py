@@ -7,13 +7,16 @@ window keeps FIFO commit and at-least-once requeue at depths 1/2/4 under
 a sink, dispatch or background-landing failure, with the pooled ingest
 matrices safe under the window and a UDF refresh mid-window.
 
+The depth drills arm the protocol monitor (``runtime/protocolmonitor.py``)
+as the reference's do, and every sealed batch, the failed and requeued
+ones included, must linearize without a DX906; the seeded
+ack-before-commit reorder is convicted by the armed monitor (the
+reference's dynamic half; its static half, ``analysis/protocheck.py``,
+is not ported). Also the on-demand profiler hook (``obs/profiler.py``).
 The state-table cases (restart resumes state, the torn write) are in
-``test_torch_state.py``, against the JAX package. Not mirrored, with
-their modules: the profiler hook (``obs/profiler.py``) and the protocol
-monitor (``runtime/protocolmonitor.py``), which the port refuses by
-conf; the
-reference arms the buffer sanitizer and the protocol monitor in its
-depth drills, which this port does not have.
+``test_torch_state.py``, against the JAX package. Not mirrored: the
+buffer sanitizer the reference also arms in its depth drills, which the
+port refuses by conf (``process.debug.buffersanitizer``, slice 7).
 """
 
 import functools
@@ -266,6 +269,10 @@ def _depth_host(tmp_path, depth):
         "datax.job.process.transform": str(t),
         "datax.job.process.batchcapacity": "4",
         "datax.job.process.pipeline.depth": str(depth),
+        # the protocol monitor rides along: every sealed batch
+        # (including the poisoned/requeued ones) must linearize to the
+        # declared sink -> flip -> ack ordering
+        "datax.job.process.debug.protocolmonitor": "true",
         "datax.job.output.Out.console.maxrows": "0",
     })
     src = SocketSource(port=0)
@@ -293,6 +300,18 @@ def _feed_socket(src, n_events):
 
 def _delivered_ks(blob):
     return [json.loads(ln)["k"] for ln in blob.splitlines() if ln.strip()]
+
+
+def _assert_protocol_held(host):
+    """The armed monitor sealed batches and found no violation: no
+    DX906 event, no ``Protocol_Violation_Count``."""
+    pm = host.protocol_monitor
+    assert pm is not None and pm.batches_sealed > 0
+    assert pm.violations == 0
+    assert pm.drain_events() == []
+    assert "Protocol_Violation_Count" not in pm.drain_metric_deltas()
+    assert not host.metric_logger.store.keys(
+        f"DATAX-{host.dict.get_job_name()}:Protocol_Violation")
 
 
 @pytest.mark.parametrize("depth", [1, 2, 4])
@@ -325,6 +344,7 @@ def test_depth_window_sink_failure_fifo_and_requeue(tmp_path, depth):
         assert host.batches_processed == 4
         all_ks = [k for _t, ks in sink.batches for k in ks]
         assert all_ks == list(range(16))  # no loss, no duplication
+        _assert_protocol_held(host)
     finally:
         host.stop()
 
@@ -366,6 +386,7 @@ def test_depth_window_dispatch_failure_requeues_window(tmp_path, depth):
         assert host.batches_processed == 4
         all_ks = [k for _t, ks in sink.batches for k in ks]
         assert all_ks == list(range(16))
+        _assert_protocol_held(host)
     finally:
         host.stop()
 
@@ -416,6 +437,7 @@ def test_background_landing_failure_drains_and_requeues(tmp_path, depth):
         assert host.batches_processed == 4
         all_ks = [k for _t, ks in sink.batches for k in ks]
         assert all_ks == list(range(16))
+        _assert_protocol_held(host)
     finally:
         host.stop()
 
@@ -468,6 +490,7 @@ def test_decode_buffer_pool_safe_under_pipelined_window(tmp_path, depth):
         assert sum(p.reuse_count for p in pools) > 0
         assert all(p.alloc_count <= depth + 4 for p in pools)
         assert not outstanding
+        _assert_protocol_held(host)
     finally:
         host.stop()
 
@@ -521,3 +544,108 @@ def test_udf_refresh_mid_window_uses_snapshotted_pipeline(tmp_path):
     assert d1["T"][0]["s"] == 10.0
     assert d2["T"][0]["s"] == 10.0
     assert d3["T"][0]["s"] == 15.0
+
+
+class _CaptureWriter:
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+
+def test_profiler_hook_writes_trace(tmp_path):
+    """On-demand profiler surface: arming a capture on a live host
+    writes a Chrome trace under the capture dir, and the finished
+    capture drains into the next batch's trace as a profiler/capture
+    span."""
+    prof_dir = tmp_path / "prof"
+    _write_events(str(tmp_path / "in" / "a.json"),
+                  [{"k": 1, "v": 1.0}, {"k": 2, "v": 2.0}])
+    host = StreamingHost(_conf(tmp_path, {
+        "datax.job.process.observability.profilerdir": str(prof_dir),
+    }))
+    assert host.profiler is not None and host.profiler.available
+    res = host.profiler.start(seconds=60)  # stopped explicitly below
+    assert res.get("path"), res
+    host.run_batch()
+    assert host.profiler.stop() == res["path"]
+    cap = _CaptureWriter()
+    host.telemetry.writers.append(cap)
+    host.run_batch()  # drains the capture into this batch's trace
+    assert host.profiler.captures_count == 1
+    host.stop()
+    caps = [r for r in cap.records if r.get("type") == "span"
+            and r.get("name") == "profiler/capture"]
+    assert [c["properties"]["path"] for c in caps] == [res["path"]]
+    traces = [f for _r, _d, files in os.walk(res["path"]) for f in files
+              if "trace" in f]
+    assert traces, f"no profiler trace written under {res['path']}"
+    with open(os.path.join(res["path"], "trace.json")) as f:
+        assert json.load(f)["traceEvents"]
+
+
+def test_seeded_ack_reorder_caught_dynamically_by_monitor(tmp_path):
+    """Bind an ack-before-commit reorder onto a live host, poison the
+    sink, run one batch. The acked FIFO has nothing left to requeue —
+    the lost-batch bug — and the armed ProtocolMonitor convicts it: the
+    failed batch fires EXACTLY ONE DX906 citing DX900."""
+    import types
+
+    host, src, sink = _depth_host(tmp_path, depth=1)
+
+    def _reordered_tail(self, handle, consumed, batch_time_ms, t0,
+                        trace, inflight_depth, stall_ms, backlog,
+                        requeue_on_error=True):
+        pm = self.protocol_monitor
+        try:
+            with trace.activate():
+                datasets, _metrics = handle.collect_tables()
+                for name, s in self.sources.items():
+                    s.ack()  # the seeded bug: ack FIRST
+                    if pm is not None:
+                        pm.record("FIFO_ACK", source=name)
+                self.dispatcher.dispatch(datasets, batch_time_ms)
+                if pm is not None:
+                    pm.record("SINK_EMIT", detail="dispatcher.dispatch")
+                self.processor.commit()
+                if pm is not None:
+                    pm.record("POINTER_FLIP", detail="processor.commit")
+        except Exception:
+            trace.end(status="error")
+            if requeue_on_error:
+                for name, s in self.sources.items():
+                    s.requeue_unacked()
+                    if pm is not None:
+                        pm.record("REQUEUE", source=name)
+            if pm is not None:
+                pm.seal_batch(batch_time_ms, failed=True)
+            raise
+        if pm is not None:
+            pm.seal_batch(batch_time_ms)
+        self.batches_processed += 1
+        return {}
+
+    host._finish_tail = types.MethodType(_reordered_tail, host)
+    try:
+        _feed_socket(src, 4)  # one batch (k 0-3)
+        sink.poison_k = 1     # fails at the sink — AFTER the ack
+        pm = host.protocol_monitor
+        assert pm is not None  # armed by _depth_host's conf
+        with pytest.raises(RuntimeError, match="poisoned"):
+            host.run_pipelined(max_batches=1)
+        assert pm.violations == 1
+        assert pm.batches_sealed == 1
+        (ev,) = pm.drain_events()
+        assert ev["code"] == "DX906"
+        assert ev["rule"] == "DX900"
+        assert ev["failed"] is True
+        # the pipelined window requeues at the WINDOW level after the
+        # tail seals, so the sealed linearization is the bare ack
+        assert ev["sequence"] == ["FIFO_ACK"]
+        assert "FAILED batch" in ev["message"]
+        # and the bug is REAL: the acked FIFO had nothing to requeue
+        blob, n, _ = src.poll_raw(4)
+        assert n == 0 and not blob.strip()
+    finally:
+        host.stop()
