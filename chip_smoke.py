@@ -101,7 +101,28 @@ Phases, each printing JSON lines:
    over the same five batches, 0 host syncs, with the landing thread's
    overwrite + persist ms, snapshot and state-copy bytes, pushes and the
    handoff's times;
-8. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
+8. livequery: the designer's kernels and the multi-tenant ``lq/``
+   serving plane, every service and kernel on the card. ``lq_serve``:
+   ``bench.py::bench_livequery``'s shape (60 rows, one ``GROUP BY``
+   query, the ticker at 4 ms) under an open load of 8 tenants x 4
+   sessions at 500/s, then 32 x 8 at 2,000/s, 1.5 s each, through 64
+   workers: every result equal to the CPU's, one compiled entry and one
+   step-cache entry across both, no execute timed out; ``lq_quota``: 5
+   executes over ``tenant.maxqps`` 1 refused with 0 dispatches;
+   ``lq_designer``: schema inference polls 1,000 events of
+   ``make_json_payload``'s distribution and writes the sample blob, a
+   ``KernelService`` kernel built from it runs DoorEvents, OpenDoors,
+   HeatAvg over the 5 s window and the anomaly query, each cold and 20
+   times warm, against a CPU kernel, the anomaly kernel launched by
+   every execute of its query, two threads on one kernel equal to a
+   serial run; ``lq_cache``: three row buckets of a windowed query under
+   a 9 MiB budget, each entry's modelled bytes beside the allocator's
+   growth, the third evicting the first; then the card's allocation back
+   to its value at the phase's start, every service stopped, with the
+   cyclic collector off from the start (one collection before it sets
+   the baseline and reports what earlier phases left as cyclic
+   garbage);
+9. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
 
@@ -124,6 +145,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 import warnings
 import weakref
 from collections import deque
@@ -1261,15 +1283,25 @@ def feed_socket(port: int, payloads, n_lines: int, src, deadline_s=120.0) -> flo
     return time.perf_counter() - t0
 
 
+def weakly(bound):
+    """Bound method ``bound`` called on its object through a weak
+    reference: a wrapper stored on that object then holds it in no
+    reference cycle, and a stopped host's tensors go when it does, not
+    at the next run of the cyclic collector."""
+    ref, fn = weakref.ref(bound.__self__), bound.__func__
+    return lambda *a, **k: fn(ref(), *a, **k)
+
+
 def record_host(host, sync: "ThreadSyncCount") -> dict:
     """Wrap a host's processor and sinks: record each batch's bytes,
     base and batch time as the host passed them, the rows its sinks
     got, its metrics, dispatch and checkpoint times, and the last window
-    snapshot it saved; count host syncs in poll, encode and dispatch."""
+    snapshot it saved; count host syncs in poll, encode and dispatch.
+    Each wrapper reaches the object it wraps weakly (``weakly``)."""
     proc = host.processor
     rec = {"encoded": [], "times": [], "dispatch_ms": [], "rows": {},
            "metrics": [], "snapshot_ms": [], "save_ms": [], "last_snap": None}
-    encode, dispatch = proc.encode_json_bytes, proc.dispatch_batch
+    encode, dispatch = weakly(proc.encode_json_bytes), weakly(proc.dispatch_batch)
 
     def encode_rec(data, base_ms, **kw):
         rec["encoded"].append((data, base_ms, kw.get("source")))
@@ -1284,9 +1316,9 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
 
     proc.encode_json_bytes = encode_rec
     proc.dispatch_batch = sync.wrap(dispatch_rec)
-    host._poll_and_encode = sync.wrap(host._poll_and_encode)
+    host._poll_and_encode = sync.wrap(weakly(host._poll_and_encode))
 
-    snapshot = proc.snapshot_window_state
+    snapshot = weakly(proc.snapshot_window_state)
 
     def snapshot_timed():
         t0 = time.perf_counter()
@@ -1296,7 +1328,7 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
 
     proc.snapshot_window_state = snapshot_timed
     rec["sources"] = len(host.sources)
-    save = host.window_checkpointer.save
+    save = weakly(host.window_checkpointer.save)
 
     def save_timed(snap):
         t0 = time.perf_counter()
@@ -1315,7 +1347,7 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
 
     for op in host.dispatcher.operators.values():
         op.sinks.append(Recording())
-    send = host.metric_logger.send_batch_metrics
+    send = weakly(host.metric_logger.send_batch_metrics)
 
     def send_rec(metrics, ts):
         rec["metrics"].append(dict(metrics))
@@ -2714,6 +2746,463 @@ def phase_state(seed: int, nvidia_smi: str) -> dict:
     return launches
 
 
+# -- LiveQuery: the designer's kernels and the lq/ serving plane ----------
+LQ_SCHEMA = json.dumps({"type": "struct", "fields": [
+    {"name": "deviceId", "type": "long", "nullable": False, "metadata": {}},
+    {"name": "temperature", "type": "double", "nullable": False, "metadata": {}},
+    {"name": "eventTimeStamp", "type": "timestamp", "nullable": False,
+     "metadata": {}},
+]})
+# bench.py::bench_livequery's query and rows (60 rows: the 64-row bucket)
+LQ_QUERY = (
+    "Agg = SELECT deviceId, COUNT(*) AS Cnt, MAX(temperature) AS MaxTemp "
+    "FROM DataXProcessedInput GROUP BY deviceId"
+)
+LQ_ROWS = 60
+# (tenants, sessions a tenant, arrivals a second) of the two open loads
+LQ_LOADS = ((8, 4, 500.0), (32, 8, 2000.0))
+LQ_LOAD_SECONDS = 1.5
+LQ_POOL = 64
+LQ_SERVE_CONF = {
+    "datax.job.process.lq.ticker": "true",
+    "datax.job.process.lq.maxbatchwaitms": "4",
+    "datax.job.process.lq.tenant.maxsessions": "8",
+    "datax.job.process.lq.tenant.maxqps": "1000000",
+    "datax.job.process.lq.maxsessions": "4096",
+}
+# the designer's sample: SchemaInferenceManager.sample_events' default
+LQ_SAMPLE_EVENTS = 1000
+LQ_WARM_EXECUTES = 20
+# the cache part: a windowed query at three row buckets (32,768, 65,536
+# and 131,072 rows) under a 9 MiB budget, which holds the first two
+# entries and not all three
+LQ_CACHE_QUERY = (
+    "W = SELECT deviceId, COUNT(*) AS Cnt, MAX(temperature) AS MaxTemp "
+    "FROM DataXProcessedInput_5seconds GROUP BY deviceId"
+)
+LQ_CACHE_ROWS = (16_385, 32_769, 65_537)
+LQ_CACHE_BUDGET_MB = 9
+# the byte model against the allocator's growth across a build and first
+# execute: model / growth must fall in this band
+LQ_MODEL_BAND = (0.8, 1.25)
+
+
+def lq_rows(n: int, base_ms: int = BASE_MS):
+    return [{"deviceId": i % 7, "temperature": 20.0 + (i % 13),
+             "eventTimeStamp": base_ms + i} for i in range(n)]
+
+
+def same_lq_result(got: dict, want: dict, what: str, rtol=1e-4) -> None:
+    if got.get("headers") != want.get("headers") or got.get("table") != want.get("table"):
+        raise AssertionError(f"{what}: headers {got.get('headers')} vs {want.get('headers')}")
+    same_rows(got["result"], want["result"], what, rtol)
+
+
+def cuda_tensors_alive(top: int = 6) -> dict:
+    """The CUDA tensors the cyclic collector can see (distinct storages,
+    their bytes, the largest by shape and dtype) beside
+    ``torch.cuda.memory_allocated()``: bytes no such tensor holds are
+    held from C++ or by a tensor outside Python's containers."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        tensors = [o for o in gc.get_objects() if torch.is_tensor(o) and o.is_cuda]
+    storages = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        if st.data_ptr():
+            storages[st.data_ptr()] = (st.nbytes(), list(t.shape), str(t.dtype))
+    return {
+        "allocated": torch.cuda.memory_allocated(),
+        "gc_visible_bytes": sum(e[0] for e in storages.values()),
+        "gc_visible_storages": len(storages),
+        "largest": sorted(storages.values(), key=lambda e: -e[0])[:top],
+    }
+
+
+def collect_garbage(top: int = 12) -> dict:
+    """One collection, with what it found unreachable counted by type
+    (the types of this program and of the port first), and the card's
+    bytes it gave back."""
+    before = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        kinds = collections.Counter(
+            f"{type(o).__module__}.{type(o).__qualname__}" for o in gc.garbage)
+        n = len(gc.garbage)
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    gc.collect()
+    ours = {k: c for k, c in kinds.items()
+            if k.startswith(("data_accelerator_tpu_torch", "chip_smoke", "__main__"))}
+    torch.cuda.synchronize()
+    return {"objects": n, "freed_bytes": before - torch.cuda.memory_allocated(),
+            "port_and_smoke_types": dict(sorted(ours.items(), key=lambda kv: -kv[1])[:top]),
+            "types": dict(kinds.most_common(top))}
+
+
+def open_loop(svc, sids, query, rate: float, seconds: float) -> dict:
+    """``bench.py::bench_livequery``'s open loop: an execute is submitted
+    every 1/``rate`` s for ``seconds``, whatever has completed, through a
+    pool of ``LQ_POOL`` workers; each result is kept."""
+    results, errors = [], []
+    lock = threading.Lock()
+
+    def one(sid):
+        try:
+            r = svc.execute(sid, query)
+        except Exception as e:  # noqa: BLE001 — counted, and the phase fails on it
+            with lock:
+                errors.append(repr(e)[:200])
+            return
+        with lock:
+            results.append(r)
+
+    interval = 1.0 / rate
+    submitted = 0
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(max_workers=LQ_POOL) as pool:
+        while time.monotonic() - t0 < seconds:
+            pool.submit(one, sids[submitted % len(sids)])
+            submitted += 1
+            delay = t0 + submitted * interval - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+    elapsed = time.monotonic() - t0
+    return {"submitted": submitted, "results": results, "errors": errors,
+            "elapsed_s": elapsed}
+
+
+def lq_serve(golden: dict) -> dict:
+    """The serving plane on the card under the two open loads, one
+    service throughout: every result equal to the CPU's, 1 compiled
+    entry and 1 step-cache entry across both, no execute timed out."""
+    from data_accelerator_tpu_torch.lq.service import (
+        LQ_EXEC_STAGE,
+        LQ_FLOW,
+        LiveQueryService,
+    )
+
+    rows = lq_rows(LQ_ROWS)
+    svc = LiveQueryService(conf=dict(LQ_SERVE_CONF), device="cuda")
+    try:
+        first = svc.create_session("warm", "ChipSmokeLQ", LQ_SCHEMA, sample_rows=rows)["id"]
+        t0 = time.perf_counter()
+        same_lq_result(svc.execute(first, LQ_QUERY), golden, "lq_serve cold")
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        loads = []
+        for k, (tenants, per_tenant, rate) in enumerate(LQ_LOADS):
+            sids = [svc.create_session(f"l{k}-t{t}", "ChipSmokeLQ", LQ_SCHEMA,
+                                       sample_rows=rows)["id"]
+                    for t in range(tenants) for _ in range(per_tenant)]
+            svc.histograms.clear()
+            svc.coalescer.max_fanin_seen = 0
+            before = svc.coalescer.stats()
+            run = open_loop(svc, sids, LQ_QUERY, rate, LQ_LOAD_SECONDS)
+            after = svc.coalescer.stats()
+            checked = set()
+            for r in run["results"]:
+                if id(r) not in checked:  # coalesced calls share one result
+                    same_lq_result(r, golden, f"lq_serve load {k}")
+                    checked.add(id(r))
+            completed = len(run["results"])
+            if run["errors"] or completed != run["submitted"]:
+                raise AssertionError(
+                    f"lq_serve load {k}: {completed} of {run['submitted']} "
+                    f"completed, errors {run['errors'][:3]}")
+            cache = svc.cache.stats()
+            if (cache["compiles"], cache["entries"], cache["stepCacheEntries"]) != (1, 1, 1):
+                raise AssertionError(f"lq_serve load {k}: compile surface grew: {cache}")
+            ticks = after["ticks"] - before["ticks"]
+            calls = after["calls"] - before["calls"]
+            dispatches = after["dispatches"] - before["dispatches"]
+            loads.append({
+                "tenants": tenants, "sessions": tenants * per_tenant,
+                "arrival_rate": rate, "seconds": LQ_LOAD_SECONDS,
+                "submitted": run["submitted"], "completed": completed,
+                "kernel_qps": completed / run["elapsed_s"],
+                "p50_ms": svc.histograms.percentile(LQ_FLOW, LQ_EXEC_STAGE, 50),
+                "p99_ms": svc.histograms.percentile(LQ_FLOW, LQ_EXEC_STAGE, 99),
+                "avg_fanin": calls / ticks if ticks else 0.0,
+                "max_fanin": after["maxFaninSeen"],
+                "dispatches": dispatches, "coalesced": calls - dispatches,
+                "distinct_results": len(checked),
+                "compiles": cache["compiles"], "entries": cache["entries"],
+                "step_cache_entries": cache["stepCacheEntries"],
+                "resident_bytes": cache["residentBytes"],
+            })
+        return {"cold_execute_ms": cold_ms, "loads": loads,
+                "budget_bytes": svc.cache.budget_bytes}
+    finally:
+        svc.stop()
+
+
+def lq_quota() -> dict:
+    """A twin service with ``tenant.maxqps`` 1: after the burst token,
+    5 executes are refused at admission and dispatch nothing."""
+    from data_accelerator_tpu_torch.lq.service import LiveQueryService
+    from data_accelerator_tpu_torch.lq.session import AdmissionRejected
+
+    tight = LiveQueryService(conf={"datax.job.process.lq.tenant.maxqps": "1"},
+                             device="cuda")
+    try:
+        sid = tight.create_session("freeloader", "ChipSmokeLQ", LQ_SCHEMA,
+                                   sample_rows=lq_rows(LQ_ROWS))["id"]
+        tight.execute(sid, LQ_QUERY)
+        before = tight.coalescer.stats()["dispatches"]
+        rejected = 0
+        for _ in range(5):
+            try:
+                tight.execute(sid, LQ_QUERY)
+            except AdmissionRejected:
+                rejected += 1
+        delta = tight.coalescer.stats()["dispatches"] - before
+        if rejected != 5 or delta != 0:
+            raise AssertionError(f"lq_quota: {rejected} rejected, {delta} dispatches")
+        return {"rejected": rejected, "dispatch_delta": delta,
+                "rejected_count": tight.lq_metrics()["LQ_Admission_Rejected_Count"]}
+    finally:
+        tight.stop()
+
+
+def designer_queries() -> dict:
+    """The config-1 queries as a designer types them into a kernel:
+    ``TRANSFORM``'s statements, each with the statements it reads."""
+    parts = {p.split(" =", 1)[0]: p.strip()
+             for p in TRANSFORM.split("--DataXQuery--\n")[1:]}
+    sep = "--DataXQuery--\n"
+
+    def script(*names):
+        return "".join(sep + parts[n] + "\n" for n in names)
+
+    return {
+        "DoorEvents": parts["DoorEvents"],
+        "OpenDoors": script("DoorEvents", "OpenDoors"),
+        "HeatAvg": parts["HeatAvg"],
+        "Scored": script("DoorEvents", "Scored"),
+    }
+
+
+def lq_designer(seed: int) -> dict:
+    """The designer path at the reference's sample size: schema
+    inference polls 1,000 events from a file source and writes the
+    sample blob; a card kernel and a CPU kernel are built from it with
+    the config-1 flow's schema and normalization and the anomaly UDF;
+    each query's cold execute, then 20 warm ones, against the CPU's
+    rows; the anomaly kernel's launches over the UDF query's executes;
+    two threads on one kernel against a serial run."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.runtime.sources import FileSource
+    from data_accelerator_tpu_torch.serve import livequery
+    from data_accelerator_tpu_torch.serve.schemainference import SchemaInferenceManager
+    from data_accelerator_tpu_torch.serve.storage import LocalRuntimeStorage
+    from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+    conf = flow_conf()
+    rs = np.random.RandomState(seed + 6)
+    queries = designer_queries()
+    # the sample has no timestamp column: both kernels' current_timestamp()
+    # reads this clock, so their rows agree
+    real_time = livequery.time
+    livequery.time = types.SimpleNamespace(time=lambda: BASE_MS / 1000.0 + 0.25)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "events.json"
+            path.write_bytes(make_json_payload(rs, LQ_SAMPLE_EVENTS + 24))
+            runtime = LocalRuntimeStorage(str(Path(tmp) / "runtime"))
+            t0 = time.perf_counter()
+            inferred = SchemaInferenceManager(runtime).get_input_schema(
+                source=FileSource([str(path)]), flow_name="ChipSmokeDesigner")
+            infer_ms = (time.perf_counter() - t0) * 1e3
+            fields = {f["name"] for f in json.loads(inferred["Schema"])["fields"]}
+            if inferred["EventsSampled"] != LQ_SAMPLE_EVENTS or "deviceDetails" not in fields:
+                raise AssertionError(f"lq_designer inference: {inferred['EventsSampled']}, {fields}")
+            udf = anomalyscore()
+            kernels = {}
+            for dev, u in (("cuda", udf), ("cpu", anomalyscore())):
+                svc = livequery.KernelService(runtime_storage=runtime, device=dev)
+                kid = svc.create_kernel(
+                    "ChipSmokeDesigner", conf["datax.job.input.default.blobschemafile"],
+                    normalization=conf["datax.job.process.projection"],
+                    udfs={"anomalyscore": u})
+                kernels[dev] = (svc, kid)
+            gsvc, gkid = kernels["cuda"]
+            csvc, ckid = kernels["cpu"]
+            if len(gsvc.get(gkid).sample_rows) != LQ_SAMPLE_EVENTS:
+                raise AssertionError("lq_designer: the kernel did not load the sample blob")
+            out = {"infer_ms": infer_ms, "sample_rows": LQ_SAMPLE_EVENTS,
+                   "bucket": livequery._capacity_for(LQ_SAMPLE_EVENTS), "queries": {}}
+            for name, q in queries.items():
+                launches0 = udf.launches
+                t0 = time.perf_counter()
+                got = gsvc.execute(gkid, q, max_rows=LQ_SAMPLE_EVENTS)
+                cold_ms = (time.perf_counter() - t0) * 1e3
+                want = csvc.execute(ckid, q, max_rows=LQ_SAMPLE_EVENTS)
+                same_lq_result(got, want, f"lq_designer {name}")
+                warm = []
+                for _ in range(LQ_WARM_EXECUTES):
+                    t0 = time.perf_counter()
+                    got = gsvc.execute(gkid, q, max_rows=LQ_SAMPLE_EVENTS)
+                    warm.append((time.perf_counter() - t0) * 1e3)
+                same_lq_result(got, want, f"lq_designer {name} warm")
+                executes = 1 + LQ_WARM_EXECUTES
+                launches = udf.launches - launches0
+                if name == "Scored" and launches < executes:
+                    raise AssertionError(
+                        f"lq_designer: anomaly_score launched {launches} times "
+                        f"in {executes} executes")
+                out["queries"][name] = {
+                    "rows": len(want["result"]), "cold_ms": cold_ms,
+                    "warm_p50_ms": statistics.median(warm),
+                    "warm_max_ms": max(warm), "executes": executes,
+                    "anomaly_launches": launches}
+            # two threads on one kernel at once, against a serial run
+            serial = gsvc.execute(gkid, queries["HeatAvg"])
+            barrier = threading.Barrier(2)
+
+            def runs():
+                barrier.wait(timeout=30)
+                return [gsvc.execute(gkid, queries["HeatAvg"]) for _ in range(10)]
+
+            with ThreadPoolExecutor(2) as pool:
+                futs = [pool.submit(runs) for _ in range(2)]
+                threaded = [r for f in futs for r in f.result(timeout=120)]
+            for r in threaded:
+                same_lq_result(r, serial, "lq_designer threads", rtol=0)
+            out["threads"] = {"threads": 2, "executes": len(threaded), "equal_serial": True}
+            gsvc.delete_kernels()
+            csvc.delete_kernels()
+        return out
+    finally:
+        livequery.time = real_time
+
+
+def lq_cache() -> dict:
+    """The byte model and eviction: three signatures (row buckets) of a
+    windowed query under ``LQ_CACHE_BUDGET_MB``, each acquired and run
+    once as the coalescer's tick does, then settled. Each entry's price
+    beside the allocator's growth across its build and first execute
+    (and the requested bytes' growth); the third evicts the LRU entry,
+    and the eviction gives back what the model priced."""
+    from data_accelerator_tpu_torch.lq.service import LiveQueryService
+    from data_accelerator_tpu_torch.lq.warmcache import signature_for
+
+    def requested():
+        return torch.cuda.memory_stats().get("requested_bytes.all.current", 0)
+
+    svc = LiveQueryService(
+        conf={"datax.job.process.lq.hbmbudgetmb": str(LQ_CACHE_BUDGET_MB)},
+        device="cuda")
+    try:
+        entries, keys = [], []
+        for n in LQ_CACHE_ROWS:
+            sid = svc.create_session(f"c{n}", "ChipSmokeLQCache", LQ_SCHEMA,
+                                     sample_rows=lq_rows(n))["id"]
+            session = svc.sessions.get(sid)
+            sig = signature_for(session, LQ_CACHE_QUERY, svc.cache.compile_conf)
+            torch.cuda.synchronize()
+            mem0, req0 = torch.cuda.memory_allocated(), requested()
+            t0 = time.perf_counter()
+            entry = svc.cache.acquire(sig, session)
+            entry.execute(session.sample_rows, LQ_CACHE_QUERY, 100)
+            torch.cuda.synchronize()
+            build_ms = (time.perf_counter() - t0) * 1e3
+            growth, req_growth = torch.cuda.memory_allocated() - mem0, requested() - req0
+            evicted0 = svc.cache.evictions
+            priced_before = {k: e.hbm_bytes for k, e in svc.cache._entries.items()}
+            svc.cache.settle(in_use=entry)
+            torch.cuda.synchronize()
+            gone = [k for k in priced_before if k not in svc.cache._entries]
+            freed = torch.cuda.memory_allocated() - (mem0 + growth)
+            ratio = entry.hbm_bytes / growth if growth else None
+            if entry.sized_by != "model" or ratio is None or not (
+                    LQ_MODEL_BAND[0] <= ratio <= LQ_MODEL_BAND[1]):
+                raise AssertionError(
+                    f"lq_cache: {sig.row_bucket}-row entry priced {entry.hbm_bytes} B "
+                    f"({entry.sized_by}) against {growth} B of growth")
+            entries.append({
+                "row_bucket": sig.row_bucket, "rows": n, "model_bytes": entry.hbm_bytes,
+                "allocated_growth": growth, "requested_growth": req_growth,
+                "model_over_growth": ratio, "build_and_first_execute_ms": build_ms,
+                "evicted": svc.cache.evictions - evicted0,
+                "evicted_model_bytes": sum(priced_before[k] for k in gone),
+                "allocated_freed_at_eviction": -freed,
+            })
+            keys.append(sig.key)
+            del entry, session
+        metrics = svc.lq_metrics()
+        if metrics["LQ_KernelEvict_Count"] < 1 or keys[0] in svc.cache._entries:
+            raise AssertionError(f"lq_cache: evictions {metrics['LQ_KernelEvict_Count']}, "
+                                 f"resident {list(svc.cache._entries)}")
+        return {"budget_bytes": svc.cache.budget_bytes, "entries": entries,
+                "evictions": svc.cache.evictions,
+                "LQ_KernelEvict_Count": metrics["LQ_KernelEvict_Count"],
+                "LQ_KernelBytes": metrics["LQ_KernelBytes"],
+                "model_band": list(LQ_MODEL_BAND)}
+    finally:
+        svc.stop()
+
+
+def phase_livequery(seed: int, nvidia_smi: str) -> dict:
+    """LiveQuery on the card: ``lq_serve``, ``lq_quota``, ``lq_designer``
+    and ``lq_cache``, every service and kernel on ``cuda``; then the
+    card's allocation back to its value at the phase's start, every
+    service stopped and dropped, with the cyclic collector off from the
+    start (one collection before it sets the baseline and reports what
+    earlier phases left as cyclic garbage). Returns each kernel's
+    launches on the path, its counts set to 0 at the start."""
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.lq.service import LiveQueryService
+
+    torch.cuda.synchronize()
+    # what earlier phases left allocated, then what of it was cyclic
+    # garbage: the baseline is taken after one collection, and the
+    # collector stays off for the phase, so the check at its end sees
+    # only what reference counting gave back
+    at_start = cuda_tensors_alive()
+    at_start["cyclic_garbage"] = collect_garbage()
+    mem_start = torch.cuda.memory_allocated()
+    at_start["allocated_after_collect"] = mem_start
+    launch.reset_launches()
+    t0 = time.perf_counter()
+    gc.disable()
+    try:
+        cpu = LiveQueryService(device="cpu")
+        try:
+            sid = cpu.create_session("cpu", "ChipSmokeLQ", LQ_SCHEMA,
+                                     sample_rows=lq_rows(LQ_ROWS))["id"]
+            golden = cpu.execute(sid, LQ_QUERY)
+        finally:
+            cpu.stop()
+        serve = lq_serve(golden)
+        quota = lq_quota()
+        designer = lq_designer(seed)
+        cache = lq_cache()
+        launches = process_launches()
+        torch.cuda.synchronize()
+        mem_end = torch.cuda.memory_allocated()
+    finally:
+        gc.enable()
+    line = {
+        "phase": "livequery", "seconds": time.perf_counter() - t0,
+        "lq_serve": serve, "lq_quota": quota, "lq_designer": designer,
+        "lq_cache": cache, "launches": launches,
+        "memory": {"at_start": at_start, "allocated_start": mem_start,
+                   "allocated_end": mem_end, "collector": "off in the phase"},
+        "card": nvidia_smi,
+    }
+    emit(line)
+    if mem_end != mem_start:
+        raise AssertionError(
+            f"livequery: {mem_end - mem_start} B still allocated after every "
+            f"service stopped: {cuda_tensors_alive()}")
+    if launches["anomaly_score"] < 1 or launches["dx305_double"]:
+        raise AssertionError(f"livequery launches: {launches}")
+    return launches
+
+
 def phase_ground_truth() -> None:
     """Each bad twin of the host-sync fixtures (DX300, DX301, DX305)
     raises on CUDA tensors under sync debug mode "error", at the sync
@@ -2825,6 +3314,8 @@ def main(argv=None) -> int:
                       "state": phase_state(args.seed, nvidia_smi)}
     if any(n for counts in slice_launches.values() for n in counts.values()):
         raise AssertionError(f"kernel launches on this slice's paths: {slice_launches}")
+    # LiveQuery: the designer's UDF query launches anomaly_score
+    slice_launches["livequery"] = phase_livequery(args.seed, nvidia_smi)
     # each path's own launches, its counts set to 0 just before it
     by_path = {
         "anomaly_score": {"flow": launches["anomaly_score"],

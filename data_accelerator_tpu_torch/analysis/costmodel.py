@@ -5,7 +5,10 @@ profile (``obs/calibrate.py``).
 Copy of the JAX package's ``analysis/costmodel.py``, trimmed to
 ``runtime_conformance_model`` and the latency forms
 (``stage_time_ms``, ``transfer_time_ms``, ``decode_time_ms``,
-``model_input_rows``, ``latency_model``, ``stage_latency_predictions``).
+``model_input_rows``, ``latency_model``, ``stage_latency_predictions``)
+and ``warm_kernel_cache_budget_bytes``, which reads the device's memory
+(the card's total, or ``constants.CPU_DEVICE_MEMORY_BYTES`` on the CPU)
+where the JAX package takes its fleet-spec chip's.
 The byte and FLOP closed forms over the planner's ``StagePlan`` wait for
 ``analysis/deviceplan.py`` (slice 7); the mesh collective forms wait for
 multi-GPU (slice 8).
@@ -21,6 +24,10 @@ bound that the card's step exceeds by the launches it does not count.
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+import torch
+
+from ..constants import CPU_DEVICE_MEMORY_BYTES
 
 
 def runtime_conformance_model(
@@ -217,3 +224,36 @@ def stage_latency_predictions(model: dict) -> Dict[str, float]:
     if totals.get("d2hMs"):
         out["collect"] = float(totals["d2hMs"])
     return out
+
+
+# fraction of one device's memory the LiveQuery serving plane may pin in
+# resident interactive kernels (lq/warmcache.py WarmKernelCache): the
+# production flows on the device own the rest, so the serving plane
+# takes a bounded slice instead of competing with them allocation by
+# allocation
+DEFAULT_LQ_CACHE_HEADROOM = 0.25
+
+
+def warm_kernel_cache_budget_bytes(
+    chip_hbm_bytes: Optional[int] = None,
+    headroom: float = DEFAULT_LQ_CACHE_HEADROOM,
+    device: "torch.device | str" = "cuda",
+) -> int:
+    """Device bytes the LiveQuery warm-kernel LRU may keep resident:
+    ``headroom`` of ``chip_hbm_bytes``, which defaults to the memory of
+    ``device``: on a card its total memory, on the CPU
+    ``constants.CPU_DEVICE_MEMORY_BYTES``. Each cache entry is priced by
+    ``FlowProcessor.device_bytes``. Raises when ``device`` is a card and
+    none is present."""
+    if chip_hbm_bytes is None:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"warm-kernel budget for {str(dev)!r}: no CUDA device "
+                    "is present"
+                )
+            chip_hbm_bytes = torch.cuda.get_device_properties(dev).total_memory
+        else:
+            chip_hbm_bytes = CPU_DEVICE_MEMORY_BYTES
+    return int(chip_hbm_bytes * float(headroom))

@@ -12,6 +12,15 @@ import os
 NAME_PREFIX = os.environ.get("DATAX_NAMEPREFIX", "DataX")
 
 
+# Memory the LiveQuery warm-kernel budget takes as one device's when the
+# port runs on the CPU (analysis/costmodel.py::warm_kernel_cache_budget_bytes):
+# the host's memory is shared with everything else the process holds, so
+# the serving plane's resident kernels are priced against 4 GiB, a size
+# of the port's own. On a card the budget reads the card's total memory
+# (torch.cuda.get_device_properties) instead.
+CPU_DEVICE_MEMORY_BYTES = 4 * 1024 ** 3
+
+
 class ProductConstant:
     """reference: ProductConstant.scala:8-22"""
 

@@ -57,11 +57,14 @@ asks for one of them raises ``EngineException``.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
 import threading
 import time
+import types
+from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple, Union
 
@@ -1328,6 +1331,88 @@ class FlowProcessor:
         committed partitions to the objstore mirror, fail-closed)."""
         for st in self.state_tables.values():
             st.persist()
+
+    # -- re-entrant use (LiveQuery kernels) ---------------------------------
+    def reset_state(self) -> None:
+        """Start the flow over, for re-entrant uses like LiveQuery
+        kernels where each execute must be idempotent: the rings zeroed
+        in place, the slot counter and time base cleared and the state
+        tables reloaded, under the dispatch lock; then the adaptive
+        transfer state (count EWMA, overflow boost, slot parity), so
+        every execute copies its outputs at full capacity through the
+        same transfer slots. The string dictionary stays, as in the JAX
+        package. On CUDA the zeroing queues behind the last step."""
+        with self._dispatch_lock:
+            cuda = self.device.type == "cuda"
+            if cuda and self._step_stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(self._step_stream)
+            for buf in self.window_buffers.values():
+                for a in buf.cols.values():
+                    a.zero_()
+                buf.valid.zero_()
+            self.state_data = {
+                sname: st.load(self.dictionary)
+                for sname, st in self.state_tables.items()
+            }
+            self._slot_counter = 0
+            self._base_ms = None
+        self.transfer_ewma.clear()
+        self.transfer_boost.clear()
+        self._slot_parity.clear()
+
+    def _step_cache_size(self) -> int:
+        """The compile surface eager PyTorch can grow: the step builds
+        alive, 1 once the step is built (a rebuild replaces it). The JAX
+        package counts its jitted step's cache entries."""
+        return 1 if self._step is not None else 0
+
+    def device_bytes(self) -> int:
+        """Resident bytes this processor holds on its device: the sum
+        over the distinct tensor storages reachable from it (rings,
+        state tables, reference tables, string-op tables, the step's
+        constants, the transfer slots' device side) that lie on its
+        device, so pinned host memory is left out. On CUDA each storage
+        counts at the caching allocator's 512-byte block granularity,
+        the unit of ``torch.cuda.memory_allocated``."""
+        storages: Dict[int, int] = {}
+        seen: set = set()
+        stack: list = [self.__dict__]
+        # nothing under these holds a tensor of the processor's
+        skip = (str, bytes, int, float, bool, type(None), np.ndarray, type,
+                types.ModuleType, torch.device, torch.dtype, StringDictionary)
+        while stack:
+            obj = stack.pop()
+            if isinstance(obj, skip) or id(obj) in seen:
+                continue
+            seen.add(id(obj))
+            if isinstance(obj, torch.Tensor):
+                dev = obj.device
+                if dev.type == self.device.type and (
+                    self.device.index is None or dev.index == self.device.index
+                ):
+                    st = obj.untyped_storage()
+                    if st.data_ptr():
+                        storages[st.data_ptr()] = st.nbytes()
+            elif isinstance(obj, dict):
+                stack.extend(obj.values())
+            elif isinstance(obj, (list, tuple, set, frozenset, deque)):
+                stack.extend(obj)
+            elif isinstance(obj, types.FunctionType):
+                for cell in obj.__closure__ or ():
+                    try:
+                        stack.append(cell.cell_contents)
+                    except ValueError:  # a cell not bound yet
+                        pass
+                stack.extend(obj.__defaults__ or ())
+            elif isinstance(obj, types.MethodType):
+                stack.append(obj.__self__)
+            elif isinstance(obj, functools.partial):
+                stack.extend((obj.func, obj.args, obj.keywords))
+            elif hasattr(obj, "__dict__"):
+                stack.append(vars(obj))
+        if self.device.type == "cuda":
+            return sum(-(-n // 512) * 512 for n in storages.values())
+        return sum(storages.values())
 
     def device_memory_stats(self) -> Optional[Dict[str, int]]:
         """The device allocator's live watermark under the JAX package's

@@ -79,3 +79,41 @@ def test_decoder_source_is_the_port_copy():
 
     src = build.source_path(decoder.SOURCE, ".cpp")
     assert src == PORT_DIR / "csrc" / "decoder.cpp" and src.exists()
+
+
+# the LiveQuery slice: the designer's kernels, the lq/ serving plane,
+# schema inference and runtime storage
+LIVEQUERY_MODULES = (
+    "lq/__init__.py", "lq/session.py", "lq/coalescer.py", "lq/warmcache.py",
+    "lq/service.py", "serve/livequery.py", "serve/storage.py",
+    "serve/schemainference.py",
+)
+
+
+@pytest.mark.parametrize("rel", LIVEQUERY_MODULES)
+def test_livequery_module_is_checked(rel):
+    path = PORT_DIR / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_livequery_modules_load_no_jax():
+    """Imported in a fresh interpreter, the LiveQuery modules (and all
+    they import) leave JAX and the JAX package unloaded."""
+    import subprocess
+    import sys
+
+    mods = ", ".join(
+        "data_accelerator_tpu_torch." + rel[:-3].replace("/", ".").replace(".__init__", "")
+        for rel in LIVEQUERY_MODULES
+    )
+    code = (
+        f"import sys, importlib\n"
+        f"for m in {mods!r}.split(', '): importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
