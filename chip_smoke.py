@@ -122,7 +122,23 @@ Phases, each printing JSON lines:
    cyclic collector off from the start (one collection before it sets
    the baseline and reports what earlier phases left as cyclic
    garbage);
-9. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
+9. debug: the host phase's main path with ``process.debug.nans``,
+   ``tracerleaks`` and ``buffersanitizer`` armed, from a socket at
+   depth 2 with checkpoints every second: rows against a CPU replay, 0
+   poison hits, guarded views counted, events/s beside the host
+   phase's and the host syncs the guards add per batch; then three
+   seeded faults on the card: NaN temperatures raise
+   ``FloatingPointError`` at ``anomaly_score``'s output in ``Scored``, a
+   view of a pooled pinned matrix kept past its release is DX805, and
+   batches decoded into poisoned, reused matrices at depth 2 land the
+   CPU's rows;
+   plan: ``analyze_processor`` over the main flow's card processor, its
+   totals against ``device_bytes()``, the allocator's growth and its
+   peak over the first step, each within a stated band; the latency
+   model under the card's calibrated profile beside the measured step;
+   the analysis CLI ``--device --udfs --json`` on the main flow's gui
+   JSON, clean; ``lq_cache`` again, priced by the plan;
+10. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
 
@@ -3203,6 +3219,383 @@ def phase_livequery(seed: int, nvidia_smi: str) -> dict:
     return launches
 
 
+# -- the debug runtime and the device plan (slice 7a) --------------------------
+DEBUG_FLOW = "ChipSmokeDebug"
+DEBUG_CONF = {
+    "datax.job.process.debug.nans": "true",
+    "datax.job.process.debug.tracerleaks": "true",
+    "datax.job.process.debug.buffersanitizer": "true",
+}
+# the anomaly query alone: its views carry the temperatures the source
+# sent and compute the score, so a NaN temperature trips the guard at
+# the UDF's output in Scored
+ANOMALY_TRANSFORM = (
+    TRANSFORM.split("--DataXQuery--\nOpenDoors")[0]
+    + "--DataXQuery--\nScored" + TRANSFORM.split("--DataXQuery--\nScored")[1]
+)
+# plan: model / reading must fall in these bands (see phase_plan)
+PLAN_RESIDENT_BAND = (0.95, 1.05)
+PLAN_PEAK_BAND = (0.25, 1.5)
+
+
+def debug_host_conf(ckpt_dir: str) -> dict:
+    """The main path (``host_conf``) with every ``process.debug`` guard
+    armed."""
+    conf = host_conf(ckpt_dir)
+    conf["datax.job.name"] = DEBUG_FLOW
+    conf.update(DEBUG_CONF)
+    return conf
+
+
+def debug_faults(seed: int) -> dict:
+    """Three seeded faults on the card. A batch of NaN temperatures
+    through the armed anomaly query raises ``FloatingPointError`` at
+    ``anomaly_score``'s output in ``Scored`` (the kernel launched and
+    its output was checked). A view of a pooled pinned matrix kept past
+    its release reads the sentinel the pool wrote once the matrix's
+    copy had completed: DX805. Then batches at depth 2 decode into
+    poisoned, reused matrices while earlier batches are in flight and
+    land the CPU's rows: the poison never reached an in-flight copy."""
+    import types as _types
+
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    rs = np.random.RandomState(seed + 7)
+    conf = flow_conf()
+    conf.update(DEBUG_CONF)
+    conf.update({
+        "datax.job.name": DEBUG_FLOW + "Faults",
+        "datax.job.process.transform": ANOMALY_TRANSFORM,
+        "datax.job.process.batchcapacity": str(CAPACITY),
+        "datax.job.process.jar.udf.anomalyscore.class":
+            "data_accelerator_tpu_torch.udf.samples:anomalyscore",
+    })
+    for out in ("AnomalyAlerts",):
+        conf[f"datax.job.output.{out}.console.maxrows"] = "0"
+    gpu = FlowProcessor(SettingDictionary(conf))
+    udf = gpu.udfs["anomalyscore"]
+    type_ids = np.array([gpu.dictionary.encode(t) for t in DEVICE_TYPES], np.int32)
+    cols = make_columns(rs, type_ids, CAPACITY)
+    cols["deviceDetails.temperature"][::97] = np.nan
+    before = udf.launches
+    try:
+        gpu.process_batch(gpu.encode_columns(cols, CAPACITY), BASE_MS)
+    except FloatingPointError as e:
+        nan_error = str(e)
+    else:
+        raise AssertionError("debug: a NaN batch passed the armed nans guard")
+    nan_launches = udf.launches - before
+    if "'Scored'" not in nan_error or "anomalyscore" not in nan_error or nan_launches != 1:
+        raise AssertionError(f"debug NaN fault: {nan_error!r}, {nan_launches} launches")
+    del gpu
+
+    # a fresh armed processor for the pool faults; the CPU's twin replays
+    gpu = FlowProcessor(SettingDictionary(conf))
+    cpu = FlowProcessor(SettingDictionary(conf), device="cpu")
+    san = gpu.buffer_sanitizer
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(6)]
+    base = lambda b: BASE_MS + 1000 * b  # noqa: E731
+    raw = gpu.encode_json_bytes(payloads[0], base(0))
+    pool, mat = raw.ingest_slot
+    row = [c for c, _k in raw.layout].index("deviceDetails.temperature")
+    kept = mat[row]  # a view of the pinned matrix, kept past its batch
+    if not bool(torch.isfinite(kept.view(torch.float32)).all()):
+        raise AssertionError("debug: the decoded temperatures are not finite")
+    gpu.process_batch(raw, base(0))
+    del raw
+    hits = san.scan_table("kept", _types.SimpleNamespace(
+        cols={"deviceDetails.temperature": kept.numpy()}, valid=None))
+    events = san.drain_events()
+    deltas = san.drain_metric_deltas()
+    if hits != 1 or [e["code"] for e in events] != ["DX805"] \
+            or deltas.get("Sanitizer_PoisonHit_Count") != 1.0:
+        raise AssertionError(f"debug kept view: {hits} hits, {events}, {deltas}")
+    del kept, mat
+    poisoned0, reused0 = san.poison_count, pool.reuse_count
+    # depth 2: batch b+1 decodes and ships while batch b is in flight
+    cpu.process_batch(cpu.encode_json_bytes(payloads[0], base(0)), base(0))
+    handles, landed = [], 0
+    for b in range(1, len(payloads)):
+        handles.append((b, gpu.dispatch_batch(gpu.encode_json_bytes(payloads[b], base(b)),
+                                              base(b))))
+        if len(handles) == 2:
+            bb, h = handles.pop(0)
+            got, metrics = h.collect_tables()
+            want, _m = cpu.process_batch(cpu.encode_json_bytes(payloads[bb], base(bb)), base(bb))
+            same_rows(got["AnomalyAlerts"], want["AnomalyAlerts"], f"debug reuse batch {bb}")
+            if "Sanitizer_PoisonHit_Count" in metrics:
+                raise AssertionError(f"debug reuse batch {bb}: {metrics}")
+            landed += 1
+    for bb, h in handles:
+        got, _m = h.collect_tables()
+        want, _m = cpu.process_batch(cpu.encode_json_bytes(payloads[bb], base(bb)), base(bb))
+        same_rows(got["AnomalyAlerts"], want["AnomalyAlerts"], f"debug reuse batch {bb}")
+        landed += 1
+    reused = pool.reuse_count - reused0
+    if reused < 2 or san.poison_count - poisoned0 < reused or san.poison_hits != 1:
+        raise AssertionError(f"debug reuse: {reused} reuses, "
+                             f"{san.poison_count - poisoned0} poisons, {san.poison_hits} hits")
+    return {"nan_error": nan_error, "nan_fault_launches": nan_launches,
+            "kept_view_hits": hits, "kept_view_event": events[0]["message"],
+            "reuse_batches": landed, "reused_matrices": reused,
+            "poisoned_matrices": san.poison_count - poisoned0,
+            "pool_allocs": pool.alloc_count}
+
+
+def phase_debug(seed: int, nvidia_smi: str, host_events_per_s: float) -> dict:
+    """The main path through ``StreamingHost`` with ``process.debug.nans``,
+    ``tracerleaks`` and ``buffersanitizer`` armed: the host phase's
+    config-1 flow plus the anomaly query from a socket at depth 2,
+    checkpoints every second. Rows equal a CPU replay; no poison hit, a
+    guarded-view count above 0; events/s beside the host phase's and
+    the host syncs the guards add per batch (the unarmed phases have
+    none). Then the seeded faults (``debug_faults``). Returns each
+    kernel's launches on the armed path."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    rs = np.random.RandomState(seed + 2)
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(BATCHES)]
+    with tempfile.TemporaryDirectory() as ckpt, contextlib.redirect_stdout(LineCount()):
+        conf = SettingDictionary(debug_host_conf(ckpt))
+        host = StreamingHost(conf)
+        proc = host.processor
+        guard, san = proc.step_guard, proc.buffer_sanitizer
+        if guard is None or not (guard.nans and guard.leaks) or san is None:
+            raise AssertionError("debug: the conf did not arm every guard")
+        sync = ThreadSyncCount()
+        rec = record_host(host, sync)
+        try:
+            feed_socket(host.source.port, payloads, BATCHES * CAPACITY, host.source)
+            torch.cuda.synchronize()
+            guard.take_checks()
+            launch.reset_launches()
+            with sync:
+                t_run = time.perf_counter()
+                host.run_pipelined(max_batches=BATCHES)
+                run_s = time.perf_counter() - t_run
+            launches = process_launches()
+            checks = guard.take_checks()
+        finally:
+            host.stop()
+        pool = proc._ingest_pools["default"]
+    guarded = sum(m.get("Sanitizer_GuardedViews_Count", 0.0) for m in rec["metrics"])
+    hit_metrics = [m["Sanitizer_PoisonHit_Count"] for m in rec["metrics"]
+                   if "Sanitizer_PoisonHit_Count" in m]
+    if host.batches_processed != BATCHES:
+        raise AssertionError(f"debug: {host.batches_processed} batches")
+    if san.poison_hits or hit_metrics or guarded <= 0:
+        raise AssertionError(f"debug: {san.poison_hits} poison hits {hit_metrics}, "
+                             f"{guarded} guarded views")
+    if launches["anomaly_score"] != BATCHES:
+        raise AssertionError(f"debug: anomaly_score launched {launches}")
+    if sync.count != checks:
+        raise AssertionError(f"debug: {sync.count} host syncs in poll, encode and "
+                             f"dispatch, the guards made {checks} checks: "
+                             f"{sorted(sync.sites)}")
+    cpu = FlowProcessor(conf, device="cpu")
+    rows_out = replay_on_cpu(cpu, rec, OUTPUTS, "debug")
+    faults = debug_faults(seed)
+    emit({
+        "phase": "debug", "capacity": CAPACITY, "batches": BATCHES, "depth": 2,
+        "seed": seed, "run_s": run_s,
+        "events_per_s": BATCHES * CAPACITY / run_s,
+        "host_events_per_s": host_events_per_s,
+        "events_per_s_over_host": BATCHES * CAPACITY / run_s / host_events_per_s,
+        "host_syncs_per_batch": sync.count / BATCHES,
+        "guard_checks_per_batch": checks / BATCHES,
+        "sanitizer": {"guarded_views": guarded, "poison_hits": san.poison_hits,
+                      "poisoned_matrices": san.poison_count,
+                      "pool_allocs": pool.alloc_count, "pool_reuses": pool.reuse_count},
+        "checkpoints": len(rec["save_ms"]),
+        "latency_batch_ms_median": statistics.median(
+            m["Latency-Batch"] for m in rec["metrics"]),
+        "rows_out": rows_out, "match_cpu": True,
+        "faults": faults, "launches": launches, "card": nvidia_smi,
+    })
+    return launches
+
+
+def main_flow_gui(capacity: int = CAPACITY) -> dict:
+    """The main flow (``host_conf``'s alerting flow plus the anomaly
+    query) as the designer's gui JSON the analysis CLI reads."""
+    queries = TRANSFORM.replace(
+        "FROM DataXProcessedInput_5seconds",
+        "FROM DataXProcessedInput TIMEWINDOW('5 seconds')",
+    ).replace("\n--DataXQuery--", ";\n--DataXQuery--").rstrip("\n") + ";\n"
+    queries += "".join(f"OUTPUT {o} TO Metrics;\n" for o in OUTPUTS)
+    return {
+        "name": HOST_FLOW,
+        "input": {"mode": "streaming", "type": "local", "properties": {
+            "inputSchemaFile": IOT_SCHEMA,
+            "normalizationSnippet": "current_timestamp() AS eventTimeStamp\nRaw.*",
+        }},
+        "process": {
+            "timestampColumn": "eventTimeStamp",
+            "watermark": "0 second",
+            "queries": [queries],
+            "jobconfig": {"jobBatchCapacity": str(capacity)},
+            "functions": [{"id": "anomalyscore", "type": "udf", "properties": {
+                "module": "data_accelerator_tpu_torch.udf.samples:anomalyscore"}}],
+        },
+        "outputs": [{"id": "Metrics", "type": "metric", "properties": {}}],
+    }
+
+
+def plan_conf() -> dict:
+    """The main flow (``host_conf``'s) for a processor fed columns."""
+    conf = flow_conf()
+    conf.update({
+        "datax.job.name": HOST_FLOW + "Plan",
+        "datax.job.process.batchcapacity": str(CAPACITY),
+        "datax.job.process.jar.udf.anomalyscore.class":
+            "data_accelerator_tpu_torch.udf.samples:anomalyscore",
+    })
+    for out in OUTPUTS:
+        conf[f"datax.job.output.{out}.console.maxrows"] = "0"
+    return conf
+
+
+def run_analysis_cli(argv) -> tuple:
+    """``python -m data_accelerator_tpu_torch.analysis`` in process:
+    (exit code, stdout, stderr)."""
+    from data_accelerator_tpu_torch.analysis.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(list(argv))
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_plan(seed: int, nvidia_smi: str) -> dict:
+    """The device plan of the main flow's card processor
+    (``analyze_processor``) against what the card holds.
+
+    - ``persistentBytes`` with one transfer slot per output (what a
+      processor holds after its first step: the A/B rotation has
+      staged slot A only) prices ``device_bytes()`` and the allocator's
+      growth from before the processor to after its first step: both
+      within ``PLAN_RESIDENT_BAND``.
+    - ``hbmBytes`` (the rings, two slots, the input batch and every
+      table the step makes, all at once) prices the allocator's peak
+      growth from before the processor to the end of its first step,
+      within ``PLAN_PEAK_BAND``: the step's sort, gather and compaction
+      intermediates are not in the model, and slot B does not exist
+      yet, so the ratio may fall either side of 1.
+    - The latency model under the card's calibrated profile, beside the
+      measured steady step.
+    - The CLI ``--device --udfs --json`` on the main flow's gui JSON
+      exits 0 with no diagnostic.
+    - ``lq_cache`` again: each entry priced by the plan, within
+      ``lq/warmcache.MODEL_BAND`` of the allocator's growth.
+
+    Returns each kernel's launches on the path."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.analysis.deviceplan import analyze_processor
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.lq.warmcache import MODEL_BAND
+    from data_accelerator_tpu_torch.obs import calibrate
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    rs = np.random.RandomState(seed + 3)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launch.reset_launches()
+    proc = FlowProcessor(SettingDictionary(plan_conf()))
+    report = analyze_processor(proc)
+    one_slot = analyze_processor(proc, output_slots=1).totals()
+    totals = report.totals()
+    if not report.ok or report.diagnostics:
+        raise AssertionError(f"plan: {[d.render() for d in report.diagnostics]}")
+    type_ids = np.array([proc.dictionary.encode(t) for t in DEVICE_TYPES], np.int32)
+    batches = [make_columns(rs, type_ids, CAPACITY) for _ in range(4)]
+    # the first step from the processor's build on: its one input batch,
+    # the rings and every table the step makes are in the peak
+    proc.dispatch_batch(proc.encode_columns(batches[0], CAPACITY), BASE_MS).collect_tables()
+    torch.cuda.synchronize()
+    peak_growth = torch.cuda.max_memory_allocated() - mem0
+    growth = torch.cuda.memory_allocated() - mem0
+    held = proc.device_bytes()
+    # the step as the latency model prices it: dispatch to the counts on
+    # the host (materializing the rows after it is the landing's work)
+    step_ms = []
+    for b, cols in enumerate(batches[1:], start=1):
+        raw = proc.encode_columns(cols, CAPACITY)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        handle = proc.dispatch_batch(raw, BASE_MS + 1000 * b)
+        handle.collect_counts()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        handle.collect_tables()
+        del handle
+    launches = process_launches()
+    profile = calibrate.get_profile(device="cuda")
+    latency = report.latency_model(profile.to_dict(), "calibrated")
+    ratios = {
+        "persistent_1slot_over_device_bytes": one_slot["persistentBytes"] / held,
+        "persistent_1slot_over_growth": one_slot["persistentBytes"] / growth,
+        "hbm_over_peak_growth": totals["hbmBytes"] / peak_growth,
+    }
+    del proc, raw
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "main_flow.json"
+        path.write_text(json.dumps(main_flow_gui()))
+        rc, out, err = run_analysis_cli(["--device", "--udfs", "--json", str(path)])
+    cli = json.loads(out) if out else {}
+    gc.disable()
+    try:
+        cache = lq_cache()
+    finally:
+        gc.enable()
+    line = {
+        "phase": "plan", "seconds": time.perf_counter() - t0,
+        "capacity": CAPACITY, "stages": len(report.stages),
+        "hbmBytes": totals["hbmBytes"], "persistentBytes": totals["persistentBytes"],
+        "perBatchBytes": totals["perBatchBytes"], "flops": totals["flops"],
+        "d2hBytesPerBatch": totals["d2hBytesPerBatch"],
+        "persistentBytes_one_slot": one_slot["persistentBytes"],
+        "device_bytes_after_first_step": held,
+        "allocated_growth_after_first_step": growth,
+        "allocated_peak_growth_first_step": peak_growth,
+        "ratios": ratios,
+        "bands": {"resident": list(PLAN_RESIDENT_BAND), "peak": list(PLAN_PEAK_BAND),
+                  "lq_cache": list(MODEL_BAND)},
+        "latency_model": latency["totals"], "profile_source": latency["profileSource"],
+        "measured_step_ms": step_ms,
+        "cli": {"exit": rc, "diagnostics": cli.get("diagnostics"),
+                "stages": len((cli.get("device") or {}).get("stages") or []),
+                "stderr": err[-300:]},
+        "lq_cache": [{k: e[k] for k in ("row_bucket", "model_bytes", "allocated_growth",
+                                        "model_over_growth")} for e in cache["entries"]],
+        "launches": launches, "card": nvidia_smi,
+    }
+    emit(line)
+    lo, hi = PLAN_RESIDENT_BAND
+    if not (lo <= ratios["persistent_1slot_over_device_bytes"] <= hi
+            and lo <= ratios["persistent_1slot_over_growth"] <= hi):
+        raise AssertionError(f"plan: resident model outside {PLAN_RESIDENT_BAND}: {ratios}")
+    if not PLAN_PEAK_BAND[0] <= ratios["hbm_over_peak_growth"] <= PLAN_PEAK_BAND[1]:
+        raise AssertionError(f"plan: hbmBytes / peak outside {PLAN_PEAK_BAND}: {ratios}")
+    if rc != 0 or cli.get("diagnostics") != [] or not line["cli"]["stages"]:
+        raise AssertionError(f"plan: analysis CLI exit {rc}: {line['cli']}")
+    if any(not MODEL_BAND[0] <= e["model_over_growth"] <= MODEL_BAND[1]
+           for e in cache["entries"]):
+        raise AssertionError(f"plan: lq_cache outside {MODEL_BAND}: {line['lq_cache']}")
+    if launches["anomaly_score"] != len(batches) or launches["dx305_double"]:
+        raise AssertionError(f"plan launches: {launches}")
+    return launches
+
+
 def phase_ground_truth() -> None:
     """Each bad twin of the host-sync fixtures (DX300, DX301, DX305)
     raises on CUDA tensors under sync debug mode "error", at the sync
@@ -3316,6 +3709,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernel launches on this slice's paths: {slice_launches}")
     # LiveQuery: the designer's UDF query launches anomaly_score
     slice_launches["livequery"] = phase_livequery(args.seed, nvidia_smi)
+    # the debug runtime and the device plan: the armed main path and the
+    # planned processor launch anomaly_score
+    slice_launches["debug"] = phase_debug(args.seed, nvidia_smi, host_events_per_s)
+    slice_launches["plan"] = phase_plan(args.seed, nvidia_smi)
     # each path's own launches, its counts set to 0 just before it
     by_path = {
         "anomaly_score": {"flow": launches["anomaly_score"],

@@ -1,33 +1,207 @@
-"""Latency closed forms of the cost model: roofline milliseconds from the
-byte and FLOP terms the generated conf carries and a measured machine
-profile (``obs/calibrate.py``).
+"""Closed-form static cost model over compiled device plans, and its
+latency forms.
 
-Copy of the JAX package's ``analysis/costmodel.py``, trimmed to
-``runtime_conformance_model`` and the latency forms
-(``stage_time_ms``, ``transfer_time_ms``, ``decode_time_ms``,
-``model_input_rows``, ``latency_model``, ``stage_latency_predictions``)
-and ``warm_kernel_cache_budget_bytes``, which reads the device's memory
-(the card's total, or ``constants.CPU_DEVICE_MEMORY_BYTES`` on the CPU)
+Every capacity in a lowered flow is static, so a stage's device bytes
+and FLOP count are *closed-form functions* of the shapes the planner
+chose: no execution, no sampling. The byte and FLOP forms consume the
+``StagePlan``/``JoinSite`` metadata ``compile/planner.py`` records at
+lowering time; ``analysis/deviceplan.py`` holds the byte forms equal to
+the meta evaluation of the production lowering and to the tensors a
+real batch materializes. The latency forms turn those bytes and FLOPs
+into roofline milliseconds under a measured machine profile
+(``obs/calibrate.py``).
+
+Column widths (core/schema.py device encoding, as the JAX package's
+x64-off encoding): long/string/timestamp -> int32 (4 B), double ->
+float32 (4 B), boolean -> bool (1 B); the validity mask is one bool per
+row.
+
+Copy of the JAX package's ``analysis/costmodel.py`` without the mesh
+collective forms (``ici_*``, ``*_wire_bytes``, ``mesh_runtime_model``,
+``stage_ici_bytes``), which wait for multi-GPU (slice 8): the port
+prices one card, where no byte crosses an interconnect. Every other
+form is the reference's, term for term, except where the port
+materializes other dtypes than the JAX package:
+
+- ``stage_transient_bytes``: a match-matrix join with a residual
+  evaluates the residual over blocks of at most
+  ``ops/join.py::RESIDUAL_BLOCK_PAIRS`` pairs, indexing with broadcast
+  views of int64 row ranges (no grid is allocated) and gathering its
+  operands per block, where the JAX package builds two int32 index
+  grids over every pair at once. The form charges the [n, m] mask, the
+  residual's [n, m] bool result and one block's two gathered 4-byte
+  operands (a comparison of one left and one right column), in place
+  of the reference's two grids over every pair.
+- ``ops/groupby.py`` sums float aggregates in float64 in a
+  ``[groups + 1]`` buffer before casting back to float32: an O(groups)
+  intermediate that, like every group-by and sort-merge intermediate in
+  the reference's form, folds into no term; the outputs keep the
+  reference's float32.
+
+``warm_kernel_cache_budget_bytes`` reads the device's memory (the
+card's total, or ``constants.CPU_DEVICE_MEMORY_BYTES`` on the CPU)
 where the JAX package takes its fleet-spec chip's.
-The byte and FLOP closed forms over the planner's ``StagePlan`` wait for
-``analysis/deviceplan.py`` (slice 7); the mesh collective forms wait for
-multi-GPU (slice 8).
 
-The forms are the reference's, term for term, so one profile prices one
-conf-embedded model to the same milliseconds in both packages. One
-consequence is deliberate: ``latency_model`` charges one dispatch
-overhead a step, which is the JAX package's one jitted call. The port's
-eager step launches many kernels, so its ``deviceStepMs`` is a lower
-bound that the card's step exceeds by the launches it does not count.
+The latency forms are the reference's, term for term, so one profile
+prices one conf-embedded model to the same milliseconds in both
+packages. One consequence is deliberate: ``latency_model`` charges one
+dispatch overhead a step, which is the JAX package's one jitted call.
+The port's eager step launches many kernels, so its ``deviceStepMs`` is
+a lower bound that the card's step exceeds by the launches it does not
+count.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 
+from ..compile.planner import StagePlan
 from ..constants import CPU_DEVICE_MEMORY_BYTES
+
+# planner type name -> device bytes per element
+COLUMN_WIDTH: Dict[str, int] = {
+    "long": 4,
+    "double": 4,
+    "boolean": 1,
+    "string": 4,
+    "timestamp": 4,
+}
+
+# pairs budget above which a match-matrix join is flagged as the
+# O(n*m) cliff (DX203): 2^24 pair evaluations per batch
+DEFAULT_MATCH_MATRIX_BUDGET = 1 << 24
+
+# bytes of one gathered residual operand (every key-able type is 4 B)
+OPERAND_BYTES = 4
+
+
+def column_width(type_name: str) -> int:
+    """Device bytes per element of a planner-typed column (unknown
+    types conservatively count as 4: every device dtype except bool is
+    32-bit)."""
+    return COLUMN_WIDTH.get(type_name, 4)
+
+
+def table_bytes(types: Dict[str, str], rows: int) -> int:
+    """Device bytes of one materialized TableData: every device column
+    (hidden ``__defer.``/``.__valid`` included: they are real tensors)
+    plus the one-bool-per-row validity mask."""
+    return sum(column_width(t) * rows for t in types.values()) + rows
+
+
+def row_bytes(types: Dict[str, str]) -> int:
+    return table_bytes(types, 1)
+
+
+def view_output_bytes(
+    types: Dict[str, str], plan: Optional[StagePlan], rows: int
+) -> int:
+    """Closed-form bytes of a compiled view's output table.
+
+    Mirrors the planner's run() exactly: grouped views ride an
+    ``__overflow.groups`` int32 column, any view whose FROM chain joined
+    rides ``__overflow.joins`` (both row-broadcast), and UNION outputs
+    carry neither (the concat keeps only schema columns).
+    """
+    b = table_bytes(types, rows)
+    if plan is None or plan.kind == "union":
+        return b
+    if plan.grouped:
+        b += 4 * rows  # __overflow.groups
+    if plan.joins:
+        b += 4 * rows  # __overflow.joins
+    return b
+
+
+def d2h_transfer_bytes(
+    types: Dict[str, str], plan: Optional[StagePlan], rows_transferred: int
+) -> int:
+    """Closed-form device->host bytes of fetching one OUTPUT table at
+    ``rows_transferred`` rows: the per-batch wire cost of the sync stage
+    for that output (``view_output_bytes`` at the transfer capacity: the
+    full padded capacity, or the sized capacity under
+    ``datax.job.process.pipeline.sizedtransfer``)."""
+    return view_output_bytes(types, plan, rows_transferred)
+
+
+# A/B output transfer slots (runtime/processor.py _stage_output): each
+# output keeps this many transfer-ready copies of its table resident on
+# the device, alternating so batch N+1's step never writes into batch
+# N's in-flight device-to-host copy
+OUTPUT_SLOT_BUFFERS = 2
+
+
+def output_slot_bytes(
+    types: Dict[str, str], plan: Optional[StagePlan], capacity: int,
+    buffers: int = OUTPUT_SLOT_BUFFERS,
+) -> int:
+    """Closed-form device bytes of one output's transfer slots:
+    ``buffers`` resident copies of the view-output layout at the slot
+    capacity (``OUTPUT_SLOT_BUFFERS``, the A/B pair, unless the caller
+    knows the processor holds fewer). The static model charges the bound
+    (the padded output capacity), like every other capacity it
+    accounts."""
+    return buffers * view_output_bytes(types, plan, capacity)
+
+
+def _log2(n: int) -> float:
+    return math.log2(max(int(n), 2))
+
+
+def stage_transient_bytes(plan: Optional[StagePlan]) -> int:
+    """Peak in-stage intermediates that never persist: the [n, m] bool
+    match matrix of non-sort-merge joins and, with a residual, the
+    residual's [n, m] bool result plus one block's two gathered
+    operands (``ops/join.py`` evaluates the residual over blocks of at
+    most ``RESIDUAL_BLOCK_PAIRS`` pairs). Sort-merge and group-by
+    intermediates are O(rows) and fold into the output estimate."""
+    if plan is None:
+        return 0
+    from ..ops.join import RESIDUAL_BLOCK_PAIRS
+
+    total = 0
+    for s in plan.joins:
+        if s.algorithm == "match-matrix":
+            pairs = s.left_rows * s.right_rows
+            total += pairs  # bool mask
+            if s.has_residual:
+                block = min(pairs, RESIDUAL_BLOCK_PAIRS)
+                total += pairs + 2 * OPERAND_BYTES * block
+    return total
+
+
+def stage_flops(plan: Optional[StagePlan], n_out_cols: int) -> float:
+    """Order-of-magnitude FLOP/compare estimate per batch for one stage.
+
+    Sorts count rows*log2(rows) per key column (the planner's group-by,
+    distinct, sort-merge join and ORDER BY all lower to lexsorts);
+    match-matrix joins count one compare per pair per conjunct;
+    projections count one op per output element.
+    """
+    if plan is None:
+        return 0.0
+    n = plan.input_rows
+    out = plan.output_rows
+    flops = float(n) * max(n_out_cols, 1)  # projection/eval of outputs
+    for s in plan.joins:
+        if s.algorithm == "match-matrix":
+            flops += float(s.left_rows) * s.right_rows * (
+                s.n_eq_keys + (1 if s.has_residual else 0)
+            )
+        else:
+            nm = s.left_rows + s.right_rows
+            flops += nm * _log2(nm) * s.n_eq_keys + s.out_rows
+    if plan.grouped:
+        flops += n * _log2(n) * max(plan.group_keys, 1)
+        flops += float(n) * max(plan.n_aggregates, 1)
+    if plan.distinct:
+        flops += n * _log2(n)
+    if plan.order_keys:
+        flops += out * _log2(out) * plan.order_keys
+    return flops
 
 
 def runtime_conformance_model(
@@ -242,9 +416,9 @@ def warm_kernel_cache_budget_bytes(
     """Device bytes the LiveQuery warm-kernel LRU may keep resident:
     ``headroom`` of ``chip_hbm_bytes``, which defaults to the memory of
     ``device``: on a card its total memory, on the CPU
-    ``constants.CPU_DEVICE_MEMORY_BYTES``. Each cache entry is priced by
-    ``FlowProcessor.device_bytes``. Raises when ``device`` is a card and
-    none is present."""
+    ``constants.CPU_DEVICE_MEMORY_BYTES``. Each cache entry is priced with
+    the byte model (``lq/warmcache.py``). Raises when ``device`` is a
+    card and none is present."""
     if chip_hbm_bytes is None:
         dev = torch.device(device)
         if dev.type == "cuda":

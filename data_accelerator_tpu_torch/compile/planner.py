@@ -9,8 +9,12 @@ planning/execution (CommonProcessorFactory.scala:249-293).
 Tables flow through as ``TableData`` (columns dict + validity mask);
 capacities are static and derived per statement (input capacity for
 project/filter/group-by, configured bound for joins, sum for unions).
-Each view records one ``JoinSite`` per JOIN it lowered, as the JAX
-package's planner records them in its ``StagePlan``.
+Each view records a ``StagePlan``, its lowering decisions (kind, row
+counts, one ``JoinSite`` per JOIN, group bound, ORDER/LIMIT), as the JAX
+package's planner does: the input of the cost model
+(``analysis/costmodel.py``, ``analysis/deviceplan.py``). The JAX
+package's ``sources`` and ``unshardable_udfs`` fields feed its mesh
+planner and come with it (multi-GPU slice 8).
 
 Deferred string columns (CONCAT results etc.) materialize their device
 inputs as hidden ``__defer.`` columns so they ride along through
@@ -139,6 +143,26 @@ class JoinSite:
     has_residual: bool  # non-equi ON terms force the match matrix
 
 
+@dataclass(frozen=True)
+class StagePlan:
+    """Static execution shape of one compiled view."""
+
+    kind: str  # "project" | "group" | "union"
+    input_rows: int  # FROM-scope capacity feeding the select
+    output_rows: int  # final output capacity (post ORDER/LIMIT)
+    joins: Tuple[JoinSite, ...] = ()
+    grouped: bool = False
+    group_keys: int = 0
+    # column names the group keys read (for cardinality lints)
+    group_key_cols: Tuple[str, ...] = ()
+    n_aggregates: int = 0
+    groups_bound: int = 0  # static group capacity (0 when ungrouped)
+    distinct: bool = False
+    order_keys: int = 0
+    limit: Optional[int] = None
+    union_branches: int = 1
+
+
 @dataclass
 class CompiledView:
     name: str
@@ -154,9 +178,15 @@ class CompiledView:
     # on the materialized host rows instead — [(column, ascending)]
     host_order: Optional[List[Tuple[str, bool]]] = None
     host_limit: Optional[int] = None
-    # the JOINs this view lowered, in FROM order (a union's: every
-    # branch's), for static cost analysis
-    joins: Tuple[JoinSite, ...] = ()
+    # lowering decisions, for static cost analysis (None for views built
+    # outside the select compiler, e.g. raw inputs)
+    plan: Optional[StagePlan] = None
+
+    @property
+    def joins(self) -> Tuple[JoinSite, ...]:
+        """The JOINs this view lowered, in FROM order (a union's: every
+        branch's)."""
+        return self.plan.joins if self.plan is not None else ()
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +363,16 @@ class SelectCompiler:
         view = CompiledView(
             name, schema, capacity, run,
             select_values=compiled[0].select_values,
-            joins=tuple(s for c in compiled for s in c.joins),
+            plan=StagePlan(
+                kind="union",
+                input_rows=sum(
+                    c.plan.input_rows if c.plan else c.capacity
+                    for c in compiled
+                ),
+                output_rows=capacity,
+                joins=tuple(s for c in compiled for s in c.joins),
+                union_branches=len(compiled),
+            ),
         )
         if order_by or limit is not None:
             view = self._apply_order_limit(view, order_by, limit)
@@ -426,7 +465,13 @@ class SelectCompiler:
         schema = ViewSchema(out_types, deferred)
         view = CompiledView(
             name, schema, scope_capacity, run, select_values=out_values,
-            joins=tuple(join_sites),
+            plan=StagePlan(
+                kind="project",
+                input_rows=scope_capacity,
+                output_rows=scope_capacity,
+                joins=tuple(join_sites),
+                distinct=bool(sel.distinct),
+            ),
         )
         if sel.order_by or sel.limit is not None:
             # Spark rejects DISTINCT + ORDER BY on unselected columns
@@ -1090,10 +1135,16 @@ class SelectCompiler:
         capacity = view.capacity
         if limit is not None and keys and limit < capacity:
             capacity = limit
+        plan = view.plan
+        if plan is not None:
+            plan = replace(
+                plan, output_rows=capacity,
+                order_keys=len(keys), limit=limit,
+            )
         return CompiledView(
             view.name, view.schema, capacity, run,
             select_values=view.select_values,
-            joins=view.joins,
+            plan=plan,
         )
 
     # -- grouped path ----------------------------------------------------
@@ -1268,7 +1319,19 @@ class SelectCompiler:
         schema = ViewSchema(out_types, deferred)
         return CompiledView(
             name, schema, capacity, run,
-            joins=tuple(join_sites),
+            plan=StagePlan(
+                kind="group",
+                input_rows=scope_capacity,
+                output_rows=capacity,
+                joins=tuple(join_sites),
+                grouped=True,
+                group_keys=len(key_compiled),
+                group_key_cols=tuple(sorted({
+                    c for k in key_compiled for (_b, c) in k.deps
+                })),
+                n_aggregates=len(agg_nodes) + len(udaf_nodes),
+                groups_bound=capacity,
+            ),
         )
 
 

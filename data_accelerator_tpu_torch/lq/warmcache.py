@@ -8,22 +8,28 @@ keeps the set of reachable signatures bounded no matter how many users
 connect, so the compile surface is a function of the lattice, not of
 tenant count.
 
-Residency is budgeted in device bytes: each entry is priced after its
-first execute with the byte model of the port's own,
-``FlowProcessor.device_bytes`` (the resident tensor storages each of
-the kernel's processors holds on its device), and the LRU evicts
-(counted — ``LQ_KernelEvict_Count``) when the resident total exceeds
+Residency is budgeted in device bytes: each entry is priced with the
+DX2xx byte model, ``analysis/deviceplan.analyze_processor`` over the
+kernel's compiled processors (no execution needed: the meta evaluation
+of their views), and the LRU evicts (counted — ``LQ_KernelEvict_Count``)
+when the resident total exceeds
 ``costmodel.warm_kernel_cache_budget_bytes`` of the device's memory.
 A re-admitted signature rebuilds its processors (counted as a re-warm,
 so dashboards can tell thrash from cold).
 
 A copy of the JAX package's ``lq/warmcache.py`` with these changes: the
 cache takes ``device`` (``"cuda"`` by default; raises without a card)
-and builds its kernels there; entries are priced by
-``FlowProcessor.device_bytes`` where the JAX package runs
-``analysis/deviceplan.analyze_processor`` (``jax.eval_shape``), not
-ported yet; the ``sized_by`` vocabulary and ``FALLBACK_KERNEL_BYTES``
-stay. ``clear`` drops every entry (``LiveQueryService.stop``). No entry,
+and builds its kernels there. The price is the model's resident bytes
+(``persistentBytes``: rings, state and reference tables and the output
+transfer slots) where the JAX package takes ``hbmBytes``, which adds the
+per-batch tables: the port frees those after each execute, so they hold
+nothing between executes. A kernel's processor restarts at every
+execute (``FlowProcessor.reset_state``), so its A/B slot rotation never
+leaves slot A: the model counts one slot per output. Once a processor
+has run, ``FlowProcessor.device_bytes`` measures what it holds; a model
+outside ``MODEL_BAND`` of that measurement prices the entry by the
+measurement (``sized_by`` ``"measured"``). The rest of the ``sized_by``
+vocabulary and ``FALLBACK_KERNEL_BYTES`` stay. ``clear`` drops every entry (``LiveQueryService.stop``). No entry,
 kernel or processor refers back to the cache, so an evicted entry's
 tensors go by reference counting, without the cyclic collector.
 """
@@ -46,6 +52,13 @@ logger = logging.getLogger(__name__)
 #: kernel — large enough that fallback-sized entries still get evicted
 #: under pressure
 FALLBACK_KERNEL_BYTES = 64 * 1024 * 1024
+
+#: the band model / measured bytes must fall in for the model to price
+#: an entry that has run
+MODEL_BAND = (0.95, 1.05)
+
+#: transfer slots a kernel's processor holds per output (see above)
+KERNEL_OUTPUT_SLOTS = 1
 
 
 @dataclass(frozen=True)
@@ -137,6 +150,10 @@ class WarmKernel:
         self.kernel = kernel
         self.hbm_bytes = 0
         self.sized_by = "unsized"
+        # the byte model's price and, once the processors have run,
+        # what they hold (FlowProcessor.device_bytes)
+        self.model_bytes = 0
+        self.measured_bytes = 0
         self.last_used = 0.0
         self.executes = 0
 
@@ -164,7 +181,7 @@ class WarmKernelCache:
 
     ``budget_bytes`` defaults to ``costmodel.warm_kernel_cache_budget_
     bytes(device=device)`` (a headroom fraction of the device's memory).
-    Entries are priced after their first execute builds the processor;
+    Entries are priced once an execute has built their processors;
     eviction never removes the entry the current tick is using."""
 
     def __init__(
@@ -225,17 +242,38 @@ class WarmKernelCache:
 
     # -- budget enforcement ----------------------------------------------
     def _price_entry(self, entry: WarmKernel) -> None:
-        """Price the entry with the byte model over its built
-        processors (``FlowProcessor.device_bytes``); fall back to a flat
-        conservative estimate when the model cannot price it."""
+        """Price the entry with the DX2xx byte model over its compiled
+        processors (``persistentBytes``, one transfer slot per output),
+        held against what the processors that have run hold
+        (``device_bytes``): outside ``MODEL_BAND`` the measurement
+        prices it. Falls back to a flat conservative estimate when
+        neither can."""
         try:
-            total = sum(
-                int(proc.device_bytes())
-                for proc in entry.kernel._processors.values()
+            from ..analysis.deviceplan import analyze_processor
+
+            procs = list(entry.kernel._processors.values())
+            entry.model_bytes = sum(
+                int(analyze_processor(
+                    p, output_slots=KERNEL_OUTPUT_SLOTS,
+                ).totals()["persistentBytes"])
+                for p in procs
             )
-            if total > 0:
-                entry.hbm_bytes = total
-                entry.sized_by = "model"
+            entry.measured_bytes = sum(
+                int(p.device_bytes()) for p in procs if p._base_ms is not None
+            )
+            model, measured = entry.model_bytes, entry.measured_bytes
+            if model > 0 and (
+                not measured
+                or MODEL_BAND[0] <= model / measured <= MODEL_BAND[1]
+            ):
+                entry.hbm_bytes, entry.sized_by = model, "model"
+                return
+            if measured > 0:
+                logger.warning(
+                    "kernel %s: byte model %d B vs %d B held; priced by "
+                    "the measurement", entry.signature.key, model, measured,
+                )
+                entry.hbm_bytes, entry.sized_by = measured, "measured"
                 return
         except Exception as e:  # noqa: BLE001 — sizing must not fail a query
             logger.debug("kernel byte model failed for %s: %s",

@@ -174,15 +174,23 @@ class PackedBufferPool:
     that ``torch.from_numpy`` wraps without a copy; the step then reads
     the pool's memory itself, so the processor releases it only once its
     batch has landed. The pool grows on demand and counts every reuse for
-    the ``Decode_BufferReuse_Count`` metric."""
+    the ``Decode_BufferReuse_Count`` metric.
+
+    An attached ``sanitizer`` (``process.debug.buffersanitizer``,
+    ``runtime/sanitizer.py``) poisons each released matrix, but only
+    once its copy event (if any) has completed: at ``release`` when it
+    already has, else at a later ``release`` or ``acquire`` that finds
+    it done with a non-blocking ``query``. No matrix is handed out
+    unpoisoned, and none is poisoned under an in-flight copy."""
 
     def __init__(self, n_rows: int, capacity: int, pin: bool = False):
         self.n_rows = int(n_rows)
         self.capacity = int(capacity)
         self.pin = pin
+        self.sanitizer = None
         self._lock = threading.Lock()
-        # (matrix, event of its host-to-device copy or None)
-        self._free: List[Tuple[torch.Tensor, Optional[torch.cuda.Event]]] = []
+        # [matrix, event of its host-to-device copy or None, poisoned]
+        self._free: List[list] = []
         self.alloc_count = 0
         self.reuse_count = 0
         self._reuse_drained = 0
@@ -196,12 +204,26 @@ class PackedBufferPool:
         off = (-raw.ctypes.data % 64) // 4
         return torch.from_numpy(raw[off: off + n].reshape(shape))
 
+    @staticmethod
+    def _copied(entry: list) -> bool:
+        return entry[1] is None or entry[1].query()
+
+    def _poison_copied(self) -> None:
+        """Poison every free matrix whose copy has completed (under the
+        lock; a no-op without a sanitizer)."""
+        if self.sanitizer is None:
+            return
+        for entry in self._free:
+            if not entry[2] and self._copied(entry):
+                self.sanitizer.poison(entry[0])
+                entry[2] = True
+
     def acquire(self) -> torch.Tensor:
         with self._lock:
+            self._poison_copied()
             for i in range(len(self._free) - 1, -1, -1):
-                matrix, copied = self._free[i]
-                if copied is None or copied.query():
-                    del self._free[i]
+                if self._copied(self._free[i]):
+                    matrix = self._free.pop(i)[0]
                     self.reuse_count += 1
                     return matrix
             self.alloc_count += 1
@@ -213,7 +235,8 @@ class PackedBufferPool:
         """Give ``matrix`` back; ``copied`` is the event recorded after
         its host-to-device copy, if one is still in flight."""
         with self._lock:
-            self._free.append((matrix, copied))
+            self._free.append([matrix, copied, False])
+            self._poison_copied()
 
     def take_reuse_count(self) -> int:
         """Reuses since the last take (the Decode_BufferReuse_Count

@@ -27,7 +27,10 @@ on-demand ``torch.profiler`` capture behind ``POST /profile``
 (``obs/profiler.py``, ``observability.profiler``/``profilerdir``); fleet
 telemetry frames (``obs/publisher.py``, ``process.fleet.publishurl``);
 and the delivery-protocol monitor (``runtime/protocolmonitor.py``,
-``process.debug.protocolmonitor``, runtime DX906).
+``process.debug.protocolmonitor``, runtime DX906). With
+``process.debug.buffersanitizer`` the host flight-records the
+sanitizer's DX805 events (``sanitizer/poison``) and checks every window
+checkpoint for aliasing and sentinel residue before it is saved.
 
 Not ported yet, and refused by conf with an ``EngineException`` that
 names it (``_refuse_unported``): the mesh sharding model
@@ -771,6 +774,19 @@ class StreamingHost:
         # DX53x state events (load fallback / both-sides-bad) land in
         # the flight recorder like conformance drift — typed, greppable
         self._drain_state_events()
+        # runtime DX805: buffer-sanitizer poison hits join the recorder
+        # the same way (and the Sanitizer_PoisonHit metric event stream)
+        san = self.processor.buffer_sanitizer
+        if san is not None:
+            for ev in san.drain_events():
+                try:
+                    self.telemetry.track_event("sanitizer/poison", ev)
+                    self.metric_logger.send_metric_events(
+                        "Sanitizer_PoisonHit", [ev], batch_time_ms
+                    )
+                except Exception:  # noqa: BLE001 — telemetry never kills a batch
+                    logger.exception("sanitizer event emit failed")
+                logger.warning("buffer sanitizer %s", ev.get("message"))
         # runtime DX906: protocol-monitor ordering violations from
         # previously sealed batches join the recorder the same way
         if pm is not None:
@@ -798,6 +814,13 @@ class StreamingHost:
                     # duplicates); the reverse order would resume PAST
                     # events the restored rings never saw
                     snap = self.processor.snapshot_window_state()
+                    # armed sanitizer: a checkpoint must be REAL copies;
+                    # shared memory with the live rings (or an earlier
+                    # snapshot) or sentinel residue is caught before the
+                    # snapshot is ever persisted
+                    san = self.processor.buffer_sanitizer
+                    if san is not None:
+                        san.check_snapshot(snap, self.processor.window_buffers)
                     self.window_checkpointer.save(snap)
                     if pm is not None:
                         pm.record(

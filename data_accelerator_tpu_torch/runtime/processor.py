@@ -51,12 +51,20 @@ landing (``runtime/statetable.py``, ``runtime/statepartition.py``).
 ``state.snapshoturl`` the partitions and the window rings travel through
 the ``objstore://`` mirror to a successor replica.
 
-Mesh execution and debug guards are not ported yet; a flow whose conf
-asks for one of them raises ``EngineException``.
+The ``process.debug`` block arms the debug runtime: ``nans`` and
+``tracerleaks`` guard the step's views and UDF calls
+(``runtime/debugguard.py``, the eager counterpart of the JAX package's
+``jax.debug_nans``/``jax.checking_leaks``), and ``buffersanitizer``
+poisons released ingest matrices, scans landed tables and checks window
+checkpoints (``runtime/sanitizer.py``, runtime DX805).
+
+Mesh execution is not ported yet; a flow whose conf asks for it raises
+``EngineException``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import logging
@@ -95,6 +103,7 @@ from .statepartition import (
     snapshot_to_bytes,
     split_window_snapshot,
 )
+from . import debugguard, sanitizer
 from .statetable import StateTable
 from .timewindow import (
     WindowBuffers,
@@ -726,10 +735,19 @@ class FlowProcessor:
         )
         self.spec = self.specs[self.primary]
         self.batch_capacity = self.spec.capacity
-        # what a host reads of features this port refuses by conf
-        # (_refuse_unported): no mesh and no buffer sanitizer
+        # what a host reads of the mesh, which this port refuses by conf
+        # (_refuse_unported)
         self.mesh = None
-        self.buffer_sanitizer = None
+        # the debug runtime (process.debug.*): conf nans / tracerleaks
+        # arm the step's guards around every view and UDF call, conf
+        # buffersanitizer the dynamic half of the DX8xx buffer-lifetime
+        # defense (released pool slots poisoned, landed tables scanned,
+        # checkpoints alias-checked). Off, none of it runs.
+        dbg_conf = process_conf.get_sub_dictionary("debug.")
+        self.step_guard = debugguard.from_conf(dbg_conf)
+        self.debug_nans = bool(self.step_guard and self.step_guard.nans)
+        self.debug_tracer_leaks = bool(self.step_guard and self.step_guard.leaks)
+        self.buffer_sanitizer = sanitizer.from_conf(dbg_conf)
 
         # partitioned state (datax.job.process.state.*): every stateful
         # surface — accumulator tables AND window-ring snapshots —
@@ -870,19 +888,11 @@ class FlowProcessor:
         """Raise for conf that asks for a feature this port lacks, naming
         it, rather than run the flow without it."""
         proc = SettingNamespace.JobProcessPrefix
-        truthy = lambda key: (dict_.get(key) or "").lower() == "true"  # noqa: E731
-        checks = [
-            ((dict_.get_int_option(proc + "numchips") or 1) > 1,
-             "mesh execution (process.numchips > 1)"),
-            (any(truthy(proc + "debug." + k)
-                 for k in ("nans", "tracerleaks", "buffersanitizer")),
-             "debug guards (process.debug.*)"),
-        ]
-        for asked, feature in checks:
-            if asked:
-                raise EngineException(
-                    f"{feature} is not ported to data_accelerator_tpu_torch yet"
-                )
+        if (dict_.get_int_option(proc + "numchips") or 1) > 1:
+            raise EngineException(
+                "mesh execution (process.numchips > 1) is not ported to "
+                "data_accelerator_tpu_torch yet"
+            )
 
     def _planner_config(self, process_conf: SettingDictionary) -> PlannerConfig:
         kwargs = {}
@@ -948,10 +958,16 @@ class FlowProcessor:
             conf=conf,
         )
 
+    def _step_udfs(self) -> dict:
+        """The UDFs the step's views call: under armed debug guards,
+        copies whose calls the guards check; else the UDFs themselves."""
+        if self.step_guard is None:
+            return self.udfs
+        return {n: self.step_guard.udf(u) for n, u in self.udfs.items()}
+
     def _build_pipeline(self, output_datasets: Optional[List[str]]):
-        pc = PipelineCompiler(
-            self.dictionary, self.udfs, config=self.planner_config
-        )
+        udfs = self._step_udfs()
+        pc = PipelineCompiler(self.dictionary, udfs, config=self.planner_config)
         # one dictionary-table registry for the whole flow (projection +
         # transform share string-op tables; see compile/stringops.py)
         self.aux_registry = pc.aux
@@ -973,7 +989,7 @@ class FlowProcessor:
             for i, step_text in enumerate(spec.projection_steps):
                 sel = projection_select(step_text, cur_name)
                 compiler = SelectCompiler(
-                    proj_catalog, proj_caps, self.dictionary, self.udfs,
+                    proj_catalog, proj_caps, self.dictionary, udfs,
                     self.planner_config, aux=pc.aux,
                 )
                 vname = (
@@ -1059,6 +1075,18 @@ class FlowProcessor:
         ]
 
     def _build_step(self):
+        pipeline, proj_views = self.pipeline, dict(self.projection_views)
+        guard = self.step_guard
+        if guard is not None:
+            # the step runs guarded copies of the views; the processor's
+            # own pipeline (what analysis and landing read) stays as built
+            pipeline = dataclasses.replace(
+                pipeline, views=[guard.view_fn(v) for v in pipeline.views]
+            )
+            proj_views = {
+                s: [guard.view_fn(v) for v in views]
+                for s, views in proj_views.items()
+            }
         self._step = build_step_fn(
             ts_col=self.timestamp_column,
             windows=dict(self.windows),
@@ -1066,9 +1094,9 @@ class FlowProcessor:
             state_names=list(self.state_tables),
             refdata_names=list(self.refdata),
             ring_tables=list(self.ring_slots),
-            pipeline=self.pipeline,
+            pipeline=pipeline,
             source_targets=[(n, sp.target) for n, sp in self.specs.items()],
-            proj_views=dict(self.projection_views),
+            proj_views=proj_views,
             primary_target=self.spec.target,
         )
 
@@ -1692,6 +1720,8 @@ class FlowProcessor:
             pool = PackedBufferPool(
                 n_rows, cap, pin=self.device.type == "cuda"
             )
+            # armed debug.buffersanitizer: released slots get poisoned
+            pool.sanitizer = self.buffer_sanitizer
             self._ingest_pools[spec.name] = pool
         col_rows = self._ingest_col_rows.get(spec.name)
         if col_rows is None:
@@ -2392,6 +2422,14 @@ class PendingBatch:
         try:
             with tracing.span("device-fetch"):
                 tables = self._land(bc)
+            # the step is done with its ingest matrix once the tables
+            # have landed: give it back before they are read, so that an
+            # armed sanitizer's poison shows through any view of it that
+            # outlived its release
+            self._release_ingest()
+            if proc.buffer_sanitizer is not None:
+                for name, table in tables.items():
+                    proc.buffer_sanitizer.scan_table(name, table)
             with tracing.span("materialize"):
                 for name, table in tables.items():
                     rows = materialize_rows(
@@ -2484,6 +2522,10 @@ class PendingBatch:
         metrics["Sync_CountsBytes"] = float(bc.counts.nbytes)
         for k, v in transfer_stats.items():
             metrics[f"Transfer_{k}_Count"] = float(v)
+        # sanitizer accounting: views guarded since the last collect,
+        # and poison hits (only once nonzero)
+        if proc.buffer_sanitizer is not None:
+            metrics.update(proc.buffer_sanitizer.drain_metric_deltas())
         # feed the adaptive capacity for the NEXT batches
         proc.observe_transfer_counts(bc.dataset_counts)
         return datasets, metrics

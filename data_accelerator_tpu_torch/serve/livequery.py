@@ -22,9 +22,10 @@ A copy of the JAX package's ``serve/livequery.py`` with these changes:
   The port's window rings change in place, so a reset from one thread
   must not land inside another thread's step on the same processor;
   the rows each caller gets equal a serial run's.
-- ``debug`` still writes ``process.debug.*``, which the port's
-  processor refuses (``FlowProcessor._refuse_unported``): a kernel with
-  ``debug`` set raises that ``EngineException`` at its first execute.
+- ``debug`` writes ``process.debug.*`` as in the JAX package, and arms
+  the port's step guards (``runtime/debugguard.py``): ``nans`` raises
+  ``FloatingPointError`` at a NaN a UDF or view computes,
+  ``tracerleaks`` a ``TensorLeakError`` for a step tensor a UDF keeps.
 - ``compile_conf`` (``process.compile.*``) is kept and passed on, but no
   persistent compile cache reads it in the port: a re-warm is a rebuild.
 """
@@ -89,9 +90,9 @@ class Kernel:
     sample_rows: List[dict]
     udfs: Optional[dict] = None
     refdata_conf: Dict[str, str] = field(default_factory=dict)
-    # process.debug.* flags for UDF-bearing interactive runs: True asks
-    # for both nans and tracerleaks, a dict selects flags ({"nans":
-    # "true"}); the port's processor refuses them (not ported yet)
+    # process.debug.* flags for UDF-bearing interactive runs: True arms
+    # both nans and tracerleaks (runtime/debugguard.py), a dict selects
+    # flags ({"nans": "true"})
     debug: object = None
     # compile conf keys (datax.job.process.compile.*) merged into every
     # query processor's conf; read by nothing in the port

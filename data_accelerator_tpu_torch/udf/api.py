@@ -121,7 +121,10 @@ class CudaKernelUdf(TorchUdf):
     object in ``kernel.launches``, a function through
     ``kernels/launch.py::cuda_call`` (a user's own kernel source), by
     entry symbol. ``plain``: the same function in plain PyTorch,
-    used when — and only when — the inputs lie on the CPU. The CUDA tier
+    used when — and only when — the inputs lie on the CPU, or on the
+    ``meta`` device, where the device-plan analysis
+    (``analysis/deviceplan.py``) propagates shapes and dtypes and
+    nothing computes. The CUDA tier
     of the JAX package's ``PallasUdf`` (a Pallas kernel over 1-D row
     blocks); the kernel sees whole contiguous columns, as the Pallas
     BlockSpecs hand the kernel materialized blocks.
@@ -149,7 +152,7 @@ class CudaKernelUdf(TorchUdf):
         return self.kernel.launches
 
     def _call(self, *tensors: torch.Tensor) -> torch.Tensor:
-        if all(t.device.type == "cpu" for t in tensors):
+        if all(t.device.type in ("cpu", "meta") for t in tensors):
             return self.plain(*tensors)
         return self.kernel(*[t.contiguous() for t in tensors])
 

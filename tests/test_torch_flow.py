@@ -266,7 +266,6 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
 
 @pytest.mark.parametrize("key,value,feature", [
     ("datax.job.process.numchips", "4", "mesh"),
-    ("datax.job.process.debug.nans", "true", "debug guards"),
 ])
 def test_unported_features_raise_by_name(key, value, feature):
     with pytest.raises(EngineException, match=feature):

@@ -117,3 +117,40 @@ def test_livequery_modules_load_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# the modules of the debug runtime and the device-plan tier
+SLICE_7A = (
+    "data_accelerator_tpu_torch.runtime.sanitizer",
+    "data_accelerator_tpu_torch.runtime.debugguard",
+    "data_accelerator_tpu_torch.analysis.analyzer",
+    "data_accelerator_tpu_torch.analysis.typeprop",
+    "data_accelerator_tpu_torch.analysis.diagnostics",
+    "data_accelerator_tpu_torch.analysis.costmodel",
+    "data_accelerator_tpu_torch.analysis.deviceplan",
+    "data_accelerator_tpu_torch.analysis.chipcount",
+    "data_accelerator_tpu_torch.analysis.__main__",
+    "data_accelerator_tpu_torch.compile.codegen",
+    "data_accelerator_tpu_torch.serve.flowbuilder",
+)
+
+
+def test_slice_7a_modules_load_without_jax():
+    """Each module of the slice imports in a fresh interpreter and
+    leaves neither JAX nor the JAX package loaded."""
+    import subprocess
+    import sys
+
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_7A!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    for m in SLICE_7A:
+        assert (ROOT / (m.replace(".", "/") + ".py")).exists(), m

@@ -8,7 +8,7 @@ exact, floats within ``RTOL``). ``TestLiveQueryWindows`` mirrors
 ``tests/test_properties_livequery.py``'s, ``TestLiveQuery`` the kernel
 tests of ``tests/test_serve_designtime.py``. Then the port's own:
 ``FlowProcessor.reset_state`` idempotence, the per-processor lock under
-threads, the refusal of ``debug``, and the designer path from a sampled
+threads, ``debug`` arming the step guards, and the designer path from a sampled
 source through the sample blob to an executed query with the anomaly
 UDF.
 """
@@ -30,7 +30,6 @@ from data_accelerator_tpu.serve import schemainference as jax_si
 from data_accelerator_tpu.serve import storage as jax_storage
 from data_accelerator_tpu.serve.objectstore import ObjectStoreClient as JaxClient
 from data_accelerator_tpu.udf.samples import anomalyscore as jax_anomalyscore
-from data_accelerator_tpu_torch.core.config import EngineException
 from data_accelerator_tpu_torch.lq import session as torch_session
 from data_accelerator_tpu_torch.runtime.sources import FileSource
 from data_accelerator_tpu_torch.serve import livequery
@@ -284,16 +283,26 @@ class TestPortKernel:
 
     @pytest.mark.parametrize("debug", [True, {"nans": "true"}])
     def test_debug_is_refused_at_the_first_execute(self, debug):
-        svc = service("torch")
-        kid = svc.create_kernel("DbgFlow", SCHEMA, sample_rows=_rows(2),
-                                debug=debug)
-        with pytest.raises(EngineException,
-                           match=r"debug guards \(process.debug.\*\) is not ported"):
-            svc.execute(kid, "S = SELECT deviceId FROM DataXProcessedInput")
-        # the same kernel without debug runs
-        kid2 = svc.create_kernel("DbgFlow", SCHEMA, sample_rows=_rows(2))
-        assert len(svc.execute(kid2, "S = SELECT deviceId FROM "
-                                     "DataXProcessedInput")["result"]) == 2
+        """``debug`` arms the step guards at the kernel's first execute
+        (it was refused before the debug runtime was ported): the armed
+        kernel returns the rows of an unarmed one and of the JAX
+        package's armed kernel."""
+        query = "S = SELECT deviceId, temperature FROM DataXProcessedInput"
+        out = {}
+        for pkg in ("torch", "jax"):
+            svc = service(pkg)
+            kid = svc.create_kernel("DbgFlow", SCHEMA, sample_rows=_rows(2),
+                                    debug=debug)
+            out[pkg] = svc.execute(kid, query)
+            if pkg == "torch":
+                (proc,) = svc.get(kid)._processors.values()
+                assert proc.debug_nans
+                assert proc.debug_tracer_leaks == (debug is True)
+        plain = service("torch")
+        kid2 = plain.create_kernel("DbgFlow", SCHEMA, sample_rows=_rows(2))
+        assert out["torch"] == plain.execute(kid2, query)
+        same_result(out["torch"], out["jax"])
+        assert len(out["torch"]["result"]) == 2
 
     def test_kernel_builds_on_its_device(self):
         svc = service("torch")

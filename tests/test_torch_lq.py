@@ -10,9 +10,10 @@ Results must be equal (headers, rows, ints exact, floats within
 ``coalescer.stats()``, the cache's entries, evictions, re-warms,
 compiles and step-cache entries, ``SessionManager.stats()`` and the
 ``lq_metrics()`` keys. The cache's bytes differ by design (the port
-prices entries with ``FlowProcessor.device_bytes``), and so does its
-default budget; the tests of the port's own byte model, budget and
-memory release close the file.
+prices entries with its device plan's resident bytes, held against
+``FlowProcessor.device_bytes``, where the JAX package charges
+``hbmBytes``), and so does its default budget; the tests of the port's
+own byte model, budget and memory release close the file.
 """
 
 import gc
@@ -50,6 +51,10 @@ BASE = 1_700_000_000_000
 QUERY = (
     "Agg = SELECT deviceId, COUNT(*) AS Cnt, MAX(temperature) AS MaxTemp "
     "FROM DataXProcessedInput GROUP BY deviceId"
+)
+WINDOW_QUERY = (
+    "W = SELECT deviceId, COUNT(*) AS Cnt "
+    "FROM DataXProcessedInput_5seconds GROUP BY deviceId"
 )
 PKGS = ("jax", "torch")
 MOD = {
@@ -670,13 +675,48 @@ class TestPortByteModel:
         model = sum(p.device_bytes() for p in svc.get(kid)._processors.values())
         assert model == grown > 0
 
-    def test_fallback_price_when_the_model_fails(self, monkeypatch):
-        from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+    def test_price_comes_from_deviceplan_and_equals_device_bytes(self):
+        """The warm cache prices each entry with ``analyze_processor``
+        (persistent bytes, one transfer slot per output); on the CPU that
+        equals what the kernel's processors hold, byte for byte."""
+        from data_accelerator_tpu_torch.analysis.deviceplan import analyze_processor
 
-        def broken(self):
+        lq = svc_of("torch")
+        for n, query in ((10, QUERY), (300, QUERY), (100, WINDOW_QUERY)):
+            _entry(lq, n, query=query)
+        assert len(lq.cache._entries) == 3
+        for entry in lq.cache._entries.values():
+            procs = list(entry.kernel._processors.values())
+            model = sum(
+                analyze_processor(p, output_slots=1).totals()["persistentBytes"]
+                for p in procs
+            )
+            held = sum(p.device_bytes() for p in procs)
+            assert entry.sized_by == "model"
+            assert entry.hbm_bytes == entry.model_bytes == model
+            assert entry.measured_bytes == held == model > 0
+        lq.stop()
+
+    def test_model_outside_the_band_prices_by_the_measurement(self, monkeypatch):
+        """A model that misses what the processors hold by more than
+        ``MODEL_BAND`` gives way to the measurement (two slots counted
+        where a kernel holds one)."""
+        monkeypatch.setattr(torch_warmcache, "KERNEL_OUTPUT_SLOTS", 2)
+        lq = svc_of("torch")
+        _entry(lq, 300)
+        entry = next(iter(lq.cache._entries.values()))
+        assert entry.model_bytes > torch_warmcache.MODEL_BAND[1] * entry.measured_bytes
+        assert entry.sized_by == "measured"
+        assert entry.hbm_bytes == entry.measured_bytes
+        lq.stop()
+
+    def test_fallback_price_when_the_model_fails(self, monkeypatch):
+        from data_accelerator_tpu_torch.analysis import deviceplan
+
+        def broken(*a, **k):
             raise RuntimeError("no model")
 
-        monkeypatch.setattr(FlowProcessor, "device_bytes", broken)
+        monkeypatch.setattr(deviceplan, "analyze_processor", broken)
         lq = svc_of("torch")
         _entry(lq, 10)
         entry = next(iter(lq.cache._entries.values()))
@@ -774,9 +814,18 @@ def test_one_execute_on_the_card_equals_the_cpu(card):
         sid = lq.create_session("t", "LQFlow", SCHEMA, sample_rows=rows)["id"]
         out[dev] = lq.execute(sid, QUERY)
         entry = next(iter(lq.cache._entries.values()))
-        assert entry.sized_by == "model" and entry.hbm_bytes > 0
         if dev == "cuda":
-            assert entry.hbm_bytes % 512 == 0
+            # the card holds each tensor in 512-byte allocator blocks; at
+            # this 64-row bucket every tensor is under one block, so the
+            # model (unrounded bytes) falls below the band and the
+            # measurement prices the entry
+            assert entry.measured_bytes % 512 == 0
+            assert entry.model_bytes < torch_warmcache.MODEL_BAND[0] * entry.measured_bytes
+            assert entry.sized_by == "measured"
+            assert entry.hbm_bytes == entry.measured_bytes
+        else:
+            assert entry.sized_by == "model" and entry.hbm_bytes > 0
+            assert entry.hbm_bytes == entry.model_bytes == entry.measured_bytes
         del entry
         lq.stop()
     same_result(out["cuda"], out["cpu"], rtol=1e-4)

@@ -12,11 +12,13 @@ as the reference's do, and every sealed batch, the failed and requeued
 ones included, must linearize without a DX906; the seeded
 ack-before-commit reorder is convicted by the armed monitor (the
 reference's dynamic half; its static half, ``analysis/protocheck.py``,
-is not ported). Also the on-demand profiler hook (``obs/profiler.py``).
-The state-table cases (restart resumes state, the torn write) are in
-``test_torch_state.py``, against the JAX package. Not mirrored: the
-buffer sanitizer the reference also arms in its depth drills, which the
-port refuses by conf (``process.debug.buffersanitizer``, slice 7).
+is not ported). The depth drills also arm the buffer sanitizer
+(``process.debug.buffersanitizer``, runtime DX805) as the reference's
+do: through every failure and requeue, no released ingest matrix may
+surface in a landed table, so each drill ends with 0 poison hits. Also
+the on-demand profiler hook (``obs/profiler.py``). The state-table
+cases (restart resumes state, the torn write) are in
+``test_torch_state.py``, against the JAX package.
 """
 
 import functools
@@ -269,6 +271,10 @@ def _depth_host(tmp_path, depth):
         "datax.job.process.transform": str(t),
         "datax.job.process.batchcapacity": "4",
         "datax.job.process.pipeline.depth": str(depth),
+        # the buffer sanitizer rides every drill: crash/requeue churn at
+        # depth 2/4 is exactly where an escaped pooled view would
+        # surface, and the drills assert it stays silent
+        "datax.job.process.debug.buffersanitizer": "true",
         # the protocol monitor rides along: every sealed batch
         # (including the poisoned/requeued ones) must linearize to the
         # declared sink -> flip -> ack ordering
@@ -304,7 +310,13 @@ def _delivered_ks(blob):
 
 def _assert_protocol_held(host):
     """The armed monitor sealed batches and found no violation: no
-    DX906 event, no ``Protocol_Violation_Count``."""
+    DX906 event, no ``Protocol_Violation_Count``. The armed buffer
+    sanitizer poisoned released matrices and found no use of one: no
+    DX805 event."""
+    san = host.processor.buffer_sanitizer
+    assert san is not None and san.poison_count > 0
+    assert san.poison_hits == 0
+    assert san.drain_events() == []
     pm = host.protocol_monitor
     assert pm is not None and pm.batches_sealed > 0
     assert pm.violations == 0
