@@ -137,7 +137,27 @@ Phases, each printing JSON lines:
    peak over the first step, each within a stated band; the latency
    model under the card's calibrated profile beside the measured step;
    the analysis CLI ``--device --udfs --json`` on the main flow's gui
-   JSON, clean; ``lq_cache`` again, priced by the plan;
+   JSON, clean; ``lq_cache`` again, priced by the plan, now from a
+   64-row bucket up (the plan rounds a card's tensors to 512-byte
+   blocks); ``launchesPerStep`` (the step counted on ``meta``) beside
+   one profiled step's device activities, and the launch-priced
+   ``deviceStepMs`` (at or over the 1 ms floor) beside the measured
+   step; the race, protocol and conf gates over the port's own source
+   (no finding); ``--compile`` on the main flow at ``CAPACITY`` rows,
+   its manifest's transfer entries equal to the slots a processor booted
+   from it warms, and a host booted from it with no
+   ``Compile_WarmMiss_Count``; the fleet tier over the main, storm and
+   state flows' card plans on a one-card spec with the card's memory;
+   gen_conf also says whether DX520 judges ``device-step`` now;
+   chaos: the five drills of the JAX package's ``serve/scenarios.py``
+   (preemption mid-window, sink outage, hot-key skew, malformed flood,
+   rescale with state), pilot off and on, at depth 2 with the buffer
+   sanitizer and the protocol monitor armed, on card hosts: the main
+   flow plus an event-id witness at ``CAPACITY`` events a poll, the
+   accumulator flow at ``CAPACITY`` rows a batch. Each drill's events/s,
+   every event once, the per-event outputs against a CPU run of its
+   events, 0 poison hits and violations, the pilot's actuation and
+   ``anomaly_score``'s launches;
 10. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
@@ -156,6 +176,8 @@ import importlib.machinery
 import importlib.util
 import io
 import json
+import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -166,6 +188,7 @@ import warnings
 import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -2082,6 +2105,8 @@ def phase_gen_conf(nvidia_smi: str) -> dict:
         "hbm_peak_bytes": series("Hbm_PeakBytes"),
         "calib": {n: v[-1] for n, v in calib.items()},
         "stage_predictions": predictions,
+        "launches_per_step": host.launches_per_step(),
+        "device_step_judged": predictions.get("device-step", {}).get("judged", False),
         "stage_time_floor_ms": monitor.stage_time_floor_ms,
         "stage_time_band": monitor.stage_time_ratio_high,
         "allocated_at_phase_start_bytes": allocated_at_start,
@@ -2797,6 +2822,9 @@ LQ_CACHE_QUERY = (
     "FROM DataXProcessedInput_5seconds GROUP BY deviceId"
 )
 LQ_CACHE_ROWS = (16_385, 32_769, 65_537)
+# the smallest bucket (64 rows), where the allocator's 512-byte blocks
+# hold more than the bytes
+LQ_SMALL_ROWS = 60
 LQ_CACHE_BUDGET_MB = 9
 # the byte model against the allocator's growth across a build and first
 # execute: model / growth must fall in this band
@@ -3095,7 +3123,7 @@ def lq_designer(seed: int) -> dict:
         livequery.time = real_time
 
 
-def lq_cache() -> dict:
+def lq_cache(rows=LQ_CACHE_ROWS) -> dict:
     """The byte model and eviction: three signatures (row buckets) of a
     windowed query under ``LQ_CACHE_BUDGET_MB``, each acquired and run
     once as the coalescer's tick does, then settled. Each entry's price
@@ -3113,7 +3141,7 @@ def lq_cache() -> dict:
         device="cuda")
     try:
         entries, keys = [], []
-        for n in LQ_CACHE_ROWS:
+        for n in rows:
             sid = svc.create_session(f"c{n}", "ChipSmokeLQCache", LQ_SCHEMA,
                                      sample_rows=lq_rows(n))["id"]
             session = svc.sessions.get(sid)
@@ -3140,6 +3168,7 @@ def lq_cache() -> dict:
                     f"({entry.sized_by}) against {growth} B of growth")
             entries.append({
                 "row_bucket": sig.row_bucket, "rows": n, "model_bytes": entry.hbm_bytes,
+                "sized_by": entry.sized_by,
                 "allocated_growth": growth, "requested_growth": req_growth,
                 "model_over_growth": ratio, "build_and_first_execute_ms": build_ms,
                 "evicted": svc.cache.evictions - evicted0,
@@ -3472,6 +3501,135 @@ def run_analysis_cli(argv) -> tuple:
     return rc, out.getvalue(), err.getvalue()
 
 
+# the conformance monitor's defaults for judging a stage's time
+# (obs/conformance.py): a prediction under the floor is not judged, a
+# judged ratio past the band fires DX520
+STAGE_TIME_FLOOR_MS = 1.0
+STAGE_TIME_RATIO_HIGH = 10.0
+
+
+def plan_gates() -> dict:
+    """The race, protocol and conf gates over the port's own source: no
+    error and no dead conf row."""
+    from data_accelerator_tpu_torch.analysis import confcheck, protocheck, racecheck
+
+    race = racecheck.analyze_modules(racecheck.engine_module_paths())
+    proto = protocheck.analyze_proto_modules(protocheck.proto_module_paths())
+    conf = confcheck.analyze_conf_modules(confcheck.conf_module_paths())
+    out = {"race": {**race.race_dict(), "diagnostics": len(race.diagnostics)},
+           "protocol": {**proto.protocol_dict(), "diagnostics": len(proto.diagnostics)},
+           "conf": {**conf.conf_dict(), "diagnostics": len(conf.diagnostics)}}
+    for gate in out.values():
+        gate.pop("modules", None)
+    if race.diagnostics or proto.diagnostics or conf.diagnostics:
+        raise AssertionError(f"plan gates: {[d.render() for d in race.diagnostics]} "
+                             f"{[d.render() for d in proto.diagnostics]} "
+                             f"{[d.render() for d in conf.diagnostics]}")
+    return out
+
+
+def plan_compile(proc_conf: dict) -> dict:
+    """``--compile`` on the main flow's gui JSON at ``CAPACITY`` rows: its
+    manifest's transfer entries are the slots a card processor booted
+    from it warms, and a host booted from it (``runtime.host.main``,
+    local simulated input, ``CLI_BATCHES`` batches) reports no
+    ``Compile_WarmMiss_Count``."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.analysis.compilecheck import warmed_entries
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime import host as host_mod
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        flow, man = Path(tmp) / "main_flow.json", Path(tmp) / "manifest.json"
+        flow.write_text(json.dumps(main_flow_gui()))
+        rc, out, err = run_analysis_cli(["--compile", f"--manifest-out={man}", "--json",
+                                         str(flow)])
+        if rc != 0:
+            raise AssertionError(f"plan compile: exit {rc}: {err[-500:]}")
+        manifest = json.loads(man.read_text())
+        helpers = sorted({(e["entry"].split(":")[1], e["static"]["cap"])
+                          for e in manifest["entries"] if e["entry"] != "step"})
+        proc = FlowProcessor(SettingDictionary(dict(
+            proc_conf, **{"datax.job.process.compile.manifest": str(man)})))
+        warmed = warmed_entries(proc)
+        cold_ms = proc._drain_compile_stats().get("ColdStart_Ms")
+        del proc
+        conf = flow_conf()
+        conf.update({
+            "datax.job.name": CLI_FLOW + "Manifest",
+            "datax.job.input.default.eventhub.maxrate": str(CAPACITY),
+            "datax.job.process.batchcapacity": str(CAPACITY),
+            "datax.job.process.jar.udf.anomalyscore.class":
+                "data_accelerator_tpu_torch.udf.samples:anomalyscore",
+            "datax.job.process.compile.manifest": str(man),
+        })
+        for o in OUTPUTS:
+            conf[f"datax.job.output.{o}.console.maxrows"] = "0"
+        path = Path(tmp) / "flow.conf"
+        write_conf_file(path, conf)
+        with contextlib.redirect_stdout(LineCount()):
+            host = host_mod.main([f"conf={path}", f"batches={CLI_BATCHES}"])
+        store = host.metric_logger.store
+        key = f"DATAX-{CLI_FLOW}Manifest:"
+        miss = [float(p["val"]) for p in store.points(key + "Compile_WarmMiss_Count")] \
+            if key + "Compile_WarmMiss_Count" in store.keys(key) else []
+        booted = {"batches": host.batches_processed, "warmed": host.processor._aot_warmed,
+                  "compile_warm_miss_count": sum(miss)}
+        host.stop()
+        del host
+    out = {"entries": len(manifest["entries"]), "helpers": len(helpers),
+           "buckets": sorted({c for _o, c in helpers}),
+           "digest_backend": manifest.get("digestBackend"),
+           "warmed_slots": len(warmed), "manifest_equals_warm": helpers == warmed,
+           "processor_cold_start_ms": cold_ms, "host": booted,
+           "seconds": time.perf_counter() - t0}
+    if helpers != warmed or booted["compile_warm_miss_count"] or not booted["warmed"] \
+            or booted["batches"] != CLI_BATCHES:
+        raise AssertionError(f"plan compile: {out} manifest {helpers} warm {warmed}")
+    return out
+
+
+def plan_fleet() -> dict:
+    """The fleet tier over the main, storm and state flows' card
+    processors (each footprint the port's plan of that processor) on a
+    one-card spec with the card's memory: all three place, no error."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.analysis.deviceplan import analyze_processor
+    from data_accelerator_tpu_torch.analysis.fleetcheck import (
+        FleetSpec, FlowFootprint, analyze_fleet)
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    spec = FleetSpec(chips=1, device="cuda")
+    footprints = []
+    with tempfile.TemporaryDirectory() as tmp:
+        homes = str(Path(tmp) / "homes.csv")
+        write_homes_csv(homes)
+        confs = {"main": plan_conf(), "storm": storm_conf(tmp, homes_csv=homes),
+                 "state": state_conf(str(Path(tmp) / "state"))}
+        for name, conf in confs.items():
+            proc = FlowProcessor(SettingDictionary(conf))
+            t = analyze_processor(proc).totals()
+            footprints.append(FlowFootprint(
+                name=name, hbm_bytes=int(t["hbmBytes"]),
+                persistent_bytes=int(t["persistentBytes"]),
+                per_batch_bytes=int(t["perBatchBytes"]), flops=float(t["flops"]),
+                d2h_bytes_per_batch=int(t["d2hBytesPerBatch"])))
+            del proc
+            gc.collect()
+    report = analyze_fleet(footprints, spec)
+    out = {"spec": spec.to_dict(), "placement": report.placement.to_dict(spec),
+           "diagnostics": [d.render() for d in report.diagnostics],
+           "footprints": {fp.name: fp.hbm_bytes for fp in footprints}}
+    if not report.ok or not report.placement.feasible:
+        raise AssertionError(f"plan fleet: {out}")
+    return out
+
+
 def phase_plan(seed: int, nvidia_smi: str) -> dict:
     """The device plan of the main flow's card processor
     (``analyze_processor``) against what the card holds.
@@ -3541,12 +3699,20 @@ def phase_plan(seed: int, nvidia_smi: str) -> dict:
     launches = process_launches()
     profile = calibrate.get_profile(device="cuda")
     latency = report.latency_model(profile.to_dict(), "calibrated")
+    # the step's launches on meta against one profiled step's device
+    # activities (kernels and copies)
+    prof_step = profile_step(proc, proc.encode_columns(batches[1], CAPACITY),
+                             BASE_MS + 1000 * len(batches))
+    launch.reset_launches()
+    compile_gate = plan_compile(proc_conf=plan_conf())
     ratios = {
         "persistent_1slot_over_device_bytes": one_slot["persistentBytes"] / held,
         "persistent_1slot_over_growth": one_slot["persistentBytes"] / growth,
         "hbm_over_peak_growth": totals["hbmBytes"] / peak_growth,
     }
     del proc, raw
+    gates = plan_gates()
+    fleet = plan_fleet()
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "main_flow.json"
         path.write_text(json.dumps(main_flow_gui()))
@@ -3554,9 +3720,11 @@ def phase_plan(seed: int, nvidia_smi: str) -> dict:
     cli = json.loads(out) if out else {}
     gc.disable()
     try:
-        cache = lq_cache()
+        cache = lq_cache(rows=(LQ_SMALL_ROWS,) + LQ_CACHE_ROWS)
     finally:
         gc.enable()
+    step_pred = latency["totals"]["deviceStepMs"]
+    step_med = statistics.median(step_ms)
     line = {
         "phase": "plan", "seconds": time.perf_counter() - t0,
         "capacity": CAPACITY, "stages": len(report.stages),
@@ -3572,11 +3740,19 @@ def phase_plan(seed: int, nvidia_smi: str) -> dict:
                   "lq_cache": list(MODEL_BAND)},
         "latency_model": latency["totals"], "profile_source": latency["profileSource"],
         "measured_step_ms": step_ms,
+        "launches_per_step": report.launches_per_step,
+        "profiled_step": prof_step,
+        "device_step_ms_priced": step_pred,
+        "device_step_measured_over_priced": step_med / step_pred,
+        "device_step_over_floor": step_pred >= STAGE_TIME_FLOOR_MS,
+        "device_step_within_band": step_med / step_pred <= STAGE_TIME_RATIO_HIGH,
+        "gates": gates, "compile": compile_gate, "fleet": fleet,
         "cli": {"exit": rc, "diagnostics": cli.get("diagnostics"),
                 "stages": len((cli.get("device") or {}).get("stages") or []),
                 "stderr": err[-300:]},
         "lq_cache": [{k: e[k] for k in ("row_bucket", "model_bytes", "allocated_growth",
-                                        "model_over_growth")} for e in cache["entries"]],
+                                        "model_over_growth", "sized_by")}
+                     for e in cache["entries"]],
         "launches": launches, "card": nvidia_smi,
     }
     emit(line)
@@ -3593,6 +3769,9 @@ def phase_plan(seed: int, nvidia_smi: str) -> dict:
         raise AssertionError(f"plan: lq_cache outside {MODEL_BAND}: {line['lq_cache']}")
     if launches["anomaly_score"] != len(batches) or launches["dx305_double"]:
         raise AssertionError(f"plan launches: {launches}")
+    if step_pred < STAGE_TIME_FLOOR_MS:
+        raise AssertionError(f"plan: launch-priced deviceStepMs {step_pred} under the "
+                             f"{STAGE_TIME_FLOOR_MS} ms floor")
     return launches
 
 
@@ -3664,6 +3843,746 @@ def phase_profile(proc, cols, batch_time_ms) -> None:
     })
 
 
+# -- chaos drills: the JAX package's serve/scenarios.py chaos_* drills,
+# run against the port's StreamingHost. A ChaosFlow says what the host
+# runs and how a drill's event rows become bytes; the drills are the
+# reference's steps with every count a multiple of the flow's poll size.
+CHAOS_FAULTS = ("preemption", "sink-outage", "hot-key-skew", "malformed-flood",
+                "rescale-state")
+CHAOS_SCHEMA = json.dumps({"type": "struct", "fields": [
+    {"name": "k", "type": "long", "nullable": False, "metadata": {}},
+    {"name": "v", "type": "double", "nullable": False, "metadata": {}},
+    {"name": "seq", "type": "long", "nullable": False, "metadata": {}},
+]})
+CHAOS_TRANSFORM = (
+    "--DataXQuery--\n"
+    "Out = SELECT k, v, seq FROM DataXProcessedInput\n"
+    "--DataXQuery--\n"
+    "Hot = SELECT k, COUNT(*) AS c FROM DataXProcessedInput GROUP BY k\n"
+)
+CHAOS_STATE_TRANSFORM = (
+    "--DataXQuery--\n"
+    "merged = SELECT k, v FROM DataXProcessedInput "
+    "UNION ALL SELECT k, v FROM seen\n"
+    "--DataXQuery--\n"
+    "seen = SELECT k, MAX(v) AS v FROM merged GROUP BY k\n"
+    "--DataXQuery--\n"
+    "Out = SELECT k, v, seq FROM DataXProcessedInput\n"
+    "--DataXQuery--\n"
+    "Win = SELECT k, COUNT(*) AS c "
+    "FROM DataXProcessedInput_30seconds GROUP BY k\n"
+)
+CHAOS_STATE_KEYS = 8
+CHAOS_STATE_PARTS = 8
+# the card's drill flow: the main path (the alerting flow plus the
+# anomaly query) with an event id, and a witness output that carries it
+CHAOS_IOT_SCHEMA = json.dumps({
+    "type": "struct",
+    "fields": json.loads(IOT_SCHEMA)["fields"] + [
+        {"name": "seq", "type": "long", "nullable": False, "metadata": {}}],
+})
+CHAOS_MAIN_TRANSFORM = TRANSFORM + (
+    "--DataXQuery--\n"
+    "Out = SELECT deviceDetails.deviceId AS k, seq FROM DataXProcessedInput\n"
+)
+CHAOS_MAIN_OUTPUTS = OUTPUTS + ["Out"]
+
+
+@dataclass
+class ChaosFlow:
+    """What a drill's host runs. ``poll``: events a poll takes (the
+    reference's drills take 4); ``outputs``: every output, each given a
+    recording sink (``Out`` is the exactly-once witness); ``line``: one
+    event row ``{"k", "v", "seq"}`` as a JSON line; ``udfs``: the UDF
+    objects a host takes; ``device``: where the host runs."""
+
+    poll: int
+    capacity: int
+    schema: str
+    transform: str
+    outputs: list
+    line: object = None
+    udfs: object = None
+    device: str = "cuda"
+    extra: dict = None
+    # polls' worth of events a drill feeds, by fault, where it feeds
+    # fewer than the reference's drill
+    polls: dict = None
+
+    def events(self, fault: str, polls: int) -> int:
+        """The events drill ``fault`` feeds: ``polls`` polls' worth (the
+        reference's count) unless the flow cuts it."""
+        return (self.polls or {}).get(fault, polls) * self.poll
+
+    def payload(self, rows) -> bytes:
+        line = self.line or (lambda r: json.dumps(r))
+        return "".join(line(r) + "\n" for r in rows).encode()
+
+
+def chaos_small_flow(device: str = "cpu") -> ChaosFlow:
+    """The reference drills' own flow and sizes."""
+    return ChaosFlow(poll=4, capacity=8, schema=CHAOS_SCHEMA,
+                     transform=CHAOS_TRANSFORM, outputs=["Out", "Hot"],
+                     device=device)
+
+
+def iot_chaos_line(r) -> str:
+    """A drill row as a main-path IoT event: key ``k`` as the device,
+    the type, status and temperature from ``seq`` and ``v``."""
+    i = int(r["seq"])
+    return ('{"deviceDetails":{"deviceId":%d,"deviceType":"%s","homeId":150,'
+            '"status":%d,"temperature":%.3f},"seq":%d}'
+            % (int(r["k"]) + 1, DEVICE_TYPES[i % 3], (i // 3) % 2,
+               float(r["v"]) % 100.0, i))
+
+
+# the card's drills, cut to fit the smoke's time: preemption still dies at
+# its third dispatch, the skew still outlasts the pilot's
+# evaluation window
+CARD_CHAOS_POLLS = {"preemption": 5, "hot-key-skew": 4,
+                    "malformed-flood": 2}
+
+
+def chaos_main_flow(poll: int = CAPACITY, device: str = "cuda", udf=None,
+                    polls: dict = None) -> ChaosFlow:
+    """The main path as a drill flow, ``poll`` events a batch."""
+    return ChaosFlow(
+        poll=poll, capacity=poll, schema=CHAOS_IOT_SCHEMA, polls=polls,
+        transform=CHAOS_MAIN_TRANSFORM, outputs=list(CHAOS_MAIN_OUTPUTS),
+        line=iot_chaos_line, udfs={"anomalyscore": udf} if udf else None,
+        device=device, extra={
+            "datax.job.process.timestampcolumn": "eventTimeStamp",
+            "datax.job.process.watermark": "0 second",
+            "datax.job.process.timewindow.DataXProcessedInput_5seconds"
+            ".windowduration": "5 seconds",
+            "datax.job.process.projection": (
+                "current_timestamp() AS eventTimeStamp\nRaw.*"),
+        })
+
+
+def chaos_state_flow(poll: int = 4, device: str = "cpu") -> ChaosFlow:
+    """The rescale drill's stateful flow: a 30 s window ring and the
+    ``seen`` MAX accumulator on key-range partitions."""
+    return ChaosFlow(poll=poll, capacity=2 * poll, schema=CHAOS_SCHEMA,
+                     transform=CHAOS_STATE_TRANSFORM, outputs=["Out", "Win"],
+                     device=device)
+
+
+def chaos_events(lo: int, hi: int, keys: int = 4) -> list:
+    return [{"k": i % keys, "v": float(i), "seq": i} for i in range(lo, hi)]
+
+
+def _chaos_pilot_conf(conf: dict, pilot: bool, pilot_conf) -> None:
+    if pilot:
+        # tight loop knobs so evaluation windows elapse inside a drill
+        conf.update({
+            "datax.job.process.pilot.windowseconds": "0.02",
+            "datax.job.process.pilot.cooldownseconds": "0.02",
+            "datax.job.process.observability.stallewmams": "200",
+        })
+        for k, v in (pilot_conf or {}).items():
+            conf[f"datax.job.process.pilot.{k}"] = str(v)
+    else:
+        conf["datax.job.process.pilot.enabled"] = "false"
+
+
+def _chaos_host(ctx, conf: dict, flow: ChaosFlow, src=None):
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.pilot.chaos import RecordingSink
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+    from data_accelerator_tpu_torch.runtime.sources import SocketSource
+
+    src = src if src is not None else SocketSource(port=0)
+    host = StreamingHost(SettingDictionary(conf), source=src, udfs=flow.udfs,
+                         device=flow.device)
+    sinks = {}
+    for out in flow.outputs:
+        sinks[out] = RecordingSink()
+        host.dispatcher.operators[out].sinks = [sinks[out]]
+    ctx["host"], ctx["src"], ctx["sink"] = host, src, sinks["Out"]
+    ctx.setdefault("sinks", []).append(sinks["Out"])
+    ctx.setdefault("all_sinks", []).append(sinks)
+    ctx.setdefault("hosts", []).append(host)
+    ctx["tracefile"] = conf["datax.job.process.telemetry.tracefile"]
+    return host
+
+
+def build_chaos_host(ctx, name: str, pilot: bool, depth: int, flow: ChaosFlow,
+                     pilot_conf=None, reuse_source: bool = False):
+    """``serve/scenarios.py::_build_chaos_host`` for the port: one
+    socket-fed host with a recording sink on every output, the buffer
+    sanitizer and the protocol monitor armed."""
+    workdir = ctx["workdir"]
+    tpath = os.path.join(workdir, "chaos.transform")
+    if not os.path.exists(tpath):
+        with open(tpath, "w", encoding="utf-8") as f:
+            f.write(flow.transform)
+    conf = {
+        "datax.job.name": name,
+        "datax.job.input.default.blobschemafile": flow.schema,
+        "datax.job.input.default.eventhub.maxrate": str(flow.poll),
+        "datax.job.input.default.eventhub.checkpointdir": os.path.join(workdir, "ckpt"),
+        "datax.job.input.default.eventhub.checkpointinterval": "0 second",
+        "datax.job.input.default.streaming.intervalinseconds": "1",
+        "datax.job.process.transform": tpath,
+        "datax.job.process.batchcapacity": str(flow.capacity),
+        "datax.job.process.pipeline.depth": str(depth),
+        "datax.job.process.debug.buffersanitizer": "true",
+        "datax.job.process.debug.protocolmonitor": "true",
+        "datax.job.process.telemetry.tracefile": os.path.join(workdir, "trace.jsonl"),
+        **{f"datax.job.output.{o}.console.maxrows": "0" for o in flow.outputs},
+        **(flow.extra or {}),
+    }
+    _chaos_pilot_conf(conf, pilot, pilot_conf)
+    src = ctx["src"] if reuse_source and ctx.get("src") is not None else None
+    return _chaos_host(ctx, conf, flow, src)
+
+
+def build_stateful_host(ctx, name: str, pilot: bool, depth: int, flow: ChaosFlow,
+                        replica_index: int = 1, replica_count: int = 1, gen: int = 0,
+                        pilot_conf=None):
+    """``serve/scenarios.py::_build_stateful_host`` for the port: the
+    accumulator flow on ``CHAOS_STATE_PARTS`` partitions mirrored through
+    the drill's object store, fleet frames every batch; ``gen`` gives
+    each host instance its own directories."""
+    workdir = ctx["workdir"]
+    tpath = os.path.join(workdir, "state.transform")
+    if not os.path.exists(tpath):
+        with open(tpath, "w", encoding="utf-8") as f:
+            f.write(flow.transform)
+    hostdir = os.path.join(workdir, f"g{gen}-r{replica_index}")
+    conf = {
+        "datax.job.name": name,
+        "datax.job.input.default.blobschemafile": flow.schema,
+        "datax.job.input.default.eventhub.maxrate": str(flow.poll),
+        "datax.job.input.default.eventhub.checkpointdir": os.path.join(hostdir, "ckpt"),
+        "datax.job.input.default.eventhub.checkpointinterval": "0 second",
+        "datax.job.input.default.streaming.intervalinseconds": "1",
+        "datax.job.process.timestampcolumn": "ts",
+        "datax.job.process.watermark": "0 second",
+        "datax.job.process.transform": tpath,
+        "datax.job.process.batchcapacity": str(flow.capacity),
+        "datax.job.process.pipeline.depth": str(depth),
+        "datax.job.process.timewindow.DataXProcessedInput_30seconds"
+        ".windowduration": "30 seconds",
+        "datax.job.process.statetable.seen.schema": "k long, v double",
+        "datax.job.process.statetable.seen.location": os.path.join(hostdir, "state", "seen"),
+        "datax.job.process.state.partitions": str(CHAOS_STATE_PARTS),
+        "datax.job.process.state.partitionkey": "k",
+        "datax.job.process.state.replicaindex": str(replica_index),
+        "datax.job.process.state.replicacount": str(replica_count),
+        "datax.job.process.state.snapshoturl": ctx["store_url"],
+        "datax.job.process.state.filteringest": "true",
+        "datax.job.process.fleet.publishurl": ctx["store_url"],
+        "datax.job.process.fleet.windowseconds": "0",
+        "datax.job.process.fleet.replica": f"g{gen}-r{replica_index}",
+        "datax.job.process.debug.buffersanitizer": "true",
+        "datax.job.process.debug.protocolmonitor": "true",
+        "datax.job.process.telemetry.tracefile": os.path.join(workdir, "trace.jsonl"),
+        "datax.job.output.Out.console.maxrows": "0",
+        "datax.job.output.Win.console.maxrows": "0",
+    }
+    _chaos_pilot_conf(conf, pilot, pilot_conf)
+    return _chaos_host(ctx, conf, flow)
+
+
+def chaos_delivered(ctx) -> list:
+    return [seq for sink in ctx.get("sinks", []) for seq in sink.values("seq")]
+
+
+def chaos_rows(ctx, output: str = "Out") -> list:
+    """Every row the drill's hosts delivered to ``output``, in order."""
+    return [r for sinks in ctx.get("all_sinks", []) if output in sinks
+            for _t, rows in sinks[output].batches for r in rows]
+
+
+def _assert_exactly_once(ctx, n: int) -> None:
+    seqs = chaos_delivered(ctx)
+    if sorted(seqs) != list(range(n)):
+        raise AssertionError(
+            f"exactly-once violated: {len(seqs)} deliveries of {n} events; "
+            f"dupes/losses over {sorted(set(range(n)) ^ set(seqs))[:10]}")
+
+
+def _assert_pilot_reacted(ctx, action: str, host=None) -> None:
+    """The expected actuation fired, ``Pilot_Actuations_Count`` is
+    positive and a ``pilot/decide`` span records it."""
+    host = host if host is not None else ctx["host"]
+    if host.pilot is None:
+        raise AssertionError("pilot not armed")
+    applied = [d for d in ctx.get("applied_decisions", [])
+               if d.applied and d.action == action]
+    if not applied:
+        raise AssertionError(
+            f"no applied {action!r} actuation; decisions="
+            f"{[(d.rule, d.action, d.suppressed) for d in ctx.get('applied_decisions', [])]}")
+    pts = host.metric_logger.store.points(host.metric_logger.key("Pilot_Actuations_Count"))
+    if not pts or float(pts[-1]["val"]) <= 0:
+        raise AssertionError("Pilot_Actuations_Count not > 0")
+    with open(ctx["tracefile"], encoding="utf-8") as f:
+        spans = [json.loads(ln) for ln in f if '"pilot/decide"' in ln]
+    if not any(s.get("type") == "span" and s["properties"].get("applied")
+               and s["properties"].get("action") == action for s in spans):
+        raise AssertionError(f"no applied pilot/decide span for {action!r}")
+    ctx.setdefault("actuations", []).append(action)
+
+
+def _record_decisions(ctx, host):
+    collected = ctx.setdefault("applied_decisions", [])
+    pilot = host.pilot
+    if pilot is None:
+        return None
+    orig = pilot.evaluate
+
+    def evaluate(*a, **k):
+        ds = orig(*a, **k)
+        collected.extend(ds)
+        return ds
+
+    pilot.evaluate = evaluate
+    return orig
+
+
+def chaos_drain(ctx, host, expect_total: int, chunk: int = 4, timeout_s: float = 60.0):
+    """``serve/scenarios.py::_drain``: run the pipelined loop in chunks
+    until every expected event has landed, recording every pilot
+    decision; evaluate once directly if no window elapsed."""
+    orig = _record_decisions(ctx, host)
+    try:
+        deadline = time.time() + timeout_s
+        while len(chaos_delivered(ctx)) < expect_total:
+            host.run_pipelined(max_batches=host.batches_processed + chunk)
+            if time.time() > deadline:
+                raise AssertionError(f"drain timed out: {len(chaos_delivered(ctx))}/"
+                                     f"{expect_total} delivered")
+        if orig is not None and not any(d.applied for d in ctx["applied_decisions"]):
+            host.pilot.evaluate()
+    finally:
+        if orig is not None:
+            host.pilot.evaluate = orig
+
+
+def _feed(ctx, payload: bytes, n_lines: int, src=None) -> None:
+    from data_accelerator_tpu_torch.pilot.chaos import feed_socket
+
+    feed_socket(src if src is not None else ctx["src"], payload,
+                expect_events=n_lines, timeout_s=max(5.0, n_lines / 2e5))
+
+
+def drill_preemption(ctx, pilot, depth, flow):
+    from data_accelerator_tpu_torch.pilot.chaos import (
+        ChaosFault, PreemptionInjector, RecordingRescaler)
+    from data_accelerator_tpu_torch.pilot.controller import ScaleActuator
+
+    n = flow.events("preemption", 8)
+    name = "ChaosPreemptP" if pilot else "ChaosPreemptB"
+    pconf = {"maxdepth": depth, "saturationhigh": "0.5"}
+    build_chaos_host(ctx, name, pilot, depth, flow, pilot_conf=pconf)
+    ctx["event_rows"] = chaos_events(0, n)
+    _feed(ctx, flow.payload(ctx["event_rows"]), n)
+    inj = PreemptionInjector(kill_at_dispatch=3)
+    inj.arm(ctx["host"])
+    try:
+        ctx["host"].run_pipelined(max_batches=n // flow.poll)
+    except ChaosFault:
+        ctx["preempted"] = True
+    finally:
+        inj.disarm()
+        ctx["host"].stop(close_sources=False)
+    if not ctx.get("preempted"):
+        raise AssertionError("injector never fired")
+    ctx["src"].requeue_unacked()
+    host = build_chaos_host(ctx, name, pilot, depth, flow, pilot_conf=pconf,
+                            reuse_source=True)
+    if pilot and host.pilot is not None:
+        scaler = ctx["scaler"] = RecordingRescaler()
+        act = ScaleActuator(scaler, "ChaosPreempt", max_replicas=4)
+        for kind in act.kinds:
+            host.pilot.actuators[kind] = act
+    chaos_drain(ctx, host, n)
+    host.stop()
+    _assert_exactly_once(ctx, n)
+    if pilot:
+        _assert_pilot_reacted(ctx, "rescale-up")
+        if not (ctx["scaler"].calls and ctx["scaler"].calls[0] >= 2):
+            raise AssertionError(f"rescaler calls {ctx['scaler'].calls}")
+    return n
+
+
+def drill_sink_outage(ctx, pilot, depth, flow):
+    from data_accelerator_tpu_torch.pilot.chaos import ChaosFault, SinkOutageInjector
+
+    n = flow.events("sink-outage", 6)
+    build_chaos_host(ctx, "ChaosSinkP" if pilot else "ChaosSinkB", pilot, depth, flow,
+                     pilot_conf={"backloghigh": "2"})
+    ctx["event_rows"] = chaos_events(0, n)
+    _feed(ctx, flow.payload(ctx["event_rows"]), n)
+    inj = SinkOutageInjector(fail=True)
+    inj.arm(ctx["host"])
+    try:
+        ctx["host"].run_pipelined(max_batches=n // flow.poll)
+    except ChaosFault:
+        ctx["outage_hit"] = True
+    finally:
+        inj.disarm()
+    if not ctx.get("outage_hit"):
+        raise AssertionError("outage never hit a write")
+    ctx["src"].requeue_unacked()
+    inj = SinkOutageInjector(delay_s=0.08)
+    inj.arm(ctx["host"])
+    try:
+        chaos_drain(ctx, ctx["host"], n)
+    finally:
+        inj.disarm()
+        ctx["host"].stop()
+    _assert_exactly_once(ctx, n)
+    if pilot:
+        _assert_pilot_reacted(ctx, "backpressure")
+    return n
+
+
+def drill_hot_key_skew(ctx, pilot, depth, flow):
+    from data_accelerator_tpu_torch.pilot.chaos import DeviceSlowdownInjector, skewed_events
+
+    n = flow.events("hot-key-skew", 8)
+    build_chaos_host(ctx, "ChaosSkewP" if pilot else "ChaosSkewB", pilot, depth, flow,
+                     pilot_conf={"stallhighms": "20"})
+    ctx["event_rows"] = skewed_events(n, hot_key=0, hot_fraction=0.9)
+    _feed(ctx, flow.payload(ctx["event_rows"]), n)
+    inj = DeviceSlowdownInjector(extra_s=0.06)
+    inj.arm(ctx["host"])
+    try:
+        chaos_drain(ctx, ctx["host"], n)
+    finally:
+        inj.disarm()
+        ctx["host"].stop()
+    _assert_exactly_once(ctx, n)
+    if pilot:
+        _assert_pilot_reacted(ctx, "depth-down")
+        if ctx["host"].live_depth() >= depth:
+            raise AssertionError(f"depth still {ctx['host'].live_depth()}")
+    return n
+
+
+def drill_malformed_flood(ctx, pilot, depth, flow):
+    from data_accelerator_tpu_torch.pilot.chaos import malformed_payload
+
+    n = flow.events("malformed-flood", 4)
+    build_chaos_host(ctx, "ChaosFloodP" if pilot else "ChaosFloodB", pilot, depth, flow,
+                     pilot_conf={"malformedhigh": "0.3"})
+    ctx["event_rows"] = chaos_events(0, n)
+    payload = malformed_payload(ctx["event_rows"], flood_ratio=0.5)
+    if flow.line is not None:  # the same garbage lines around the flow's events
+        payload = b"\n".join(
+            flow.line(json.loads(ln)).encode() if ln.startswith(b'{"k": ') and
+            ln.endswith(b"}") else ln for ln in payload.split(b"\n")[:-1]) + b"\n"
+    _feed(ctx, payload, payload.count(b"\n"))
+    chaos_drain(ctx, ctx["host"], n)
+    ctx["host"].stop()
+    _assert_exactly_once(ctx, n)
+    if pilot:
+        _assert_pilot_reacted(ctx, "backpressure")
+    return n
+
+
+def _drain_remaining_payload(src) -> bytes:
+    src.requeue_unacked()
+    chunks = []
+    while True:
+        blob, n, _offsets = src.poll_raw(1 << 20)
+        if n == 0:
+            break
+        chunks.append(blob)
+    src.close()
+    return b"".join(chunks)
+
+
+def _drain_group(ctx, hosts, expect_total: int, chunk: int = 2, timeout_s: float = 120.0):
+    deadline = time.time() + timeout_s
+    while len(chaos_delivered(ctx)) < expect_total:
+        for h in hosts:
+            h.run_pipelined(max_batches=h.batches_processed + chunk)
+        if time.time() > deadline:
+            raise AssertionError(f"group drain timed out: {len(chaos_delivered(ctx))}/"
+                                 f"{expect_total} delivered")
+
+
+def _loaded_state_map(host) -> dict:
+    t = host.processor.state_tables["seen"].load(host.processor.dictionary)
+    cols = {c: np.asarray(v.cpu()) for c, v in t.cols.items()}
+    return {int(k): float(v) for k, v, ok in zip(cols["k"], cols["v"],
+                                                 np.asarray(t.valid.cpu())) if ok}
+
+
+def _state_max(hi: int) -> dict:
+    """Each key's MAX(v) over events 0..hi-1 (``v`` is the event id)."""
+    return {k: float(max(i for i in range(hi) if i % CHAOS_STATE_KEYS == k))
+            for k in range(CHAOS_STATE_KEYS)}
+
+
+def drill_rescale_state(ctx, pilot, depth, flow):
+    """``serve/scenarios.py::chaos_rescale_with_state``: a stateful host
+    rescaled mid-window to two replicas with every active state snapshot
+    corrupted in the store, then back to one, then a generation killed
+    without a drain; the lineage delivers every event once and the
+    fleet view conserves it."""
+    from data_accelerator_tpu_torch.obs.fleetview import FleetView
+    from data_accelerator_tpu_torch.pilot.chaos import (
+        PartitionLossInjector, RecordingRescaler)
+    from data_accelerator_tpu_torch.pilot.controller import ScaleActuator
+    from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreServer
+
+    b = flow.poll
+    n_pre, n_tail, n_kill = 6 * b, 2 * b, b
+    name = "RescaleStateP" if pilot else "RescaleStateB"
+    store = ObjectStoreServer(port=0).start()
+    try:
+        ctx["store_url"] = (f"objstore://127.0.0.1:{store.port}/chaos/"
+                            f"rescale-{'p' if pilot else 'b'}-d{depth}")
+        pre = build_stateful_host(ctx, name, pilot, depth, flow, gen=0,
+                                  pilot_conf={"maxdepth": depth, "saturationhigh": "0.5"})
+        _feed(ctx, flow.payload(chaos_events(0, n_pre, CHAOS_STATE_KEYS)), n_pre)
+        orig = None
+        if pilot and pre.pilot is not None:
+            scaler = ctx["scaler"] = RecordingRescaler()
+            act = ScaleActuator(scaler, "RescaleState", max_replicas=4)
+            for kind in act.kinds:
+                pre.pilot.actuators[kind] = act
+            orig = _record_decisions(ctx, pre)
+        pre.run_pipelined(max_batches=pre.batches_processed + 3)
+        if orig is not None:
+            if not any(d.applied and d.action == "rescale-up"
+                       for d in ctx["applied_decisions"]):
+                pre.pilot.evaluate()
+            pre.pilot.evaluate = orig
+        pre_delivered = len(chaos_delivered(ctx))
+        if not 0 < pre_delivered < n_pre:
+            raise AssertionError(f"predecessor delivered {pre_delivered}")
+        pre.stop(close_sources=False)
+        inj = PartitionLossInjector(store_url=ctx["store_url"], table="seen",
+                                    mode="truncate")
+        if not inj.corrupt():
+            raise AssertionError("no active state snapshots to corrupt")
+        payload = _drain_remaining_payload(ctx["src"])
+        b1 = build_stateful_host(ctx, name, False, depth, flow, 1, 2, gen=1)
+        src1 = ctx["src"]
+        b2 = build_stateful_host(ctx, name, False, depth, flow, 2, 2, gen=1)
+        src2 = ctx["src"]
+        for h in (b1, b2):
+            if h.window_restored_from != "partitions":
+                raise AssertionError(f"window from {h.window_restored_from}")
+        fallbacks = sum(h.processor.state_stats.get("LoadFallback_Count", 0)
+                        for h in (b1, b2))
+        if fallbacks < 1:
+            raise AssertionError("corruption never hit the loaders")
+        n_lines = payload.count(b"\n")
+        if n_lines:
+            _feed(ctx, payload, n_lines, src1)
+            _feed(ctx, payload, n_lines, src2)
+        _drain_group(ctx, [b1, b2], n_pre)
+        for h in (b1, b2):
+            h.stop()
+        _assert_exactly_once(ctx, n_pre)
+        merged = {}
+        for h in (b1, b2):
+            merged.update(_loaded_state_map(h))
+        if merged != _state_max(n_pre):
+            raise AssertionError(f"state diverged: {merged}")
+        c = build_stateful_host(ctx, name, False, depth, flow, 1, 1, gen=2)
+        if c.window_restored_from != "partitions":
+            raise AssertionError(f"scale-down window from {c.window_restored_from}")
+        _feed(ctx, flow.payload(chaos_events(n_pre, n_pre + n_tail, CHAOS_STATE_KEYS)),
+              n_tail)
+        _drain_group(ctx, [c], n_pre + n_tail)
+        c.stop()
+        _assert_exactly_once(ctx, n_pre + n_tail)
+        if _loaded_state_map(c) != _state_max(n_pre + n_tail):
+            raise AssertionError(f"final state diverged: {_loaded_state_map(c)}")
+        d = build_stateful_host(ctx, name, False, depth, flow, 1, 1, gen=3)
+        total = n_pre + n_tail + n_kill
+        _feed(ctx, flow.payload(chaos_events(n_pre + n_tail, total, CHAOS_STATE_KEYS)),
+              n_kill)
+        _drain_group(ctx, [d], total)
+        if d.fleet_publisher is None or d.fleet_publisher.frames_published < 1:
+            raise AssertionError("killed replica never published a frame")
+        d.fleet_publisher.kill()
+        d.stop()
+        view = FleetView(url=ctx["store_url"], now_fn=lambda: time.time() + 60.0)
+        if view.refresh() < 5:
+            raise AssertionError("fewer frames than replicas")
+        reps = view.fleet_metrics(name)["replicas"]
+        if set(reps) != {"g0-r1", "g1-r1", "g1-r2", "g2-r1", "g3-r1"}:
+            raise AssertionError(f"lineage not continuous: {sorted(reps)}")
+        audit = view.audit(name, output="Out")
+        counts = audit["counts"]
+        if (counts.get("DX540", 0), counts.get("DX541", 0), counts.get("DX542", 0)) \
+                != (0, 0, 1) or not audit["conserved"] or audit["ingested"] != total \
+                or audit["emitted"].get("Out") != total:
+            raise AssertionError(f"fleet audit: {audit}")
+        stale = [r for r, st in reps.items() if st["status"] == "stale"]
+        if stale != ["g3-r1"]:
+            raise AssertionError(f"stale replicas {stale}")
+        if pilot:
+            ctx["host"] = pre
+            _assert_pilot_reacted(ctx, "rescale-up", host=pre)
+            if not (ctx["scaler"].calls and ctx["scaler"].calls[0] >= 2):
+                raise AssertionError(f"rescaler calls {ctx['scaler'].calls}")
+        return total
+    finally:
+        store.stop()
+
+
+def chaos_cpu_replay(flow: ChaosFlow, rows, outputs=None) -> dict:
+    """The drill flow's ``outputs`` (default: all) for event ``rows`` on
+    a CPU processor, a poll's worth a batch: the plain reference for
+    every output whose rows do not depend on where batches break."""
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    conf = {"datax.job.name": "ChaosReplay",
+            "datax.job.input.default.blobschemafile": flow.schema,
+            "datax.job.process.transform": flow.transform,
+            "datax.job.process.batchcapacity": str(flow.capacity),
+            **(flow.extra or {})}
+    udfs = None
+    if flow.udfs:
+        from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+        udfs = {"anomalyscore": anomalyscore()}
+    outputs = list(outputs or flow.outputs)
+    proc = FlowProcessor(SettingDictionary(conf), output_datasets=outputs,
+                         udfs=udfs, device="cpu")
+    out = {o: [] for o in outputs}
+    for b, lo in enumerate(range(0, len(rows), flow.poll)):
+        t_ms = BASE_MS + 1000 * b
+        raw = proc.encode_json_bytes(flow.payload(rows[lo:lo + flow.poll]), t_ms)
+        datasets, _metrics = proc.dispatch_batch(raw, t_ms).collect()
+        for o in outputs:
+            out[o].extend(datasets.get(o, []))
+    return out
+
+
+def same_multiset(got, want, what, rtol=1e-5) -> None:
+    """Equal row multisets (time columns left out): ints exactly, floats
+    within ``rtol``."""
+    def key(r):
+        return tuple(sorted((c, v) for c, v in r.items() if c != "eventTimeStamp"))
+
+    g, w = sorted(map(key, got)), sorted(map(key, want))
+    if len(g) != len(w):
+        raise AssertionError(f"{what}: {len(g)} rows against {len(w)}")
+    for a, b in zip(g, w):
+        for (ca, va), (cb, vb) in zip(a, b):
+            if ca != cb or (va != vb and not (
+                    isinstance(va, float) and abs(va - vb) <= rtol * max(abs(vb), 1e-30))):
+                raise AssertionError(f"{what}: row {a} against {b}")
+
+
+CHAOS_DRILLS = {
+    "preemption": drill_preemption,
+    "sink-outage": drill_sink_outage,
+    "hot-key-skew": drill_hot_key_skew,
+    "malformed-flood": drill_malformed_flood,
+    "rescale-state": drill_rescale_state,
+}
+
+
+def run_chaos_drill(fault: str, pilot: bool, workdir: str, flow: ChaosFlow,
+                    depth: int = 2) -> dict:
+    """One drill on the port's host: ``fault`` at pipeline depth
+    ``depth``, the pilot on or off. Raises when an event is lost or
+    duplicated, a sanitizer poison hit or a protocol violation shows,
+    the monitor sealed no batch, or (pilot on) the expected actuation
+    did not fire. Returns the drill's context (``hosts``, ``sinks``,
+    ``actuations``) with ``events`` and ``seconds``."""
+    ctx = {"workdir": workdir}
+    logging.disable(logging.ERROR)
+    t0 = time.perf_counter()
+    try:
+        ctx["events"] = CHAOS_DRILLS[fault](ctx, pilot, depth, flow)
+    finally:
+        logging.disable(logging.NOTSET)
+    ctx["seconds"] = time.perf_counter() - t0
+    hits = sum(h.processor.buffer_sanitizer.poison_hits for h in ctx["hosts"])
+    violations = sum(h.protocol_monitor.violations for h in ctx["hosts"])
+    sealed = sum(h.protocol_monitor.batches_sealed for h in ctx["hosts"])
+    if hits or violations or not sealed:
+        raise AssertionError(f"{fault}: {hits} poison hits, {violations} protocol "
+                             f"violations, {sealed} batches sealed")
+    if pilot and not ctx.get("actuations"):
+        raise AssertionError(f"{fault}: the pilot did not act")
+    if not pilot and any(h.pilot is not None for h in ctx["hosts"]):
+        raise AssertionError(f"{fault}: a pilot ran with the pilot off")
+    ctx.update(poison_hits=hits, protocol_violations=violations, batches_sealed=sealed)
+    return ctx
+
+
+def phase_chaos(nvidia_smi: str, udf) -> dict:
+    """The five drills, pilot off and on, against card hosts at depth 2
+    with the buffer sanitizer and the protocol monitor armed: the main
+    flow (the alerting flow, the anomaly query, an event-id witness) at
+    ``CAPACITY`` events a poll for preemption, sink outage, hot-key skew
+    and malformed flood; the accumulator flow at ``CAPACITY`` rows a
+    batch for the rescale with state. Each drill prints its events/s,
+    its exactly-once witness, the rows of the main flow's per-event
+    outputs against a CPU run of the drill's events, poison hits,
+    protocol violations, actuations and ``anomaly_score``'s launches.
+    Returns each kernel's launches over all drills."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.kernels import launch
+
+    main = chaos_main_flow(poll=CAPACITY, device="cuda", udf=udf,
+                           polls=CARD_CHAOS_POLLS)
+    state = chaos_state_flow(poll=CAPACITY // 2, device="cuda")
+    replays: dict = {}
+    total = {name: 0 for name in KERNEL_NAMES}
+    for fault in CHAOS_FAULTS:
+        flow = state if fault == "rescale-state" else main
+        for pilot in (False, True):
+            reset_launch_counts(udf)
+            torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                ctx = run_chaos_drill(fault, pilot, tmp, flow)
+            torch.cuda.synchronize()
+            launches = process_launches()
+            witness = chaos_rows(ctx)
+            line = {
+                "phase": "chaos", "fault": fault, "pilot": pilot,
+                "poll": flow.poll, "capacity": flow.capacity, "events": ctx["events"],
+                "seconds": ctx["seconds"], "events_per_s": ctx["events"] / ctx["seconds"],
+                "hosts": len(ctx["hosts"]),
+                "exactly_once": sorted(r["seq"] for r in witness) == list(range(ctx["events"])),
+                "witness_rows": len(witness),
+                "poison_hits": ctx["poison_hits"],
+                "protocol_violations": ctx["protocol_violations"],
+                "batches_sealed": ctx["batches_sealed"],
+                "actuations": ctx.get("actuations", []),
+                "pilot_actuations_count": sum(h.pilot.actuations_count for h in ctx["hosts"]
+                                              if h.pilot is not None),
+                "launches_by_path": launches,
+            }
+            if flow is main:
+                key = fault
+                if key not in replays:
+                    replays[key] = chaos_cpu_replay(main, ctx["event_rows"],
+                                                    ("OpenDoors", "AnomalyAlerts"))
+                rows = {}
+                for out in ("OpenDoors", "AnomalyAlerts"):
+                    same_multiset(chaos_rows(ctx, out), replays[key][out], f"chaos {out}")
+                    rows[out] = len(replays[key][out])
+                line["cpu_replay_rows"] = rows
+                if launches["anomaly_score"] < 1:
+                    raise AssertionError(f"chaos {fault}: no anomaly_score launch")
+            line["card"] = nvidia_smi
+            emit(line)
+            for name, n in launches.items():
+                total[name] += n
+            del ctx, witness
+            gc.collect()
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3713,6 +4632,8 @@ def main(argv=None) -> int:
     # planned processor launch anomaly_score
     slice_launches["debug"] = phase_debug(args.seed, nvidia_smi, host_events_per_s)
     slice_launches["plan"] = phase_plan(args.seed, nvidia_smi)
+    # the chaos drills: the main path's host under five faults
+    slice_launches["chaos"] = phase_chaos(nvidia_smi, udf)
     # each path's own launches, its counts set to 0 just before it
     by_path = {
         "anomaly_score": {"flow": launches["anomaly_score"],

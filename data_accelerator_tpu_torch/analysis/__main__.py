@@ -1,7 +1,10 @@
 """Flow static analyzer CLI.
 
     python -m data_accelerator_tpu_torch.analysis flow.json [flow2.json ...]
-        [--json] [--device] [--chips=1] [--udfs] [--all]
+        [--json] [--device] [--chips=1] [--udfs]
+        [--fleet] [--fleet-spec=spec.json] [--fleet-device=cuda|cpu]
+        [--compile] [--manifest=m.json] [--manifest-out=m.json]
+        [--race] [--protocol] [--conf] [--all]
 
 Each argument is a flow config file: either a designer gui JSON or a
 full flow document (``{"gui": {...}}``). Prints one line per diagnostic
@@ -23,21 +26,43 @@ every declared UDF/UDAF resolves through the production loader and its
 device functions' ASTs are abstract-interpreted under a taint lattice,
 emitting the DX3xx lints. Same exit contract.
 
-``--all`` runs every ported tier (semantic + device + udfs) with one
-merged ``--json`` report, and names on stderr the tiers it left out.
-The JAX package's other tiers are not ported yet: ``--compile``,
-``--race``, ``--protocol``, ``--conf`` and ``--fleet`` (slice 7b) and
-``--mesh`` (slice 8) exit 2 naming their slice, as do their value
-flags (``--manifest=``, ``--manifest-out=``, ``--fleet-spec=``).
+``--fleet`` runs the fleet tier (``analysis/fleetcheck.py``) over ALL
+given flows AS A SET: first-fit-decreasing placement of each flow's
+device-plan bytes onto the fleet's cards plus the DX4xx capacity and
+interference lints. ``--fleet-spec=<file.json>`` sets the fleet (keys:
+chips, hbmPerChipBytes, headroomFraction, d2hBytesPerSecPerChip,
+iciBytesPerSecPerChip, iciTopology); what it leaves unset is the
+machine's: the cards present and a card's memory, or with
+``--fleet-device=cpu`` one device of ``CPU_DEVICE_MEMORY_BYTES``.
+Without a card and without those keys it exits 2.
+
+``--compile`` runs the compile-surface tier (``analysis/compilecheck.py``):
+every entry point the flow dispatches (the step and one transfer
+helper per output x capacity bucket: what ``FlowProcessor._aot_warm``
+warms) with its signature, evaluated on ``meta``, the DX600 lint, and
+the compile manifest (in ``--json`` under ``compile.manifest``;
+``--manifest-out=<file>`` writes it, single flow only).
+``--manifest=<file>`` checks a manifest for drift (DX602/DX603; digests
+only against a manifest of the same digest backend).
+
+``--race``, ``--protocol`` and ``--conf`` run the engine gates over the
+port's own source: buffer lifetime and locksets (``analysis/racecheck.py``,
+DX80x), the exactly-once delivery ordering (``analysis/protocheck.py``,
+DX90x) and the configuration lattice (``analysis/confcheck.py``, DX10xx,
+plus this flow's knob values). Cached per engine-source state.
+
+``--all`` runs every ported tier (semantic, device, udfs, fleet,
+compile, race, protocol, conf) with one merged ``--json`` report, and
+names on stderr the tier it left out: ``--mesh`` (multi-GPU slice 8),
+which exits 2 naming its slice.
 
 Unknown ``--`` flags are rejected with exit 2 (a typo like ``--devcie``
 must not silently skip a tier and report a false clean pass).
 
 Exit codes: 0 clean (warnings allowed) · 1 errors found · 2 usage/IO.
 
-Copy of the JAX package's ``analysis/__main__.py`` trimmed to the
-ported tiers; the report dicts and the 0/1/2 contract are the
-reference's.
+Copy of the JAX package's ``analysis/__main__.py`` without the mesh
+tier; the report dicts and the 0/1/2 contract are the reference's.
 """
 
 from __future__ import annotations
@@ -90,21 +115,74 @@ def _print_device_plan(path: str, device) -> None:
         print(line)
 
 
+def _print_fleet_plan(fleet) -> None:
+    spec = fleet.spec
+    plan = fleet.placement
+    state = "feasible" if plan.feasible else "INFEASIBLE"
+    print(
+        f"fleet: {len(fleet.footprints)} flow(s) on {spec.chips} card(s) "
+        f"x {_fmt_bytes(spec.hbm_per_chip_bytes)} "
+        f"({spec.ici_topology}): {state}"
+    )
+    for chip in plan.chips:
+        if not chip.flows:
+            continue
+        util = chip.utilization(spec)
+        print(
+            f"fleet:   card {chip.chip}: {', '.join(chip.flows)} — "
+            f"{_fmt_bytes(chip.hbm_bytes)} ({util:.1%} used, "
+            f"headroom {1 - util:.1%})"
+        )
+    for name in plan.oversized:
+        print(f"fleet:   oversized (no card fits): {name}")
+    for name in plan.unplaced:
+        print(f"fleet:   unplaced (fleet oversubscribed): {name}")
+    for name in plan.unanalyzed:
+        print(f"fleet:   unanalyzed (no device footprint): {name}")
+
+
+def _print_gates(path: str, comp, race, protocol, conf) -> None:
+    if comp is not None and comp.entries:
+        cd = comp.compile_dict()
+        print(
+            f"{path}: compile surface: {cd['entries']} entries "
+            f"(1 step + {cd['helperEntries']} transfer-helper "
+            f"over buckets {cd['buckets']}), "
+            f"{'stable' if cd['stable'] else 'OPEN'}, "
+            f"digests {cd['digestBackend']}"
+        )
+    if race is not None:
+        rd = race.race_dict()
+        print(
+            f"{path}: race gate: {rd['analyzedFiles']} engine "
+            f"module(s) analyzed, {rd['allowedZeroCopySites']} pinned "
+            f"zero-copy site(s), {rd['ownerHandoffSites']} owner handoff(s)"
+        )
+    if protocol is not None:
+        pd = protocol.protocol_dict()
+        print(
+            f"{path}: protocol gate: {pd['analyzedFiles']} "
+            f"engine module(s) analyzed, {pd['effectEvents']} effect "
+            f"event(s), {pd['postCommitSites']} pinned post-commit "
+            f"site(s), {pd['requeueUpstreamSites']} requeue-upstream site(s)"
+        )
+    if conf is not None:
+        cf = conf.conf_dict()
+        print(
+            f"{path}: conf gate: {cf['analyzedFiles']} module(s) scanned, "
+            f"{cf['readSites']} read site(s) / {cf['readKeys']} key(s), "
+            f"{cf['producedKeys']} produced key(s), "
+            f"{cf['registryKeys']} registry row(s)"
+        )
+
+
 # flags the CLI understands; anything else --prefixed is a usage error
-KNOWN_FLAGS = {"--json", "--device", "--udfs", "--all"}
-# the JAX package's tiers this port has not ported yet, by the slice
-# that brings them
+KNOWN_FLAGS = {"--json", "--device", "--udfs", "--fleet", "--compile",
+               "--race", "--protocol", "--conf", "--all"}
+# the JAX package's tier this port has not ported yet, by the slice that
+# brings it
 UNPORTED_FLAGS = {
-    "--compile": "slice 7b (analysis/compilecheck.py)",
-    "--race": "slice 7b (analysis/racecheck.py)",
-    "--protocol": "slice 7b (analysis/protocheck.py)",
-    "--conf": "slice 7b (analysis/confcheck.py)",
-    "--fleet": "slice 7b (analysis/fleetcheck.py)",
     "--mesh": "multi-GPU slice 8 (analysis/meshcheck.py)",
-}
-UNPORTED_VALUE_FLAGS = {
-    "--manifest=": "--compile", "--manifest-out=": "--compile",
-    "--fleet-spec=": "--fleet",
 }
 
 
@@ -113,7 +191,16 @@ def main(argv: List[str]) -> int:
     all_tiers = "--all" in argv
     device_tier = "--device" in argv or all_tiers
     udf_tier = "--udfs" in argv or all_tiers
+    fleet_tier = "--fleet" in argv or all_tiers
+    compile_tier = "--compile" in argv or all_tiers
+    race_tier = "--race" in argv or all_tiers
+    protocol_tier = "--protocol" in argv or all_tiers
+    conf_tier = "--conf" in argv or all_tiers
     chips: Optional[int] = None
+    fleet_spec_path: Optional[str] = None
+    fleet_device = "cuda"
+    manifest_path: Optional[str] = None
+    manifest_out: Optional[str] = None
     for a in argv:
         if not a.startswith("--") or a in KNOWN_FLAGS:
             continue
@@ -125,38 +212,74 @@ def main(argv: List[str]) -> int:
             except ChipCountError as e:
                 print(str(e), file=sys.stderr)
                 return 2
-            continue
-        tier = UNPORTED_FLAGS.get(a) or next(
-            (UNPORTED_FLAGS[t] for p, t in UNPORTED_VALUE_FLAGS.items()
-             if a.startswith(p)), None,
-        )
-        if tier is not None:
+        elif a.startswith("--fleet-spec="):
+            fleet_spec_path = a.split("=", 1)[1]
+        elif a.startswith("--fleet-device="):
+            fleet_device = a.split("=", 1)[1]
+        elif a.startswith("--manifest="):
+            manifest_path = a.split("=", 1)[1]
+        elif a.startswith("--manifest-out="):
+            manifest_out = a.split("=", 1)[1]
+        elif a in UNPORTED_FLAGS:
             print(
                 f"{a}: this tier is not ported to data_accelerator_tpu_torch "
-                f"yet ({tier})", file=sys.stderr,
+                f"yet ({UNPORTED_FLAGS[a]})", file=sys.stderr,
             )
             return 2
-        print(f"unknown flag: {a}", file=sys.stderr)
-        print(__doc__.strip(), file=sys.stderr)
-        return 2
+        else:
+            print(f"unknown flag: {a}", file=sys.stderr)
+            print(__doc__.strip(), file=sys.stderr)
+            return 2
     paths = [a for a in argv if not a.startswith("--")]
     if not paths:
         print(__doc__.strip(), file=sys.stderr)
         return 2
+    if manifest_out and len(paths) > 1:
+        print("--manifest-out accepts a single flow", file=sys.stderr)
+        return 2
     if all_tiers:
         print(
-            "--all ran the ported tiers (semantic, device, udfs); not "
-            "ported yet: " + ", ".join(
+            "--all ran the ported tiers (semantic, device, udfs, fleet, "
+            "compile, race, protocol, conf); not ported yet: " + ", ".join(
                 f"{f} ({t})" for f, t in UNPORTED_FLAGS.items()
             ), file=sys.stderr,
         )
 
     from .analyzer import analyze_flow
+    from .compilecheck import analyze_flow_compile
+    from .confcheck import analyze_flow_conf
     from .deviceplan import analyze_flow_device, combined_report_dict
+    from .diagnostics import REPORT_SCHEMA_VERSION
+    from .protocheck import analyze_flow_protocol
+    from .racecheck import analyze_flow_race
     from .udfcheck import analyze_flow_udfs
+
+    shipped_manifest = None
+    if manifest_path is not None:
+        try:
+            with open(manifest_path, "r", encoding="utf-8") as f:
+                shipped_manifest = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"{manifest_path}: cannot read manifest: {e}", file=sys.stderr)
+            return 2
+
+    fleet_spec = None
+    if fleet_tier:
+        from .fleetcheck import FleetSpec, load_fleet_spec
+
+        try:
+            fleet_spec = (
+                load_fleet_spec(fleet_spec_path, device=fleet_device)
+                if fleet_spec_path is not None else FleetSpec(device=fleet_device)
+            )
+        except (OSError, ValueError, KeyError, RuntimeError) as e:
+            print(f"{fleet_spec_path or '--fleet'}: cannot read fleet spec: {e}",
+                  file=sys.stderr)
+            return 2
 
     any_errors = False
     json_out = []
+    flows: List[dict] = []
     for path in paths:
         try:
             with open(path, "r", encoding="utf-8") as f:
@@ -164,6 +287,7 @@ def main(argv: List[str]) -> int:
         except (OSError, ValueError) as e:
             print(f"{path}: cannot read flow config: {e}", file=sys.stderr)
             return 2
+        flows.append(flow)
         report = analyze_flow(flow)
         try:
             device = (
@@ -173,23 +297,32 @@ def main(argv: List[str]) -> int:
             print(f"{path}: {e}", file=sys.stderr)
             return 2
         udfs = analyze_flow_udfs(flow) if udf_tier else None
-        any_errors |= not report.ok
-        if device is not None:
-            any_errors |= not device.ok
-        if udfs is not None:
-            any_errors |= not udfs.ok
+        comp = (
+            analyze_flow_compile(flow, manifest=shipped_manifest)
+            if compile_tier else None
+        )
+        race = analyze_flow_race(flow) if race_tier else None
+        protocol = analyze_flow_protocol(flow) if protocol_tier else None
+        conf = analyze_flow_conf(flow) if conf_tier else None
+        tiers = [t for t in (report, device, udfs, comp, race, protocol, conf)
+                 if t is not None]
+        any_errors |= not all(t.ok for t in tiers)
+        if comp is not None and manifest_out and comp.manifest is not None:
+            with open(manifest_out, "w", encoding="utf-8") as f:
+                json.dump(comp.manifest, f, indent=1)
         if as_json:
-            if device is not None or udfs is not None:
+            if len(tiers) > 1:
                 json_out.append({
                     "file": path,
-                    **combined_report_dict(report, device, udfs),
+                    **combined_report_dict(
+                        report, device, udfs, compile_surface=comp,
+                        race=race, protocol=protocol, conf=conf,
+                    ),
                 })
             else:
                 json_out.append({"file": path, **report.to_dict()})
         else:
-            diags = list(report.diagnostics) + (
-                list(device.diagnostics) if device is not None else []
-            ) + (list(udfs.diagnostics) if udfs is not None else [])
+            diags = [d for t in tiers for d in t.diagnostics]
             for d in diags:
                 print(f"{path}: {d.render()}")
             n_e = len([d for d in diags if d.is_error])
@@ -205,10 +338,31 @@ def main(argv: List[str]) -> int:
                         f"{u.kind or 'unloadable'} ({u.path}) "
                         f"analyzed={roles}"
                     )
+            _print_gates(path, comp, race, protocol, conf)
+
+    fleet = None
+    if fleet_tier:
+        from .fleetcheck import analyze_fleet_flows
+
+        fleet = analyze_fleet_flows(flows, spec=fleet_spec)
+        any_errors |= not fleet.ok
+        if not as_json:
+            for d in fleet.diagnostics:
+                print(f"fleet: {d.render()}")
+            print(f"fleet: {len(fleet.errors)} error(s), "
+                  f"{len(fleet.warnings)} warning(s)")
+            _print_fleet_plan(fleet)
 
     if as_json:
-        print(json.dumps(json_out if len(json_out) > 1 else json_out[0],
-                         indent=2))
+        if fleet is not None:
+            print(json.dumps({
+                "schemaVersion": REPORT_SCHEMA_VERSION,
+                "files": json_out,
+                **fleet.to_dict(),
+            }, indent=2))
+        else:
+            print(json.dumps(json_out if len(json_out) > 1 else json_out[0],
+                             indent=2))
     return 1 if any_errors else 0
 
 

@@ -34,10 +34,18 @@ decision.
 
 Copy of the JAX package's ``analysis/confspec.py`` with the same rows,
 so the port's boot audit judges a conf exactly as the JAX host does.
-Trimmed: the ``CONF.md`` renderer and its ``__main__`` (the static
-``--conf`` tier, ``analysis/confcheck.py``, is not ported). The rows
+Trimmed: the ``CONF.md`` renderer and its ``__main__``. The rows
 describe the keys by their JAX-package meaning; where the port reads a
 key differently (``compile.*``, ``debug.*``), its reader says so.
+
+Five rows the reference reads are ``read=False`` here, because nothing
+in the port reads them: ``compile.cachedir`` and ``compile.cacheurl``
+(the JAX package's persistent compilation cache) and
+``compile.jitcachecap`` (its transfer-helper jit cache; the port has
+neither, and ``analysis/compilecheck.py`` retires DX601), and
+``mesh.observe`` and ``conformance.iciratiohigh`` (the mesh and its ICI
+conformance, multi-GPU slice 8). Every type, default and bound is the
+reference's, so the boot audit's ``Conf_*`` gauges are unchanged.
 """
 
 from __future__ import annotations
@@ -422,14 +430,16 @@ CONF_REGISTRY: Tuple[ConfKey, ...] = (
     _K("compile.aot", "bool", "true", "compile", source="manual",
        description="ahead-of-time compile the flow step at host start"),
     _K("compile.cachedir", "path", None, "compile", source="generation",
+       read=False,
        description="AOT executable cache directory (S650 embed)"),
     _K("compile.cacheurl", "url", None, "compile", source="generation",
+       read=False,
        description="shared AOT cache object-store URL (S650 embed)"),
     _K("compile.manifest", "path", None, "compile", source="generation",
        description="compile manifest path (DX601 surface pin)"),
     _K("compile.jitcachecap", "int", "32", "compile",
        knob="jobCompileJitCacheCap", token="guiJobCompileJitCacheCap",
-       source="designer", min=1,
+       source="designer", min=1, read=False,
        description="transfer-helper jit cache entry cap"),
     # -- debug -------------------------------------------------------------
     _K("debug.nans", "bool", "false", "debug", source="manual",
@@ -444,7 +454,7 @@ CONF_REGISTRY: Tuple[ConfKey, ...] = (
     _K("mesh.model", "json", None, "mesh", source="generation",
        description="sharding-plan artifact (S660 embed; DX510/511 "
                    "conformance input)"),
-    _K("mesh.observe", "bool", "true", "mesh", source="manual",
+    _K("mesh.observe", "bool", "true", "mesh", source="manual", read=False,
        description="summarize compiled collectives for ICI conformance"),
     # -- observability -----------------------------------------------------
     _K("observability.port", "port", None, "observability",
@@ -490,7 +500,7 @@ CONF_REGISTRY: Tuple[ConfKey, ...] = (
        source="manual", min=0,
        description="observed/predicted HBM watermark alarm ratio"),
     _K("conformance.iciratiohigh", "float", "8.0", "conformance",
-       source="manual", min=0,
+       source="manual", min=0, read=False,
        description="observed/predicted ICI bytes alarm ratio"),
     _K("conformance.occupancyfactor", "float", "2.0", "conformance",
        source="manual", min=0,

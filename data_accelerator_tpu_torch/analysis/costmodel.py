@@ -44,11 +44,12 @@ where the JAX package takes its fleet-spec chip's.
 
 The latency forms are the reference's, term for term, so one profile
 prices one conf-embedded model to the same milliseconds in both
-packages. One consequence is deliberate: ``latency_model`` charges one
-dispatch overhead a step, which is the JAX package's one jitted call.
-The port's eager step launches many kernels, so its ``deviceStepMs`` is
-a lower bound that the card's step exceeds by the launches it does not
-count.
+packages. One difference is deliberate: ``latency_model`` takes the
+step's launch count and charges a dispatch overhead for each launch.
+The JAX package's step is one jitted call, which is ``launches=1``
+and the reference's formula; the port's eager step launches every
+kernel on its own (``deviceplan.count_step_launches``, a few hundred
+for config 1).
 """
 
 from __future__ import annotations
@@ -317,16 +318,23 @@ def latency_model(
     totals: Dict[str, object],
     profile: Dict[str, float],
     profile_source: str = "default",
+    launches: int = 1,
 ) -> dict:
     """The ``latencyModel`` report block: per-stage roofline ms plus
     the batch-level decomposition the runtime stages map onto —
     ``decodeMs`` (the calibrated host-decode term over the input-stage
     rows), ``deviceStepMs`` (every stage's compute, one dispatch
-    overhead), ``d2hMs`` (the full-fetch output transfer), ``iciMs``
-    (the wire bytes over the calibrated link).
+    overhead a launch), ``d2hMs`` (the full-fetch output transfer),
+    ``iciMs`` (the wire bytes over the calibrated link).
     ``stages``/``totals`` are dict-shaped (the conf-embedded runtime
-    model). Consumed by the host's DX520/DX521 predictions."""
-    overhead_ms = float(profile.get("dispatch_overhead_us") or 0.0) / 1000.0
+    model). ``launches``: the kernels a step launches
+    (``deviceplan.count_step_launches``); at 1, the JAX package's one
+    jitted call, the formula is the reference's. Consumed by the host's
+    DX520/DX521 predictions."""
+    overhead_ms = (
+        float(profile.get("dispatch_overhead_us") or 0.0) / 1000.0
+        * max(1, int(launches))
+    )
     out_stages = []
     compute_ms = 0.0
     for s in stages or []:

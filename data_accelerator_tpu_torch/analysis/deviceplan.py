@@ -61,13 +61,17 @@ from ..compile.planner import (
 from ..constants import ColumnName, DatasetName
 from ..core.config import EngineException, parse_duration_seconds
 from ..core.schema import Schema, StringDictionary
+from ..kernels.launch import MetaLaunchCounter
 from ..runtime.processor import (
+    PackedRaw,
+    build_step_fn,
     default_projection,
+    packed_raw_layout,
     projection_select,
     schema_to_view,
     window_target,
 )
-from ..runtime.timewindow import num_slots
+from ..runtime.timewindow import make_buffers, num_slots
 from ..serve.flowbuilder import RuleDefinitionGenerator
 from .costmodel import (
     DEFAULT_MATCH_MATRIX_BUDGET,
@@ -96,6 +100,9 @@ D2H_OVERSIZE_FACTOR = 64
 
 # the dtypes the runtime encodes each planner type to (core/schema.py)
 _DTYPES = {"double": torch.float32, "boolean": torch.bool}
+
+# the CUDA caching allocator's allocation unit (FlowProcessor.device_bytes)
+CUDA_BLOCK_BYTES = 512
 
 # stage kinds that persist across batches (device-resident state) vs
 # materialized per batch; "outslot" = the A/B output transfer slots the
@@ -144,6 +151,18 @@ def _table_data_bytes(td: TableData) -> int:
     return sum(_leaf_bytes(a) for a in td.cols.values()) + _leaf_bytes(td.valid)
 
 
+def _blocks(n: int, block: int) -> int:
+    """``n`` bytes as the allocator holds them: whole ``block``-byte
+    blocks (exact with ``block`` 0)."""
+    return -(-n // block) * block if block else n
+
+
+def _resident_bytes(td: TableData, block: int) -> int:
+    """A resident table's bytes with each tensor in whole blocks."""
+    return sum(_blocks(_leaf_bytes(a), block)
+               for a in list(td.cols.values()) + [td.valid])
+
+
 # ---------------------------------------------------------------------------
 # Report types
 # ---------------------------------------------------------------------------
@@ -187,6 +206,9 @@ class DevicePlanReport:
     # static capacity}: the occupancy side of the runtime conformance
     # model (obs/conformance.py DX502)
     outputs: Dict[str, dict] = field(default_factory=dict)
+    # kernels one batch launches on a card (count_step_launches): the
+    # launch count the latency model charges a dispatch overhead each
+    launches_per_step: int = 1
 
     @property
     def errors(self) -> List[Diagnostic]:
@@ -229,6 +251,7 @@ class DevicePlanReport:
             "chips": self.chips,
             "stages": [s.to_dict() for s in self.stages],
             "totals": self.totals(),
+            "launchesPerStep": self.launches_per_step,
             "latencyModel": self.latency_model(profile, source),
         }
 
@@ -247,7 +270,7 @@ class DevicePlanReport:
                     "stages": None, "totals": None}
         return latency_model(
             [s.to_dict() for s in self.stages], self.totals(),
-            profile, profile_source=source,
+            profile, profile_source=source, launches=self.launches_per_step,
         )
 
     def to_dict(self) -> dict:
@@ -283,21 +306,25 @@ def _ordered(diags: List[Diagnostic]) -> List[Diagnostic]:
 
 def combined_report_dict(
     base: AnalysisReport, device: Optional[DevicePlanReport] = None,
-    udfs=None,
+    udfs=None, fleet=None, compile_surface=None, race=None,
+    protocol=None, conf=None,
 ) -> dict:
-    """Merge the semantic tier with the optional device and UDF tiers
-    into one response: a superset of ``AnalysisReport.to_dict()`` plus a
-    ``device`` cost report and a ``udfs`` summary, with one
-    ``schemaVersion``, one merged diagnostics list and one exit contract.
-    The JAX package's fleet, compile, mesh, race, protocol and conf
-    blocks belong to tiers not ported yet."""
+    """Merge the semantic tier with the optional device, UDF, fleet,
+    compile, race, protocol and conf tiers into one response: a
+    superset of ``AnalysisReport.to_dict()`` plus each tier's block,
+    with one ``schemaVersion``, one merged diagnostics list and one exit
+    contract. The JAX package's mesh block belongs to multi-GPU slice 8."""
     from .diagnostics import REPORT_SCHEMA_VERSION
 
+    tiers = [("device", device, "plan_dict"), ("udfs", udfs, "udfs_dict"),
+             ("fleet", fleet, "fleet_dict"),
+             ("compile", compile_surface, "compile_dict"),
+             ("race", race, "race_dict"), ("protocol", protocol, "protocol_dict"),
+             ("conf", conf, "conf_dict")]
     diags = list(base.diagnostics)
-    if device is not None:
-        diags += list(device.diagnostics)
-    if udfs is not None:
-        diags += list(udfs.diagnostics)
+    for _key, tier, _block in tiers:
+        if tier is not None:
+            diags += list(tier.diagnostics)
     diags = _ordered(diags)
     errors = [d for d in diags if d.is_error]
     out = {
@@ -307,10 +334,9 @@ def combined_report_dict(
         "warningCount": len(diags) - len(errors),
         "diagnostics": [d.to_dict() for d in diags],
     }
-    if device is not None:
-        out["device"] = device.plan_dict()
-    if udfs is not None:
-        out["udfs"] = udfs.udfs_dict()
+    for key, tier, block in tiers:
+        if tier is not None:
+            out[key] = getattr(tier, block)()
     return out
 
 
@@ -349,6 +375,12 @@ class FlowDevicePlan:
     # transfer slots each output keeps resident: the A/B pair of a
     # streaming processor, none with process.pipeline.outputslots=false
     output_slots: int = OUTPUT_SLOT_BUFFERS
+    # the rings' timestamp column (the step rebases it each batch)
+    ts_col: Optional[str] = None
+    # the allocator's block on the plan's device: a card's caching
+    # allocator holds each tensor in 512-byte blocks, so the resident
+    # stages count whole blocks there (0: exact bytes, as on the CPU)
+    block_bytes: int = 0
 
 
 def _declared_cardinality(schema: Schema) -> Tuple[Dict[str, int], int]:
@@ -614,6 +646,7 @@ def _plan_from_gui(
                 out_datasets.append(t)
 
     return FlowDevicePlan(
+        ts_col=ts_col or None,
         name=name,
         pipeline=pipeline,
         projection_views=projection_views,
@@ -659,6 +692,7 @@ def flow_plan_from_processor(
             cards.setdefault(k, v)
         n_strings += ns
     return FlowDevicePlan(
+        ts_col=proc.timestamp_column,
         name=proc.dict.get("datax.job.name") or "",
         pipeline=proc.pipeline,
         projection_views=dict(proc.projection_views),
@@ -691,6 +725,7 @@ def flow_plan_from_processor(
         chips=DEFAULT_CHIPS,
         output_datasets=list(proc.output_datasets),
         output_slots=output_slots,
+        block_bytes=CUDA_BLOCK_BYTES if proc.device.type == "cuda" else 0,
     )
 
 
@@ -760,12 +795,13 @@ def _stage_walk(
         target = plan.target_of[source]
         env[target] = penv[target]
 
+    block = plan.block_bytes
     for table, slots in plan.ring_slots.items():
         rows = slots * plan.target_caps[table]
         schema = plan.target_schemas[table]
         stages.append(StageCost(
             name=f"ring:{table}", kind="ring", rows=rows,
-            hbm_bytes=table_bytes(schema.types, rows),
+            hbm_bytes=_resident_bytes(_table(schema, rows, "meta"), block),
             model_bytes=table_bytes(schema.types, rows),
             detail=f"{slots} slots x {plan.target_caps[table]} rows "
                    "(device-resident window state)",
@@ -788,7 +824,7 @@ def _stage_walk(
         # state input and (by the same name) a pipeline view output
         stages.append(StageCost(
             name=f"state:{sname}", kind="state", rows=cap,
-            hbm_bytes=_table_data_bytes(t),
+            hbm_bytes=_resident_bytes(t, block),
             model_bytes=table_bytes(schema.types, cap),
             detail="accumulation table",
         ))
@@ -797,7 +833,7 @@ def _stage_walk(
         env[rname] = t
         stages.append(StageCost(
             name=f"refdata:{rname}", kind="refdata", rows=cap,
-            hbm_bytes=_table_data_bytes(t),
+            hbm_bytes=_resident_bytes(t, block),
             model_bytes=table_bytes(schema.types, cap),
             detail="reference data",
         ))
@@ -817,12 +853,13 @@ def _stage_walk(
             # the transfer slots the runtime keeps resident for this
             # output (runtime/processor.py _stage_output): persistent
             # device bytes, derived from the same evaluated table as the
-            # view stage, so model == evaluation stays exact
+            # view stage, so model == evaluation stays exact (but for
+            # the whole blocks of a card)
             n = plan.output_slots
             stages.append(StageCost(
                 name=f"outslot:{view.name}", kind="outslot",
                 rows=view.capacity,
-                hbm_bytes=n * _table_data_bytes(out),
+                hbm_bytes=n * _resident_bytes(out, block),
                 model_bytes=output_slot_bytes(
                     view.schema.types, view.plan, view.capacity, buffers=n
                 ),
@@ -841,6 +878,84 @@ def _abstract_eval(plan: FlowDevicePlan) -> List[StageCost]:
         return view.fn(env, base, now)
 
     return _stage_walk(plan, table_struct, eval_view, _aux_on(plan.aux_tables, "meta"))
+
+
+def meta_step_args(plan: FlowDevicePlan, forms: Dict[str, str],
+                   refdata: Dict[str, TableData]) -> tuple:
+    """The step's nine arguments on ``meta``, in the JAX package's
+    structure: each source's raw batch (one ``PackedRaw`` matrix where
+    ``forms`` says ``packed``, else columns), the rings, the state, the
+    reference tables, the four int32 scalars (the port passes the slot
+    counter and base delta as host ints; the structure keeps the JAX
+    package's four) and the string-op tables."""
+    raw: Dict[str, object] = {}
+    for source, (schema, cap) in plan.raw_schemas.items():
+        if forms.get(source) == "packed":
+            layout = packed_raw_layout(schema.types)
+            raw[source] = PackedRaw(torch.empty(
+                (len(layout) + 1, cap), dtype=torch.int32, device="meta"), layout)
+        else:
+            raw[source] = table_struct(schema, cap)
+    rings = {
+        t: make_buffers(plan.target_schemas[t], plan.target_caps[t], slots, "meta")
+        for t, slots in plan.ring_slots.items()
+    }
+    state = {n: table_struct(sch, cap) for n, (sch, cap) in plan.state.items()}
+    scalar = torch.empty((), dtype=torch.int32, device="meta")
+    return (raw, rings, state, refdata, scalar, scalar, scalar, scalar,
+            _aux_on(plan.aux_tables, "meta"))
+
+
+def meta_step(plan: FlowDevicePlan, refdata_names: List[str], delta_ms: int = 1000):
+    """The runtime's step (``build_step_fn``) over the plan's views,
+    called with ``meta_step_args``' structure as a batch ``delta_ms``
+    after the last."""
+    targets = list(plan.target_of.values())
+    step = build_step_fn(
+        ts_col=plan.ts_col,
+        windows=dict(plan.windows),
+        output_datasets=list(plan.output_datasets),
+        state_names=list(plan.state),
+        refdata_names=sorted(refdata_names),
+        ring_tables=list(plan.ring_slots),
+        pipeline=plan.pipeline,
+        source_targets=list(plan.target_of.items()),
+        proj_views=dict(plan.projection_views),
+        primary_target=plan.target_of.get("default") or (targets[0] if targets else ""),
+    )
+
+    def run(raw, rings, state, refdata, base_s, now, _counter, _delta, aux):
+        return step(raw, rings, state, refdata, base_s, now, 1, delta_ms, aux)
+
+    return run
+
+
+def count_step_launches(plan: FlowDevicePlan) -> int:
+    """The kernels one batch launches on a card, counted on ``meta``
+    (``kernels/launch.py::MetaLaunchCounter``): the two time scalars'
+    fills, each source's one host-to-device copy of its packed matrix,
+    the production step, each output's copy into its transfer slot, and
+    the device-to-host copies of the outputs, the counts vector and the
+    state. A kernel UDF counts once."""
+    refdata = {n: table_struct(sch, cap) for n, (sch, cap) in plan.refdata.items()}
+    args = meta_step_args(plan, dict.fromkeys(plan.raw_schemas, "packed"), refdata)
+    step = meta_step(plan, list(plan.refdata))
+    counter = MetaLaunchCounter()
+    with counter:
+        for _ in range(2):
+            torch.full((), 0, dtype=torch.int32, device="meta")
+        for raw in args[0].values():
+            torch.empty_like(raw.data).copy_(raw.data)
+        datasets, counts, new_state = step(*args)
+        landed = [counts] + list(datasets.values()) + list(new_state.values())
+        for t in datasets.values():  # staged into the output's slot
+            for v in list(t.cols.values()) + [t.valid]:
+                torch.empty_like(v).copy_(v)
+        for t in landed:  # copied off the card
+            for v in ([t] if isinstance(t, torch.Tensor)
+                      else list(t.cols.values()) + [t.valid]):
+                torch.empty_like(v).copy_(v)
+    return counter.count
 
 
 def materialized_stage_bytes(
@@ -1028,6 +1143,7 @@ def _analyze(
     return DevicePlanReport(
         bundle.name, bundle.chips, stages, _ordered(diags),
         outputs=_output_model(bundle),
+        launches_per_step=count_step_launches(bundle),
     )
 
 

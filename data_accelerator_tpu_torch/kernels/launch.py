@@ -35,6 +35,10 @@ from types import MappingProxyType
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch.utils._python_dispatch import (
+    TorchDispatchMode,
+    _get_current_dispatch_mode_stack,
+)
 
 from . import build
 from .build import KernelBuildError, Source
@@ -67,6 +71,52 @@ def count_launch(entry: str) -> None:
 def reset_launches() -> None:
     with _LOCK:
         _LAUNCHES.clear()
+
+
+# aten ops that allocate or rename without running a kernel
+_NO_KERNEL_PREFIXES = ("empty", "new_empty", "lift_fresh", "sym_")
+
+
+class MetaLaunchCounter(TorchDispatchMode):
+    """Records the aten ops code runs on ``meta`` tensors, in order, with
+    their tensor inputs' shapes and dtypes (``ops``), and counts the
+    kernels it would launch on a card (``count``): each op that is not a
+    view (and not a bare allocation) is one launch, and a hand-written
+    kernel's plain version (``meta_kernel_call``) is one launch whatever
+    ops it runs. The device plan's ``launchesPerStep``
+    (``analysis/deviceplan.py``) and the compile tier's digests
+    (``analysis/compilecheck.py``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+        self.ops: list = []
+        self._opaque = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not self._opaque:
+            sig = ",".join(f"{tuple(a.shape)}:{a.dtype}" for a in args
+                           if isinstance(a, torch.Tensor))
+            self.ops.append(f"{func}({sig})")
+            if not func.is_view and not func.__name__.startswith(_NO_KERNEL_PREFIXES):
+                self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+def meta_kernel_call(plain, *tensors: torch.Tensor) -> torch.Tensor:
+    """A kernel's plain version run on ``meta`` tensors; under a
+    ``MetaLaunchCounter`` it is the one launch of the kernel."""
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, MetaLaunchCounter)]
+    for m in modes:
+        m._opaque += 1
+    try:
+        return plain(*tensors)
+    finally:
+        for m in modes:
+            m._opaque -= 1
+            m.count += 1
+            m.ops.append(f"kernel:{getattr(plain, '__qualname__', plain)}")
 
 
 def _static_ints(value, what: str) -> Tuple[int, ...]:

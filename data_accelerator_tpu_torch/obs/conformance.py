@@ -42,6 +42,10 @@ card and its host refuses ``process.mesh.model``.
 In the port ``Retrace_Count`` counts rebuilds of the step after init
 (a UDF ``on_interval`` refresh): eager PyTorch has no trace, and a
 rebuild is the work the steady-state model does not include.
+``latency_predictions`` takes the step's launch count, which the host
+counts on its processor (``deviceplan.count_step_launches``): the
+eager step pays a dispatch overhead a kernel, the JAX package's jitted
+step one.
 """
 
 from __future__ import annotations
@@ -175,9 +179,10 @@ class ConformanceModel:
             return None
         return cls.from_json(raw)
 
-    def latency_predictions(self, profile: dict) -> tuple:
+    def latency_predictions(self, profile: dict, launches: int = 1) -> tuple:
         """The DX520 comparison baseline: roofline per-stage latency
-        under ``profile`` (a calibrated ``MachineProfile.to_dict()``).
+        under ``profile`` (a calibrated ``MachineProfile.to_dict()``),
+        one dispatch overhead for each of the step's ``launches``.
         Bytes and FLOPs travel in the conf-embedded model; this turns
         them into milliseconds on the machine that will be judged.
         Returns ``(predictions, compute_ms, overhead_ms)`` —
@@ -198,6 +203,7 @@ class ConformanceModel:
             },
             profile,
             profile_source="calibrated",
+            launches=launches,
         )
         totals = model["totals"]
         return (

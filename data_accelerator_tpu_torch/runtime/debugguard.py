@@ -151,6 +151,8 @@ class StepGuard:
 def from_conf(dbg_conf) -> Optional[StepGuard]:
     """``process.debug.nans`` / ``process.debug.tracerleaks`` (``dbg_conf``
     is the ``debug.`` sub-dictionary); None when neither is armed."""
+    # dx-conf: read debug.nans default=false
+    # dx-conf: read debug.tracerleaks default=false
     nans = (dbg_conf.get_or_else("nans", "false") or "").lower() == "true"
     leaks = (
         dbg_conf.get_or_else("tracerleaks", "false") or ""

@@ -265,9 +265,11 @@ class StreamingHost:
                 self._calib_metrics = profile.metrics()
                 if self.conformance is not None \
                         and not self.conformance.latency_pinned:
+                    # the eager step pays a dispatch overhead a kernel
                     preds, compute_ms, overhead_ms = (
                         self.conformance.model.latency_predictions(
-                            profile.to_dict()
+                            profile.to_dict(),
+                            launches=self.launches_per_step(),
                         )
                     )
                     self.conformance.set_latency(
@@ -1075,6 +1077,16 @@ class StreamingHost:
                 fut_trace.end(status="aborted")  # idempotent
             pool.shutdown(wait=False, cancel_futures=True)
             self._stop_profiler()
+
+    def launches_per_step(self) -> int:
+        """The kernels one batch of this host's flow launches on a card
+        (``deviceplan.count_step_launches`` on ``meta``)."""
+        from ..analysis.deviceplan import (
+            count_step_launches,
+            flow_plan_from_processor,
+        )
+
+        return count_step_launches(flow_plan_from_processor(self.processor))
 
     def stop(self, close_sources: bool = True) -> None:
         """``close_sources=False`` tears the host down but leaves its

@@ -338,7 +338,10 @@ def pack_from_matrix(
     """PackedRaw over an ALREADY-packed host matrix, without a copy: the
     sibling of ``pack_raw`` for a matrix written in the transfer layout
     to begin with, such as a native decoder pool's."""
+    # dx-race: param matrix=pool
     if isinstance(matrix, np.ndarray):
+        # dx-race: allow-zero-copy THE designed pooled zero-copy ingest
+        # site; lifetime pinned by the PendingBatch owner-handoff
         matrix = torch.from_numpy(matrix)
     return PackedRaw(matrix, tuple(layout))
 
@@ -1114,6 +1117,8 @@ class FlowProcessor:
         }
 
     def _init_device_state(self):
+        # dx-race: single-threaded init path — runs in __init__, before
+        # the host starts a dispatch or landing thread
         self.window_buffers: Dict[str, WindowBuffers] = self._fresh_rings()
         # state load is the handoff-critical path of a successor
         # replica (pull owned partitions from the mirror): time it once
@@ -1730,7 +1735,10 @@ class FlowProcessor:
             self._ingest_col_rows[spec.name] = col_rows
         valid_row = len(layout)
         mat = pool.acquire()
-        host = mat.numpy()  # the decoder writes through this view
+        # dx-race: allow-zero-copy THE designed pooled zero-copy ingest
+        # site: the decoder writes through this view, and the matrix
+        # rides the PackedRaw (owner-handoff) until its batch lands
+        host = mat.numpy()
         t0 = time.perf_counter()
         try:
             if fmt == "kafka-v2":
@@ -1846,10 +1854,9 @@ class FlowProcessor:
                     ingest.append((*r.ingest_slot, r.h2d_event))
             raws[name] = r
         try:
-            with self._dispatch_lock:
-                out_datasets, counts_vec, new_state, new_base_ms = self._advance(
-                    raws, batch_time_ms
-                )
+            out_datasets, counts_vec, new_state, new_base_ms = self._advance(
+                raws, batch_time_ms
+            )
         except Exception:
             # the step never launched: the pool slots may be reused once
             # their copies (if any) are done
@@ -1894,72 +1901,76 @@ class FlowProcessor:
         # handle's landed event before writing into it again
         for key, parity in staged_slots:
             dev, host, _ev = self._slots[key][parity]
+            # dx-race: owner-handoff slot ownership moves to this handle;
+            # the next rotation checks its landed event before a write
             self._slots[key][parity] = (dev, host, handle._landed)
         handle.start_fetch()
         return handle
 
     def _advance(self, raw, batch_time_ms: int):
-        """Advance the flow by one batch, under the dispatch lock: the
+        """Advance the flow by one batch, under the dispatch lock (taken
+        here, so every write below is seen under it): the
         UDF refresh, the time base and slot counter, and the step
         enqueued on the current stream. Returns (output tables, counts
         vector, new state, the batch's whole-second base). The new state
         is the next batch's state input: the step never writes a state
         table in place, so an earlier batch still copying its own state
         off the card reads what its step made."""
-        # per-interval UDF refresh hooks; state changes rebuild the
-        # pipeline (CommonProcessorFactory.scala:351-353 onInterval).
-        # A throwing hook skips its refresh and surfaces as the
-        # UdfRefreshError metric rather than killing the batch loop.
-        registry = UdfRegistry(self.udfs)
-        if registry.refresh(batch_time_ms):
-            self._build_pipeline(self.output_datasets)
-            self._build_step()
-            self.retrace_count += 1
-        if registry.last_errors:
-            self.udf_refresh_errors += len(registry.last_errors)
-        # whole-second base so device absolute-time math is exact
-        new_base_ms = (batch_time_ms // 1000) * 1000
-        if self._base_ms is None:
+        with self._dispatch_lock:
+            # per-interval UDF refresh hooks; state changes rebuild the
+            # pipeline (CommonProcessorFactory.scala:351-353 onInterval).
+            # A throwing hook skips its refresh and surfaces as the
+            # UdfRefreshError metric rather than killing the batch loop.
+            registry = UdfRegistry(self.udfs)
+            if registry.refresh(batch_time_ms):
+                self._build_pipeline(self.output_datasets)
+                self._build_step()
+                self.retrace_count += 1
+            if registry.last_errors:
+                self.udf_refresh_errors += len(registry.last_errors)
+            # whole-second base so device absolute-time math is exact
+            new_base_ms = (batch_time_ms // 1000) * 1000
+            if self._base_ms is None:
+                self._base_ms = new_base_ms
+            delta_ms = new_base_ms - self._base_ms
+            if abs(delta_ms) > 2**31 - 1:
+                # a restored checkpoint (or clock jump) more than ~24.8
+                # days out: every ring row is long past any window
+                # horizon, and the int32 rebase would overflow — start
+                # from clean rings
+                self.window_buffers = self._fresh_rings()
+                delta_ms = 0
             self._base_ms = new_base_ms
-        delta_ms = new_base_ms - self._base_ms
-        if abs(delta_ms) > 2**31 - 1:
-            # a restored checkpoint (or clock jump) more than ~24.8
-            # days out: every ring row is long past any window
-            # horizon, and the int32 rebase would overflow — start
-            # from clean rings
-            self.window_buffers = self._fresh_rings()
-            delta_ms = 0
-        self._base_ms = new_base_ms
-        counter = self._slot_counter
-        self._slot_counter += 1
+            counter = self._slot_counter
+            self._slot_counter += 1
 
-        # 0-d device scalars made by a fill, not copied from the host
-        base_s = torch.full(
-            (), new_base_ms // 1000, dtype=torch.int32, device=self.device
-        )
-        now_rel_ms = torch.full(
-            (), batch_time_ms - new_base_ms, dtype=torch.int32,
-            device=self.device,
-        )
-        # string-op dictionary tables: refreshed AFTER this batch's
-        # encode (so they cover every id the batch can contain),
-        # copied to the device only when the dictionary grew
-        aux = self.aux_tables.tables()
-        refdata = {n: t for n, (_s, t) in self.refdata.items()}
-        # child span of the host's "dispatch" when a batch trace is
-        # active; a no-op without one
-        with tracing.span("device-enqueue"), kernel_build.loads_recorded() as loads:
-            out_datasets, counts_vec, new_state = self._step(
-                raw, self.window_buffers, self.state_data, refdata, base_s,
-                now_rel_ms, counter, delta_ms, aux,
+            # 0-d device scalars made by a fill, not copied from the host
+            base_s = torch.full(
+                (), new_base_ms // 1000, dtype=torch.int32, device=self.device
             )
-        self.state_data = new_state
-        if self._aot_warmed and loads:
-            # a kernel of this flow first built or loaded after its warm
-            self._count_compile("WarmMiss_Count", len(loads))
-        if self.device.type == "cuda":
-            self._step_stream = torch.cuda.current_stream(self.device)
-        return out_datasets, counts_vec, new_state, new_base_ms
+            now_rel_ms = torch.full(
+                (), batch_time_ms - new_base_ms, dtype=torch.int32,
+                device=self.device,
+            )
+            # string-op dictionary tables: refreshed AFTER this batch's
+            # encode (so they cover every id the batch can contain),
+            # copied to the device only when the dictionary grew
+            aux = self.aux_tables.tables()
+            refdata = {n: t for n, (_s, t) in self.refdata.items()}
+            # child span of the host's "dispatch" when a batch trace is
+            # active; a no-op without one
+            with tracing.span("device-enqueue"), kernel_build.loads_recorded() as loads:
+                out_datasets, counts_vec, new_state = self._step(
+                    raw, self.window_buffers, self.state_data, refdata, base_s,
+                    now_rel_ms, counter, delta_ms, aux,
+                )
+            self.state_data = new_state
+            if self._aot_warmed and loads:
+                # a kernel of this flow first built or loaded after its warm
+                self._count_compile("WarmMiss_Count", len(loads))
+            if self.device.type == "cuda":
+                self._step_stream = torch.cuda.current_stream(self.device)
+            return out_datasets, counts_vec, new_state, new_base_ms
 
     def _stage_output(
         self, name: str, t: TableData, cap: int, full_cap: int,

@@ -162,6 +162,8 @@ class BufferSanitizer:
                 if live_arr is not None:
                     # the ring's own memory, viewed: only a CPU ring has
                     # host memory to share
+                    # dx-race: allow-zero-copy read-only identity probe —
+                    # the view dies inside this call, nothing escapes
                     live_np = _host_array(live_arr)
                     if live_np is not None:
                         others.append(live_np)

@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import torch
 
 from ..core.config import EngineException, SettingDictionary
+from ..kernels.launch import meta_kernel_call
 
 logger = logging.getLogger(__name__)
 
@@ -152,6 +153,8 @@ class CudaKernelUdf(TorchUdf):
         return self.kernel.launches
 
     def _call(self, *tensors: torch.Tensor) -> torch.Tensor:
+        if tensors and all(t.device.type == "meta" for t in tensors):
+            return meta_kernel_call(self.plain, *tensors)
         if all(t.device.type in ("cpu", "meta") for t in tensors):
             return self.plain(*tensors)
         return self.kernel(*[t.contiguous() for t in tensors])

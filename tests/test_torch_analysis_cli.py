@@ -11,6 +11,8 @@ once the fields that differ by design are set aside: the device block's
 port reports ``uncalibrated``), an output slot stage's detail (the
 JAX package's slots are donated buffers, the port's are not), a UDF
 diagnostic's message and span and
+the port's ``launchesPerStep``, the DX600/DX690 messages (the port's
+surface is dispatched, not traced), and
 a function's module path (each package's own fixture module), and the
 DX204/DX290 messages (the port's step has no trace), and the
 transient bytes of the residual join of ``dx203_match_matrix_window``
@@ -18,9 +20,12 @@ transient bytes of the residual join of ``dx203_match_matrix_window``
 runs its device tier at ``--chips=1``. The text mode prints the same
 diagnostic lines for the semantic tier.
 
-The tiers not ported yet exit 2 and name their slice; ``--chips`` above
-1 exits 2 naming slice 8; an unknown flag and a missing file exit 2 as
-in the reference.
+The compile, race, protocol, conf and fleet tiers give the reference's
+exit codes and diagnostics on the same flows (their blocks are each
+package's own engine and backend; the tier tests hold them). The mesh
+tier, not ported yet, exits 2 naming slice 8; ``--chips`` above 1 exits
+2 naming slice 8; an unknown flag and a missing file exit 2 as in the
+reference.
 """
 
 import json
@@ -45,13 +50,19 @@ TIERS = {
     "semantic": ([], []),
     "device": (["--device"], ["--device", "--chips=1"]),
     "udfs": (["--udfs"], ["--udfs"]),
-    "all": (["--all"], ["--device", "--chips=1", "--udfs"]),
+    "all": (["--all", "--fleet-device=cpu"],
+            ["--device", "--chips=1", "--udfs", "--compile", "--race", "--protocol",
+             "--conf"]),
 }
+# blocks each package fills from its own engine or backend: the gates'
+# module counts, the compile manifest's digests (tests/test_torch_
+# compilecheck.py holds the rest of it equal)
+OWN_BLOCKS = ("compile", "race", "protocol", "conf")
 # the residual join's transient bytes are the port's own form
 # (tests/test_torch_analysis.py)
 TRANSIENT_DIFFERS = {"dx203_match_matrix_window"}
 UDF_CODES = ("DX30", "DX31")
-REWORDED = ("DX204", "DX290")
+REWORDED = ("DX204", "DX290", "DX600", "DX690")
 
 
 def _to_port(text: str) -> str:
@@ -80,6 +91,8 @@ def _run(main, argv, capsys):
 def _comparable(report: dict, transients: bool = True) -> dict:
     r = json.loads(json.dumps(report))
     r.pop("file", None)
+    for block in OWN_BLOCKS:
+        r.pop(block, None)
     for d in r["diagnostics"]:
         if d["code"].startswith(UDF_CODES):
             d.pop("message"), d.pop("span")
@@ -87,6 +100,8 @@ def _comparable(report: dict, transients: bool = True) -> dict:
             d.pop("message")
     if "device" in r:
         r["device"].pop("latencyModel")
+        # the port's own: the kernels its eager step launches
+        r["device"].pop("launchesPerStep", None)
         for st in r["device"]["stages"]:
             if st["kind"] == "outslot":
                 st.pop("detail")  # the JAX package's slots are donated
@@ -111,6 +126,9 @@ def test_json_report_and_exit_code_equal_reference(tmp_path, capsys, name, tier)
     if name in CLEAN:
         assert trc == 0
     got, want = json.loads(tout), json.loads(jout)
+    if tier == "all":  # the port's --all runs the fleet tier too
+        assert got["fleet"]["placement"]["feasible"]
+        got = got["files"][0]
     transients = name not in TRANSIENT_DIFFERS or "device" not in got
     if not transients:
         assert (got["device"]["totals"]["transientBytes"]
@@ -138,14 +156,50 @@ def test_device_text_mode_prints_the_plan(tmp_path, capsys):
     assert "roofline latency: uncalibrated" in out
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS) + [
-    "--manifest=m.json", "--manifest-out=m.json", "--fleet-spec=s.json"])
+@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
 def test_unported_tier_flags_exit_2_naming_their_slice(tmp_path, capsys, flag):
     _jpath, tpath = _files(tmp_path, "clean_config2_window_agg")
     rc, out, err = _run(port_main, [flag, tpath], capsys)
     assert rc == 2 and out == ""
     assert "not ported" in err
-    assert ("slice 8" if flag == "--mesh" else "slice 7b") in err
+    assert UNPORTED_FLAGS == {"--mesh": "multi-GPU slice 8 (analysis/meshcheck.py)"}
+    assert "slice 8" in err
+
+
+# the tiers this port gained from slice 7b: the port's flags against the
+# reference's (the fleet over one explicit CPU-sized card for both)
+GATES = {
+    "compile": (["--compile"], ["--compile"]),
+    "race": (["--race"], ["--race"]),
+    "protocol": (["--protocol"], ["--protocol"]),
+    "conf": (["--conf"], ["--conf"]),
+    "fleet": (["--fleet", "--fleet-device=cpu"], ["--fleet"]),
+}
+
+
+@pytest.mark.parametrize("tier", sorted(GATES))
+@pytest.mark.parametrize("name", ["clean_config2_window_agg", "clean_config4_udf_rules",
+                                  "dx204_retrace_hazard", "dx001_unbound_table"])
+def test_gate_tiers_run_with_the_reference_diagnostics(tmp_path, capsys, name, tier):
+    port_flags, jax_flags = GATES[tier]
+    jpath, tpath = _files(tmp_path, name)
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({"chips": 1, "hbmPerChipBytes": 4 << 30,
+                                "d2hBytesPerSecPerChip": 1e9,
+                                "iciBytesPerSecPerChip": 45e9}))
+    extra = [f"--fleet-spec={spec}"] if tier == "fleet" else []
+    jrc, jout, _ = _run(jax_main, ["--json", *jax_flags, *extra, jpath], capsys)
+    trc, tout, terr = _run(port_main, ["--json", *port_flags, *extra, tpath], capsys)
+    assert trc == jrc, terr
+    got, want = json.loads(tout), json.loads(jout)
+    if tier == "fleet":
+        placed = lambda r: [c["flows"] for c in r["fleet"]["placement"]["chips"]]  # noqa: E731
+        assert placed(got) == placed(want)
+        got, want = got["files"][0], want["files"][0]
+    codes = lambda r: sorted((d["code"], d["severity"]) for d in r["diagnostics"])  # noqa: E731
+    assert codes(got) == codes(want)
+    if tier in got:
+        assert set(got[tier]) >= set(want[tier]) - {"jitCacheCap"}
 
 
 def test_chips_above_one_exit_2_naming_slice_8(tmp_path, capsys):

@@ -310,6 +310,49 @@ def test_the_committed_conf_judges_only_decode_on_a_card():
     assert preds["device-step"] == pytest.approx(compute_ms + overhead_ms, abs=1e-3)
 
 
+@pytest.mark.parametrize("launches", [1, 2, 197])
+def test_launches_add_one_dispatch_overhead_each(launches):
+    """The port's deliberate difference from the reference's formula:
+    the same stages at ``launches=N`` carry exactly ``N - 1`` more
+    dispatch overheads in ``deviceStepMs``; at 1 they are the JAX
+    package's block."""
+    obj = json.loads(_committed_model())
+    prof = PROFILES["card"]
+    one = tcost.latency_model(obj["stages"], obj["totals"], prof, "calibrated")
+    n = tcost.latency_model(obj["stages"], obj["totals"], prof, "calibrated",
+                            launches=launches)
+    overhead_ms = prof["dispatch_overhead_us"] / 1000.0
+    assert n["totals"]["computeMs"] == one["totals"]["computeMs"]
+    assert n["totals"]["deviceStepMs"] == pytest.approx(
+        one["totals"]["deviceStepMs"] + (launches - 1) * overhead_ms, abs=2e-4)
+    assert n["totals"]["dispatchOverheadMs"] == pytest.approx(launches * overhead_ms)
+    if launches == 1:
+        assert n == jcost.latency_model(obj["stages"], obj["totals"], prof, "calibrated")
+
+
+def test_config1_step_launches_price_the_device_step_over_the_floor():
+    """Config 1's step counted on ``meta`` launches a few hundred kernels
+    (the card's profiler saw 241 device activities); priced at a card's
+    dispatch overhead each, ``device-step`` crosses the 1 ms floor and is
+    judged."""
+    from data_accelerator_tpu_torch.analysis.deviceplan import analyze_processor
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+    from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+    proc = FlowProcessor(SettingDictionary(chip_smoke.flow_conf()), batch_capacity=1024,
+                         output_datasets=chip_smoke.OUTPUTS,
+                         udfs={"anomalyscore": anomalyscore()}, device="cpu")
+    report = analyze_processor(proc)
+    launches = report.launches_per_step
+    assert 150 <= launches <= 300
+    assert report.plan_dict()["launchesPerStep"] == launches
+    preds, compute_ms, overhead_ms = tconf.ConformanceModel.from_json(
+        _committed_model()).latency_predictions(PROFILES["card"], launches=launches)
+    assert preds["device-step"] >= tconf.DEFAULT_STAGE_TIME_FLOOR_MS
+    assert overhead_ms == pytest.approx(launches * PROFILES["card"]["dispatch_overhead_us"] / 1e3)
+
+
+
 # -- DX520/DX521 on both packages' monitors ------------------------------------
 def test_clean_stage_times_stay_silent(pkg):
     mon = pkg.conf.ConformanceMonitor(pkg.conf.ConformanceModel(), warmup=2, window=4)
@@ -483,7 +526,11 @@ def test_host_arms_the_monitor_with_its_profiles_predictions(tmp_path, store, em
     profile = tcal.load_profile(path)
     assert profile is not None and profile.backend == "torch-cpu"
     assert tcal.pull_shared(url, "torch-cpu", "cpu").to_dict() == profile.to_dict()
-    preds, _c, _o = host.conformance.model.latency_predictions(profile.to_dict())
+    # the port's eager step pays a dispatch overhead a launched kernel
+    launches = host.launches_per_step()
+    assert launches > 1
+    preds, _c, _o = host.conformance.model.latency_predictions(
+        profile.to_dict(), launches=launches)
     assert host.conformance.latency == preds
     assert host._calib_metrics == profile.metrics()
     off = host_mod.StreamingHost(_host_conf(tmp_path, dict(conf, **{

@@ -274,6 +274,42 @@ def test_persistent_bytes_equal_what_a_streaming_processor_holds():
     assert proc.device_bytes() == analyze_processor(proc).totals()["persistentBytes"]
 
 
+def test_card_plan_rounds_each_resident_tensor_to_allocator_blocks():
+    """On a card the caching allocator holds each tensor in 512-byte
+    blocks (``FlowProcessor.device_bytes``), so a card processor's plan
+    counts its rings and slots in whole blocks; a CPU processor's plan
+    stays exact. At 64 rows a column is 256 B: the card holds twice
+    what the bytes say."""
+    import copy
+
+    from data_accelerator_tpu_torch.analysis.deviceplan import CUDA_BLOCK_BYTES, _analyze
+
+    conf = _main_flow_conf()
+    conf["datax.job.process.pipeline.sizedtransfer"] = "false"
+    conf["datax.job.process.batchcapacity"] = "64"
+    proc = FlowProcessor(SettingDictionary(conf), device="cpu")
+    rs = np.random.RandomState(3)
+    type_ids = np.array(
+        [proc.dictionary.encode(t) for t in chip_smoke.DEVICE_TYPES], np.int32
+    )
+    for b in range(2):
+        cols = chip_smoke.make_columns(rs, type_ids, 40)
+        proc.process_batch(proc.encode_columns(cols, 40), chip_smoke.BASE_MS + 1000 * b)
+    held = [t for buf in proc.window_buffers.values()
+            for t in list(buf.cols.values()) + [buf.valid]]
+    held += [t for ring in proc._slots.values() for dev, _h, _e in ring
+             for t in list(dev.cols.values()) + [dev.valid]]
+    cpu = analyze_processor(proc).totals()["persistentBytes"]
+    assert cpu == sum(t.nbytes for t in held) == proc.device_bytes()
+    card_proc = copy.copy(proc)
+    card_proc.device = torch.device("cuda")
+    bundle = flow_plan_from_processor(card_proc)
+    assert bundle.block_bytes == CUDA_BLOCK_BYTES
+    card = _analyze(bundle, [], bundle.name, 1 << 30).totals()["persistentBytes"]
+    assert card == sum(-(-t.nbytes // 512) * 512 for t in held)
+    assert card > cpu
+
+
 def test_output_slots_off_holds_no_slot():
     conf = _main_flow_conf()
     conf["datax.job.process.pipeline.outputslots"] = "false"

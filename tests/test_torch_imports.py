@@ -154,3 +154,40 @@ def test_slice_7a_modules_load_without_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     for m in SLICE_7A:
         assert (ROOT / (m.replace(".", "/") + ".py")).exists(), m
+
+
+# the source-scanning tiers, the compile and fleet tiers, the chaos
+# injectors and the pilot replay CLI
+SLICE_7B = (
+    "analysis/racecheck.py", "analysis/protocheck.py", "analysis/confcheck.py",
+    "compile/flattener_schema.py", "pilot/chaos.py", "pilot/__main__.py",
+    "analysis/compilecheck.py", "analysis/fleetcheck.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_7B)
+def test_slice_7b_module_is_checked(rel):
+    path = PORT_DIR / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_slice_7b_modules_load_without_jax():
+    """Each module of the slice imports in a fresh interpreter and
+    leaves neither JAX nor the JAX package loaded."""
+    import subprocess
+    import sys
+
+    mods = tuple("data_accelerator_tpu_torch." + rel[:-3].replace("/", ".")
+                 for rel in SLICE_7B)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -15,6 +15,7 @@ eager PyTorch) and the rescale partition-map wiring through
 import functools
 import json
 import os
+import random
 
 import numpy as np
 import pytest
@@ -213,11 +214,21 @@ def test_client_retries_transient_5xx_with_backoff(monkeypatch):
 
     delays = []
     monkeypatch.setattr(om.time, "sleep", lambda s: delays.append(s))
+    # the jitter from a seeded sequence: unseeded, the second delay falls
+    # under 0.8 x the first in about 1.25% of runs (a second jitter under
+    # 0.4 x the first), whatever the code does
+    jitter = random.Random(11)
+    monkeypatch.setattr(om.random, "random", jitter.random)
+    expected = random.Random(11)
     flaky = _FlakyStore(fail_first=2)
     client = _objstore(flaky)
     client.put("k", b"v")  # 2 failures + 1 success within 3 attempts
     assert flaky.calls == 3
     assert len(delays) == 2
+    assert delays == [
+        pytest.approx(om.RETRY_BASE_S * 2 ** a * (0.5 + expected.random()))
+        for a in range(2)
+    ]
     assert delays[1] > delays[0] * 0.8  # roughly doubling, jittered
 
 

@@ -179,8 +179,12 @@ def test_collect_counts_is_cheap_and_idempotent():
 @pytest.mark.parametrize("slots", ["true", "false"])
 def test_background_landing_rows_match_sync_collect(slots):
     """Counts on the dispatching thread and tables on a landing thread,
-    with the next batch already dispatched: the rows and metrics of the
-    JAX package's synchronous collect. The ``Transfer_*`` metrics are
+    which lands batch N while the reference runs batch N + 1: the rows
+    and metrics of the JAX package's synchronous collect. Batch N lands
+    before the port encodes batch N + 1, as in the reference's order:
+    on the CPU a landing gives its ingest matrix back, and whether the
+    next encode reuses it (``Decode_BufferReuse_Count``) must not depend
+    on which thread gets there first. The ``Transfer_*`` metrics are
     left out: batch N+1's sized capacity depends on whether batch N's
     landing fed the EWMA before N+1 was dispatched, which the landing
     thread decides."""
@@ -188,17 +192,22 @@ def test_background_landing_rows_match_sync_collect(slots):
     jp, tp = _pair(extra)
     seqs = [37, 301, 5, 301, 64, 900, 12]
     with ThreadPoolExecutor(1, thread_name_prefix="landing") as pool:
-        prev = None
+        prev, reuses = None, []
         for b, n in enumerate(seqs):
             golden = _dispatch(jp, n, b).collect()
+            if prev is not None:
+                # batch b - 1 has landed (its matrix is back in the
+                # pool, its reuses counted) before batch b's encode
+                landed = prev[0].result(timeout=60)
+                _same(prev[1], landed, b - 1, transfer=False)
+                reuses.append(landed[1].get("Decode_BufferReuse_Count"))
             h = _dispatch(tp, n, b)
             h.collect_counts()  # the dispatching thread's only block
             fut = pool.submit(h.collect_tables)
-            if prev is not None:
-                _same(prev[1], prev[0].result(timeout=60), b - 1,
-                      transfer=False)
             prev = (fut, golden)
         _same(prev[1], prev[0].result(timeout=60), "last", transfer=False)
+    # every encode after the first took the matrix its predecessor gave back
+    assert reuses == [None] + [1.0] * (len(seqs) - 2)
 
 
 def test_output_slots_rotate_and_stay_correct():
