@@ -158,6 +158,17 @@ Phases, each printing JSON lines:
    every event once, the per-event outputs against a CPU run of its
    events, 0 poison hits and violations, the pilot's actuation and
    ``anomaly_score``'s launches;
+   control: the control plane's one-box stack in process (the REST API
+   with roles, a gateway, the website) with a job client that spawns
+   the port's host as a child process on the card. Through the website,
+   in the SPA's order: save the main flow from a socket, validate with
+   the device tier, generate configs, start the job for 4 batches, feed
+   it 4 x ``CAPACITY`` seeded events, sync until it succeeds, stop.
+   The child's log names a CUDA device and counts every event, each
+   output's count per batch equals the port's host on the CPU over the
+   same conf and bytes, the conf's conformance model is the port's
+   plan; then a designer kernel and a LiveQuery session of the flow run
+   the anomaly query, each equal to a CPU service on the same sample;
 10. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
@@ -178,6 +189,7 @@ import io
 import json
 import logging
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4583,6 +4595,364 @@ def phase_chaos(nvidia_smi: str, udf) -> dict:
     return total
 
 
+
+# -- the control plane (slice 9a) ---------------------------------------------
+CONTROL_FLOW = "ChipSmokeControl"
+CONTROL_BATCHES = 4
+CONTROL_JOB_TIMEOUT_S = 300.0
+CONTROL_SAMPLE_EVENTS = 1000
+CONTROL_TOKEN = "designer-token"
+# the gateway's services, each forwarded to the one API process
+CONTROL_SERVICES = ("flow", "interactivequery", "schemainference", "livedata")
+# the host module's log lines; its logger is ``__main__`` in a process
+# started with ``python -m``
+HOST_BATCH_LINE = re.compile(r"(?:runtime\.host|__main__):batch (\d+): (.*)$")
+HOST_START_LINE = re.compile(r"(?:runtime\.host|__main__):starting flow \S+ on (\S+) ")
+
+
+def control_gui(input_type: str = "socket", capacity: int = CAPACITY) -> dict:
+    """The main flow as a designer saves it for the one-box server:
+    ``main_flow_gui`` with ``input_type`` in place of the local source,
+    a poll a second of up to 8 x the capacity (as ``HOST_MAXRATE``), and
+    the pilot off, so that every batch of a fed source is a whole
+    capacity."""
+    gui = main_flow_gui(capacity)
+    gui["name"] = gui["displayName"] = CONTROL_FLOW
+    gui["input"]["type"] = input_type
+    gui["input"]["properties"].update({"windowDuration": "1",
+                                       "maxRate": str(8 * capacity)})
+    gui["process"]["jobconfig"]["jobPilot"] = "false"
+    return gui
+
+
+def relocate_job_dir(conf_path, dest) -> Path:
+    """The files of a generated job directory copied to ``dest``, every
+    path into the old directory pointing into ``dest``; returns the new
+    conf's path. A second host on one generated conf needs this: the
+    conf's checkpoint directories would let it restore the first's
+    window."""
+    src, dest = Path(conf_path).parent, Path(dest)
+    dest.mkdir(parents=True, exist_ok=True)
+    for p in sorted(src.iterdir()):
+        if p.is_file():
+            (dest / p.name).write_text(
+                p.read_text(encoding="utf-8").replace(str(src), str(dest)),
+                encoding="utf-8")
+    return dest / Path(conf_path).name
+
+
+def host_batch_metrics(log_text: str) -> list:
+    """The metrics of each ``batch N: k=v ...`` line a host logged."""
+    out = []
+    for line in log_text.splitlines():
+        m = HOST_BATCH_LINE.search(line)
+        if m:
+            out.append({k: float(v) for k, v in
+                        (kv.split("=", 1) for kv in m.group(2).split())})
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def send_when_listening(port: int, payloads, deadline_s: float = 120.0) -> float:
+    """Connect to ``port`` once something listens there (a spawned host's
+    socket source) and write ``payloads``; returns the seconds from the
+    call to the last byte written."""
+    import socket
+
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + deadline_s
+    while True:
+        try:
+            conn = socket.create_connection(("127.0.0.1", port), timeout=60)
+            break
+        except OSError:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"control: nothing listened on :{port} "
+                                     f"in {deadline_s} s")
+            time.sleep(0.1)
+    with conn:
+        for p in payloads:
+            conn.sendall(p)
+    return time.perf_counter() - t0
+
+
+def call_json(port: int, method: str, path: str, body=None, timeout: float = 120.0):
+    """One HTTP call as the SPA makes it; returns (status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=json.dumps(body).encode() if body is not None else None,
+        headers={"Content-Type": "application/json"}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode() or "{}")
+
+
+def spa(port: int, method: str, path: str, body=None):
+    """A call through the website that must succeed; returns its result."""
+    status, out = call_json(port, method, path, body)
+    if status != 200:
+        raise AssertionError(f"control {method} {path}: {status} {out}")
+    return out["result"]
+
+
+def cpu_host_counts(conf_path, payloads, workdir) -> list:
+    """The port's host on the CPU over the generated conf (relocated to a
+    directory of its own) fed ``payloads`` from a socket, one batch
+    each; returns each batch's metrics."""
+    from data_accelerator_tpu_torch.core.config import SettingDictionary, parse_conf_lines
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+
+    path = relocate_job_dir(conf_path, Path(workdir) / "cpu")
+    conf = parse_conf_lines(path.read_text(encoding="utf-8").splitlines())
+    conf["datax.job.input.default.socket.port"] = "0"
+    host = StreamingHost(SettingDictionary(conf), device="cpu")
+    per_batch = []
+    send = host.metric_logger.send_batch_metrics
+
+    def spy(metrics, ts=None):
+        per_batch.append(dict(metrics))
+        return send(metrics, ts)
+
+    host.metric_logger.send_batch_metrics = spy
+    src = host.sources["default"]
+    feed_socket(src.port, payloads, len(payloads) * CAPACITY, src)
+    try:
+        host.run(max_batches=len(payloads))
+    finally:
+        host.stop()
+    return per_batch
+
+
+def control_livequery(web_port: int, flow: str, runtime, seed: int) -> dict:
+    """The designer's interactive queries through the website, the
+    gateway and the API on the card: the flow's sample written by
+    ``inputdata/inferschema``, a ``kernel`` and ``kernel/executequery``
+    of the anomaly query, an ``lq/session`` and ``lq/execute`` of it;
+    each result against a CPU ``KernelService`` and ``LiveQueryService``
+    with the flow's UDF on the same sample."""
+    from data_accelerator_tpu_torch.lq.service import LiveQueryService
+    from data_accelerator_tpu_torch.serve import livequery
+    from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+    rs = np.random.RandomState(seed + 12)
+    sample = [json.loads(ln) for ln in
+              make_json_payload(rs, CONTROL_SAMPLE_EVENTS).decode().splitlines()]
+    query = designer_queries()["Scored"]
+    out = {}
+    # the sample has no timestamp column: every kernel's
+    # current_timestamp() reads this clock, so their rows agree
+    real_time = livequery.time
+    livequery.time = types.SimpleNamespace(time=lambda: BASE_MS / 1000.0 + 0.25)
+    cpu_kernels = livequery.KernelService(runtime_storage=runtime, device="cpu")
+    cpu_lq = LiveQueryService(device="cpu")
+    try:
+        inferred = spa(web_port, "POST", "/api/schemainference/inputdata/inferschema",
+                       {"name": flow, "events": sample})
+        if inferred["EventsSampled"] != CONTROL_SAMPLE_EVENTS:
+            raise AssertionError(f"control inferschema: {inferred['EventsSampled']}")
+        t0 = time.perf_counter()
+        kid = spa(web_port, "POST", "/api/interactivequery/kernel",
+                  {"name": flow})["kernelId"]
+        out["kernel_create_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got = spa(web_port, "POST", "/api/interactivequery/kernel/executequery",
+                  {"kernelId": kid, "query": query, "maxRows": CONTROL_SAMPLE_EVENTS})
+        out["kernel_execute_ms"] = (time.perf_counter() - t0) * 1e3
+        props = control_gui()["input"]["properties"]
+        ckid = cpu_kernels.create_kernel(
+            flow, props["inputSchemaFile"], normalization=props["normalizationSnippet"],
+            udfs={"anomalyscore": anomalyscore()})
+        want = cpu_kernels.execute(ckid, query, CONTROL_SAMPLE_EVENTS)
+        same_lq_result(got, want, "control kernel/executequery")
+        t0 = time.perf_counter()
+        # the serving plane has no runtime store: a session takes its rows
+        sid = spa(web_port, "POST", "/api/interactivequery/lq/session",
+                  {"name": flow, "tenant": "designer", "sampleRows": sample})["id"]
+        out["lq_session_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got_lq = spa(web_port, "POST", "/api/interactivequery/lq/execute",
+                     {"sessionId": sid, "query": query, "maxRows": CONTROL_SAMPLE_EVENTS})
+        out["lq_execute_ms"] = (time.perf_counter() - t0) * 1e3
+        csid = cpu_lq.create_session(
+            "designer", flow, props["inputSchemaFile"],
+            normalization=props["normalizationSnippet"], sample_rows=sample,
+            udfs={"anomalyscore": anomalyscore()})["id"]
+        same_lq_result(got_lq, cpu_lq.execute(csid, query, CONTROL_SAMPLE_EVENTS),
+                       "control lq/execute")
+        spa(web_port, "POST", "/api/interactivequery/kernel/delete", {"kernelId": kid})
+        spa(web_port, "POST", "/api/interactivequery/lq/session/close", {"sessionId": sid})
+        out["rows"] = len(want["result"])
+    finally:
+        livequery.time = real_time
+        cpu_kernels.delete_kernels()
+        cpu_lq.stop()
+    return out
+
+
+def phase_control(seed: int, nvidia_smi: str) -> dict:
+    """The control plane on the card, the one-box stack in process:
+    ``DataXApiService`` (roles on, ``device="cuda"``), a ``Gateway`` and a
+    ``WebsiteServer`` bound to it by a writer's token, its job client a
+    ``LocalJobClient`` spawning the port's host as a child process on
+    the card. Through the website, in the SPA's order: save
+    ``control_gui()`` (the main flow from a socket), ``flow/validate``
+    with the device tier, ``flow/generateconfigs``, ``flow/startjobs``
+    for ``CONTROL_BATCHES`` batches, the seeded payloads written to the
+    child's socket, ``job/syncall`` + ``job/get`` until ``success``,
+    ``flow/stopjobs``. Checked: the child's log names a CUDA device, its
+    batch lines count every event, each output's count per batch equals
+    the port's host on the CPU over the same conf and bytes, the conf's
+    conformance model is the port's plan, and the plan is what validate
+    returned. Then ``control_livequery``. Returns each kernel's launches
+    in the server process over the LiveQuery part (the child's are in
+    another process: its outputs equal the CPU's, and nothing there
+    falls back, so its kernel ran)."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.analysis import analyze_flow_device
+    from data_accelerator_tpu_torch.core.config import parse_conf_lines
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.serve.flowservice import FlowOperation
+    from data_accelerator_tpu_torch.serve.gateway import (
+        ROLE_READER, ROLE_WRITER, AuthTable, Gateway)
+    from data_accelerator_tpu_torch.serve.jobs import LocalJobClient
+    from data_accelerator_tpu_torch.serve.restapi import DataXApi, DataXApiService
+    from data_accelerator_tpu_torch.serve.storage import (
+        LocalDesignTimeStorage, LocalRuntimeStorage)
+    from data_accelerator_tpu_torch.web import WebsiteServer
+
+    rs = np.random.RandomState(seed + 11)
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(CONTROL_BATCHES)]
+    t_phase = time.perf_counter()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        design = LocalDesignTimeStorage(f"{tmp}/design")
+        runtime = LocalRuntimeStorage(f"{tmp}/runtime")
+        env = {"PYTHONPATH": os.pathsep.join(
+            p for p in (str(ROOT), os.environ.get("PYTHONPATH", "")) if p)}
+        client = LocalJobClient(log_dir=runtime.resolve("logs"), env=env)
+        ops = FlowOperation(design, runtime, job_client=client, device="cuda")
+        parts, job_name = [], None
+        try:
+            api = DataXApiService(DataXApi(ops, require_roles=True, device="cuda"),
+                                  port=0)
+            api.start()
+            parts.append(api)
+            auth = AuthTable()
+            auth.add(CONTROL_TOKEN, "designer@example", [ROLE_READER, ROLE_WRITER])
+            gw = Gateway(auth, port=0, backends={
+                s: f"http://127.0.0.1:{api.port}" for s in CONTROL_SERVICES})
+            gw.start()
+            parts.append(gw)
+            web = WebsiteServer(gateway_url=f"http://127.0.0.1:{gw.port}",
+                                gateway_token=CONTROL_TOKEN, port=0)
+            web.start()
+            parts.append(web)
+
+            gui = control_gui("socket", CAPACITY)
+            t0 = time.perf_counter()
+            spa(web.port, "POST", "/api/flow/flow/save", gui)
+            times["save_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            report = spa(web.port, "POST", "/api/flow/flow/validate",
+                         {"flow": gui, "device": True})
+            times["validate_ms"] = (time.perf_counter() - t0) * 1e3
+            plan = analyze_flow_device(gui)
+            if not report["ok"] or report["device"]["totals"] != plan.plan_dict()["totals"]:
+                raise AssertionError(f"control validate: {report.get('diagnostics')}, "
+                                     f"{report.get('device', {}).get('totals')}")
+            t0 = time.perf_counter()
+            gen = spa(web.port, "POST", "/api/flow/flow/generateconfigs",
+                      {"flowName": CONTROL_FLOW})
+            times["generate_ms"] = (time.perf_counter() - t0) * 1e3
+            [job_name], [conf_path] = gen["jobNames"], gen["confPaths"]
+            conf = parse_conf_lines(Path(conf_path).read_text(encoding="utf-8").splitlines())
+            model = json.dumps(analyze_flow_device(design.get_by_name(CONTROL_FLOW))
+                               .runtime_model(), separators=(",", ":"))
+            if conf.get("datax.job.process.conformance.model") != model:
+                raise AssertionError("control: the conf's conformance model is not "
+                                     "the port's plan")
+            port = free_port()
+            # the socket the child listens on: a per-job conf override,
+            # the key=value argument the job client passes the host
+            ops.registry.upsert({"name": job_name, "confOverrides": {
+                "datax.job.input.default.socket.port": str(port)}})
+            t0 = time.perf_counter()
+            [started] = spa(web.port, "POST", "/api/flow/flow/startjobs",
+                            {"flowName": CONTROL_FLOW, "batches": CONTROL_BATCHES})
+            if started["state"] != "starting":
+                raise AssertionError(f"control startjobs: {started}")
+            times["feed_s"] = send_when_listening(port, payloads)
+            log_path = Path(runtime.resolve("logs")) / f"{job_name}.log"
+            deadline = time.monotonic() + CONTROL_JOB_TIMEOUT_S
+            while True:
+                spa(web.port, "POST", "/api/flow/job/syncall", {})
+                job = spa(web.port, "GET", f"/api/flow/job/get?jobName={job_name}")
+                if "first_batch_s" not in times and HOST_BATCH_LINE.search(
+                        log_path.read_text(encoding="utf-8", errors="replace")):
+                    # to within one poll of this loop
+                    times["first_batch_s"] = time.perf_counter() - t0
+                if job["state"] not in ("starting", "running"):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"control: job still {job['state']} after "
+                                         f"{CONTROL_JOB_TIMEOUT_S} s")
+                time.sleep(0.2)
+            times["job_s"] = time.perf_counter() - t0
+            spa(web.port, "POST", "/api/flow/flow/stopjobs", {"flowName": CONTROL_FLOW})
+            log = log_path.read_text(encoding="utf-8", errors="replace")
+            if job["state"] != "success":
+                raise AssertionError(f"control: job ended {job['state']}: {log[-3000:]}")
+            started_on = HOST_START_LINE.search(log)
+            batches = host_batch_metrics(log)
+            events = sum(m["Input_DataXProcessedInput_Events_Count"] for m in batches)
+            if started_on is None or not started_on.group(1).startswith("cuda"):
+                raise AssertionError(f"control: the child ran on "
+                                     f"{started_on and started_on.group(1)}")
+            if len(batches) != CONTROL_BATCHES or events != CONTROL_BATCHES * CAPACITY:
+                raise AssertionError(f"control: {len(batches)} batches, {events} events")
+            t0 = time.perf_counter()
+            cpu = cpu_host_counts(conf_path, payloads, tmp)
+            times["cpu_run_s"] = time.perf_counter() - t0
+            counts = {}
+            for out in OUTPUTS:
+                key = f"Output_{out}_Events_Count"
+                counts[out] = [m.get(key) for m in batches]
+                if counts[out] != [float(m.get(key)) for m in cpu]:
+                    raise AssertionError(f"control {out}: {counts[out]} on the card, "
+                                         f"{[m.get(key) for m in cpu]} on the CPU")
+            launch.reset_launches()
+            lq = control_livequery(web.port, CONTROL_FLOW, runtime, seed)
+            torch.cuda.synchronize()
+            launches = process_launches()
+        finally:
+            if job_name is not None:
+                client.stop({"name": job_name})
+            for part in reversed(parts):
+                part.stop()
+    line = {"phase": "control", "seconds": time.perf_counter() - t_phase,
+            "job": job_name, "child_device": started_on.group(1),
+            "batches": len(batches), "events": events, "output_counts": counts,
+            "conformance_model": "the port's plan", **times, **lq,
+            "launches": launches, "card": nvidia_smi}
+    emit(line)
+    if launches["anomaly_score"] < 2 or launches["dx305_double"]:
+        raise AssertionError(f"control launches: {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4634,6 +5004,9 @@ def main(argv=None) -> int:
     slice_launches["plan"] = phase_plan(args.seed, nvidia_smi)
     # the chaos drills: the main path's host under five faults
     slice_launches["chaos"] = phase_chaos(nvidia_smi, udf)
+    # the control plane: the server process's LiveQuery part launches
+    # anomaly_score (the job child's launches are another process's)
+    slice_launches["control"] = phase_control(args.seed, nvidia_smi)
     # each path's own launches, its counts set to 0 just before it
     by_path = {
         "anomaly_score": {"flow": launches["anomaly_score"],

@@ -70,7 +70,13 @@ from .diagnostics import (
     Diagnostic,
     Span,
 )
-from .fleetcheck import FleetSpec, analyze_fleet, analyze_fleet_flows
+from .fleetcheck import (
+    FleetSpec,
+    analyze_fleet,
+    analyze_fleet_flows,
+    flow_footprint,
+    load_fleet_spec,
+)
 from .protocheck import analyze_flow_protocol, analyze_proto_modules, proto_module_paths
 from .racecheck import (
     ENGINE_PACKAGES,
@@ -94,6 +100,8 @@ __all__ = [
     "analyze_conf_modules",
     "analyze_fleet",
     "analyze_fleet_flows",
+    "flow_footprint",
+    "load_fleet_spec",
     "analyze_flow_compile",
     "analyze_flow_conf",
     "analyze_flow_protocol",

@@ -54,12 +54,8 @@ dump, and the tier-1 self-lint pins the counts so they cannot drift.
 
 Copy of the JAX package's ``analysis/confcheck.py``, scanning the
 port's own tree (``python -m data_accelerator_tpu_torch.analysis.
-confcheck`` dumps it). The producer scan's generation half and the
-registry-form DX1002 chain checks wait for the control plane: they run
-only when ``serve/generation.py`` is in the scan set, and the port has
-no such module until slice 9, so the full-tree gate judges read sites,
-the flattener template (``compile/flattener_schema.py``, copied) and
-the registry's read rows.
+confcheck`` dumps it), the control plane's ``serve/generation.py``
+included.
 """
 
 from __future__ import annotations

@@ -76,11 +76,9 @@ runtime **DX906** events — the dynamic ground truth the DX90x
 fixtures and the seeded ack-before-durability regression test are
 proven against.
 
-Copy of the JAX package's ``analysis/protocheck.py``. Trimmed:
-``PROTO_EXTRA_MODULES`` is empty, because the rescale handoff's module
-(``serve/jobs.py``) comes to the port with the control plane (slice
-9); until then the gate covers the port's ``runtime/``, ``lq/`` and
-``pilot/``, and DX905 has no handoff function to judge there.
+Copy of the JAX package's ``analysis/protocheck.py``: the gate covers
+the port's ``runtime/``, ``lq/`` and ``pilot/`` plus the rescale
+handoff in the port's ``serve/jobs.py``.
 """
 
 from __future__ import annotations
@@ -566,9 +564,7 @@ class ProtoCheckReport:
         }
 
 
-# the rescale handoff lives outside the engine packages proper, in
-# serve/jobs.py, which the port does not have until slice 9
-PROTO_EXTRA_MODULES: Tuple[str, ...] = ()
+PROTO_EXTRA_MODULES = (os.path.join("serve", "jobs.py"),)
 
 
 def proto_module_paths() -> List[str]:

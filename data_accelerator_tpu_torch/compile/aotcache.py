@@ -2,14 +2,29 @@
 state-snapshot mirror, fleet frames, shared machine profiles).
 
 A trimmed copy of the JAX package's ``compile/aotcache.py``: only
-``_parse_objstore_url``. The rest of that module is JAX's persistent
-compilation cache, which eager PyTorch has no counterpart for
-(``process.compile.cachedir``/``cacheurl`` are read by nothing here).
+``_parse_objstore_url`` and ``compile_conf_for``. The rest of that
+module is JAX's persistent compilation cache, which eager PyTorch has no
+counterpart for: ``process.compile.cachedir``/``cacheurl`` are read by
+nothing here. ``compile_conf_for`` stays so that the control plane's
+REST kernel pool and its one-box server build the same conf keys as the
+JAX package's (``analysis/confspec.py`` marks both ``read=False``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+def compile_conf_for(cache_dir: str,
+                     cache_url: Optional[str] = None) -> dict:
+    """The ``datax.job.process.compile.*`` conf keys that arm this
+    cache for a kernel pool — the one way LiveQuery surfaces (REST
+    kernel pool, serving-plane warm cache, one-box server) build their
+    shared compile conf, so the layers can't drift on key names."""
+    conf = {"datax.job.process.compile.cachedir": cache_dir}
+    if cache_url:
+        conf["datax.job.process.compile.cacheurl"] = cache_url
+    return conf
 
 
 def _parse_objstore_url(url: str) -> Tuple[str, str, str]:

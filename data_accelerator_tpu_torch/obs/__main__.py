@@ -33,9 +33,7 @@ histograms serve.
 [--output O] [--json]`` queries the control plane's fleet telemetry
 rollup (``GET /fleet/metrics`` / ``/fleet/flows/<flow>``,
 obs/fleetview.py): merged counters and histograms, per-replica status,
-replica lineage, and the DX54x delivery-conservation audit. Only the
-JAX package's control plane serves those paths until the port's
-(slice 9); it merges the frames that port hosts publish.
+replica lineage, and the DX54x delivery-conservation audit.
 
 ``obs trace ... --stitch`` additionally groups the rendered spans by
 the ``replica`` tag each host stamps on its batch spans, following the

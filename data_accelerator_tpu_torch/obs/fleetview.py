@@ -55,14 +55,9 @@ counted (``Fleet_FrameDecodeError_Count``) — the aggregator never
 crashes on bad input, and a flaky store only delays the rollup
 (tested with an injected-transport stub, tests/test_fleetview.py).
 
-Copy of the JAX package's ``obs/fleetview.py``, whole. The control
-plane that serves it (``GET /fleet/metrics``, ``GET /fleet/flows/<flow>``
-in ``serve/restapi.py``, the website's Prometheus exposition, the SPA
-fleet tab) is not ported yet (slice 9); until then the JAX control plane
-serves frames that port hosts publish, and ``python -m
-data_accelerator_tpu_torch.obs fleet`` reads it. Without the port's job
-registry (``serve/jobs.py``, slice 9) a caller passes no ``lineage_fn``,
-and the frames supply the lineage: the reference's fallback.
+Copy of the JAX package's ``obs/fleetview.py``, whole. The port's
+control plane serves it (``serve/restapi.py``, ``web/server.py``) and
+passes its job registry's lineage (``serve/__main__.py``).
 """
 
 from __future__ import annotations

@@ -28,7 +28,7 @@ port's ``StreamingHost`` through the same seams
 (``processor.dispatch_batch``, the dispatcher's sinks) and imports only
 ported modules (``compile/aotcache.py::_parse_objstore_url``,
 ``serve/objectstore.py``). The scenario suite that arms it
-(``serve/scenarios.py``) comes with the control plane (slice 9).
+(``serve/scenarios.py``) comes with slice 9b.
 """
 
 from __future__ import annotations

@@ -1,24 +1,90 @@
-"""Runtime artifact storage: the generated conf, transform, projection,
-schema and the LiveQuery sample blob.
+"""Design-time and runtime config storage.
 
-reference: DataX.Config/Storage/IRuntimeConfigStorage.cs with blob
-storage for runtime files; the local ("one-box") implementation is
-DataX.Config.Local/LocalRuntimeTimeStorage.cs.
+reference: DataX.Config/Storage/{IDesignTimeConfigStorage,
+IRuntimeConfigStorage}.cs with the CosmosDB implementation for flow
+documents and blob storage for runtime files; the local ("one-box")
+implementations are DataX.Config.Local/{LocalDesignTimeStorage,
+LocalRuntimeTimeStorage}.cs. Here the local filesystem is the primary
+backend (TPU VMs mount shared storage); the interfaces keep the same
+split so an object-store backend can slot in.
 
-A copy of the JAX package's ``serve/storage.py`` trimmed to
-``RuntimeStorage``, ``LocalRuntimeStorage`` and ``ObjectRuntimeStorage``
-(over the port's ``serve/objectstore.py``), which schema inference and
-the designer's kernels use. The design-time flow store
-(``DesignTimeStorage``, ``LocalDesignTimeStorage``,
-``ObjectDesignTimeStorage``) and ``JobRegistry`` come with the control
-plane, not ported yet.
+Copy of the JAX package's ``serve/storage.py``, whole: the design-time
+flow store (``DesignTimeStorage``, ``LocalDesignTimeStorage``,
+``ObjectDesignTimeStorage``), the runtime artifact store
+(``RuntimeStorage``, ``LocalRuntimeStorage``, ``ObjectRuntimeStorage``,
+over the port's ``serve/objectstore.py``; schema inference and the
+designer's kernels use it too) and ``JobRegistry``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
-from typing import List, Optional
+import threading
+from typing import Dict, List, Optional
+
+
+class DesignTimeStorage:
+    """Flow documents keyed by flow name."""
+
+    def get_by_name(self, name: str) -> Optional[dict]:
+        raise NotImplementedError
+
+    def get_all(self) -> List[dict]:
+        raise NotImplementedError
+
+    def save(self, doc: dict) -> dict:
+        raise NotImplementedError
+
+    def delete(self, name: str) -> bool:
+        raise NotImplementedError
+
+
+class LocalDesignTimeStorage(DesignTimeStorage):
+    """One JSON file per flow under ``root/`` (diskdb analog)."""
+
+    def __init__(self, root: str):
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._lock = threading.Lock()
+
+    def _path(self, name: str) -> str:
+        safe = "".join(c for c in name if c.isalnum() or c in "-_.")
+        return os.path.join(self.root, f"{safe}.json")
+
+    def get_by_name(self, name: str) -> Optional[dict]:
+        p = self._path(name)
+        if not os.path.exists(p):
+            return None
+        with open(p, "r", encoding="utf-8") as f:
+            return json.load(f)
+
+    def get_all(self) -> List[dict]:
+        out = []
+        for fn in sorted(os.listdir(self.root)):
+            if fn.endswith(".json"):
+                with open(os.path.join(self.root, fn), encoding="utf-8") as f:
+                    out.append(json.load(f))
+        return out
+
+    def save(self, doc: dict) -> dict:
+        name = doc.get("name")
+        if not name:
+            raise ValueError("flow document requires a 'name'")
+        with self._lock:
+            tmp = self._path(name) + ".tmp"
+            with open(tmp, "w", encoding="utf-8") as f:
+                json.dump(doc, f, indent=1)
+            os.replace(tmp, self._path(name))
+        return doc
+
+    def delete(self, name: str) -> bool:
+        p = self._path(name)
+        if os.path.exists(p):
+            os.remove(p)
+            return True
+        return False
 
 
 class RuntimeStorage:
@@ -104,6 +170,46 @@ class LocalRuntimeStorage(RuntimeStorage):
             os.remove(full)
 
 
+class ObjectDesignTimeStorage(DesignTimeStorage):
+    """Flow documents in a shared object store — the CosmosDB-role
+    backend (reference: DataX.Config.Storage CosmosDB impl of
+    IDesignTimeConfigStorage) so every control-plane replica sees the
+    same designs. Keys: ``design/<name>.json``."""
+
+    PREFIX = "design/"
+
+    def __init__(self, client):
+        from .objectstore import ObjectStoreClient  # noqa: F401 — type
+
+        self.client = client
+
+    def _key(self, name: str) -> str:
+        safe = "".join(c for c in name if c.isalnum() or c in "-_.")
+        return f"{self.PREFIX}{safe}.json"
+
+    def get_by_name(self, name: str) -> Optional[dict]:
+        data = self.client.get(self._key(name))
+        return json.loads(data.decode()) if data is not None else None
+
+    def get_all(self) -> List[dict]:
+        out = []
+        for key in self.client.list(self.PREFIX):
+            data = self.client.get(key)
+            if data is not None:
+                out.append(json.loads(data.decode()))
+        return out
+
+    def save(self, doc: dict) -> dict:
+        name = doc.get("name")
+        if not name:
+            raise ValueError("flow document requires a 'name'")
+        self.client.put(self._key(name), json.dumps(doc, indent=1).encode())
+        return doc
+
+    def delete(self, name: str) -> bool:
+        return self.client.delete(self._key(name))
+
+
 class ObjectRuntimeStorage(RuntimeStorage):
     """Runtime artifacts in the shared object store — the blob-storage
     role (reference: IRuntimeConfigStorage blob impl), so a job
@@ -169,3 +275,42 @@ class ObjectRuntimeStorage(RuntimeStorage):
         key = self._key(prefix)
         self.client.delete(key)
         self.client.delete_prefix(key.rstrip("/") + "/")
+
+
+class JobRegistry:
+    """Job records (name -> record dict), stored alongside runtime configs.
+
+    reference: DataX.Config SparkJobData/SparkJobConfig docs in the
+    design-time store, upserted by S800_DeploySparkJob.cs:23-60.
+    """
+
+    def __init__(self, storage: RuntimeStorage):
+        self.storage = storage
+        self._lock = threading.Lock()
+
+    def _path(self, name: str) -> str:
+        return os.path.join("jobs", f"{name}.json")
+
+    def upsert(self, record: dict) -> dict:
+        name = record["name"]
+        with self._lock:
+            existing = self.get(name) or {}
+            existing.update(record)
+            self.storage.save_file(self._path(name), json.dumps(existing, indent=1))
+        return existing
+
+    def get(self, name: str) -> Optional[dict]:
+        try:
+            return json.loads(self.storage.read_file(self._path(name)))
+        except FileNotFoundError:
+            return None
+
+    def get_all(self) -> List[dict]:
+        out = []
+        for rel in self.storage.list_files("jobs"):
+            if rel.endswith(".json"):
+                out.append(json.loads(self.storage.read_file(rel)))
+        return out
+
+    def delete(self, name: str) -> None:
+        self.storage.delete_all(self._path(name))

@@ -200,9 +200,40 @@ class UdfRegistry:
         return changed
 
 
+# JAX and the JAX package: a conf the port runs never loads code from
+# them, whatever module path it names
+REFERENCE_MODULES = ("jax", "jaxlib", "data_accelerator_tpu")
+
+
+def _refuse_reference_path(path: str, owner: str) -> None:
+    """Raise, before anything is imported, for a class path into JAX or
+    the JAX package, naming the port's counterpart when it has one.
+    ``owner`` says who names the path. The path is never rewritten: a
+    JAX UDF is not the port's UDF."""
+    mod_name = path.split(":", 1)[0] if ":" in path else path.rsplit(".", 1)[0]
+    top = mod_name.split(".")[0]
+    if top not in REFERENCE_MODULES:
+        return
+    hint = ""
+    if top == "data_accelerator_tpu":
+        counterpart = "data_accelerator_tpu_torch" + path[len(top):]
+        try:
+            _import_attr(counterpart)
+        except (ImportError, AttributeError):
+            pass
+        else:
+            hint = f"; the port's counterpart is '{counterpart}'"
+    raise EngineException(
+        f"{owner} names '{path}', a module of {top}: the PyTorch "
+        f"port loads no code from JAX or the JAX package{hint}"
+    )
+
+
 def _import_attr(path: str):
     """``package.module:attr`` -> python object (reflection-load analog,
-    ClassLoaderHost/SparkJarLoader)."""
+    ClassLoaderHost/SparkJarLoader). Refuses a path into JAX or the JAX
+    package."""
+    _refuse_reference_path(path, "a class path")
     if ":" in path:
         mod_name, attr = path.split(":", 1)
     else:
@@ -256,6 +287,7 @@ def load_udfs_from_conf(dict_: SettingDictionary) -> Dict[str, object]:
                     "first, so this UDF would never be called — rename it"
                 )
             declared_as[key] = f"{tier} '{name}'"
+            _refuse_reference_path(cls_path, f"{tier} '{name}'")
             try:
                 obj = _import_attr(cls_path)
                 if isinstance(obj, type) or not hasattr(obj, "compile_call"):

@@ -86,12 +86,14 @@ def test_port_tree_is_conf_clean_with_pinned_inventory():
     report = tconf.analyze_conf_modules(paths)
     assert report.diagnostics == [], [d.render() for d in report.diagnostics]
     cd = report.conf_dict()
-    assert cd["analyzedFiles"] == len(paths) == 75
+    assert cd["analyzedFiles"] == len(paths) == 88
     assert cd["readSites"] == 98
     assert cd["readKeys"] == 92
-    # the flattener template's keys: the generation scan waits for slice 9
-    assert cd["producedKeys"] == 6
-    assert cd["knobTokens"] == 0
+    # the flattener template's keys, the control plane's generation scan
+    # (serve/generation.py; its S400 knob tokens too) and the REST API's
+    # UDF class keys for a flow's kernels (serve/restapi.py)
+    assert cd["producedKeys"] == 42
+    assert cd["knobTokens"] == 6
     assert cd["registryKeys"] == len(tspec.CONF_REGISTRY) == 109
 
 
@@ -100,12 +102,16 @@ def test_reference_tier_flags_only_the_rows_the_port_does_not_read():
     with the reference's rows: only the five rows the port deliberately
     leaves unread are dead; the two debug reads are seen."""
     scans = []
-    for p in tconf.conf_module_paths():
+    paths = tconf.conf_module_paths()
+    for p in paths:
         s = jconf._ModuleConfScan(p)
         if s.run():
             scans.append(s)
+    # the gate's own rule: the chain checks run with generation in scope
+    chain_scope = any(os.path.basename(p) == "generation.py" for p in paths)
+    assert chain_scope
     diags = []
-    jconf._check_lattice(scans, diags, full_tree=True, chain_scope=False)
+    jconf._check_lattice(scans, diags, full_tree=True, chain_scope=chain_scope)
     dead = {d.message.split("'")[1].removeprefix(jspec.PROCESS_PREFIX)
             for d in diags if d.code == "DX1001"}
     assert dead == PORT_UNREAD

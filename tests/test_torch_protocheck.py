@@ -58,11 +58,15 @@ def test_port_engine_is_protocol_clean_with_pinned_inventory():
 
 
 def test_rescale_handoff_module_waits_for_the_control_plane():
-    """Pinned trim: the reference covers ``serve/jobs.py`` too; the port
-    has no such module yet, so its gate is the engine alone."""
-    assert tproto.PROTO_EXTRA_MODULES == ()
-    assert jproto.PROTO_EXTRA_MODULES == (os.path.join("serve", "jobs.py"),)
-    assert tproto.proto_module_paths() == tproto.engine_module_paths()
+    """The control plane came: the gate covers the port's
+    ``serve/jobs.py`` (the rescale handoff) beside the engine, as the
+    reference's covers its own."""
+    assert tproto.PROTO_EXTRA_MODULES == jproto.PROTO_EXTRA_MODULES
+    assert tproto.PROTO_EXTRA_MODULES == (os.path.join("serve", "jobs.py"),)
+    jobs = os.path.join(os.path.dirname(os.path.dirname(tproto.__file__)),
+                        "serve", "jobs.py")
+    assert tproto.proto_module_paths() == sorted(
+        tproto.engine_module_paths() + [jobs])
 
 
 def test_reference_tier_finds_nothing_in_the_port_engine():

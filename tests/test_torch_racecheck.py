@@ -16,6 +16,7 @@ JAX package's (``tests/test_racecheck.py``).
   instead of a copy fails the port's gate.
 """
 
+import glob
 import os
 import pathlib
 
@@ -165,3 +166,18 @@ def test_cli_race_exit_and_json(capsys):
 
     rep = json.loads(capsys.readouterr().out)
     assert rep["ok"] and rep["race"]["analyzedFiles"] == len(trace.engine_module_paths())
+
+
+@pytest.mark.parametrize("tier", ["reference", "port"])
+def test_control_plane_threads_are_race_clean(tier):
+    """The control plane's threaded modules (the REST server, the
+    gateway, the website, the scheduler thread, the job client) under
+    both packages' race tiers: no finding."""
+    root = os.path.dirname(os.path.dirname(trace.__file__))
+    paths = sorted(glob.glob(os.path.join(root, "serve", "*.py"))
+                   + glob.glob(os.path.join(root, "web", "*.py")))
+    assert {os.path.basename(p) for p in paths} >= {
+        "restapi.py", "gateway.py", "server.py", "scheduler.py", "jobs.py"}
+    mod = jrace if tier == "reference" else trace
+    report = mod.analyze_modules(paths)
+    assert report.diagnostics == [], [d.render() for d in report.diagnostics]
