@@ -149,7 +149,19 @@ Phases, each printing JSON lines:
    ``Compile_WarmMiss_Count``; the fleet tier over the main, storm and
    state flows' card plans on a one-card spec with the card's memory;
    gen_conf also says whether DX520 judges ``device-step`` now;
-   chaos: the five drills of the JAX package's ``serve/scenarios.py``
+   mesh: the main flow (the config-1 queries plus the anomaly query)
+   over a ``dist/mesh.py`` mesh, 4 batches at ``CAPACITY`` rows, three
+   ways: 4 virtual shards on ``cuda:0``, ``make_mesh(1)``, and a conf
+   with ``process.numchips=4`` (clamped to the visible cards, with the
+   warning); each batch's counts and rows equal a single-card
+   processor's, ``Mesh_ICI_Bytes`` and ``Mesh_Reshard_Count`` the same
+   every batch, nonzero on the sharded mesh and 0 on the one-device
+   mesh, ``anomaly_score`` launched once a batch and replica, ms a
+   batch and the garbage collector's ms in its step and in the whole
+   batch beside the single card's, one profiled batch a way split into
+   gathers, copies and other kernels; ``HostIngestPlan`` and one all-reduce under a world-size-1
+   NCCL group; over every real card when there are two or more;
+   chaos: the five drills of the port's ``serve/scenarios.py``
    (preemption mid-window, sink outage, hot-key skew, malformed flood,
    rescale with state), pilot off and on, at depth 2 with the buffer
    sanitizer and the protocol monitor armed, on card hosts: the main
@@ -169,6 +181,10 @@ Phases, each printing JSON lines:
    same conf and bytes, the conf's conformance model is the port's
    plan; then a designer kernel and a LiveQuery session of the flow run
    the anomaly query, each equal to a CPU service on the same sample;
+   then one round of the JobRunner probe (``serve/jobrunner.py`` over
+   ``serve/scenarios.py::default_suite``) through the gateway: both
+   scenarios pass, their ``DATAX-JobRunner:*`` points are 1, and the
+   deploy's job child ran on the card;
 10. ground_truth: under ``torch.cuda.set_sync_debug_mode("error")`` the
    bad twins of the DX300, DX301 and DX305 analyzer fixtures raise on
    CUDA tensors and their clean twins run.
@@ -200,7 +216,6 @@ import warnings
 import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
@@ -675,12 +690,13 @@ def make_processors(conf: dict, outputs, gpu_udfs=None, cpu_udfs=None):
     return gpu, cpu, type_ids, init_s
 
 
-def drive_on_card(gpu, batches) -> dict:
+def drive_on_card(gpu, batches, first: int = 0) -> dict:
     """Each batch through the card, timed from the host columns to the
-    counts vector on the host, host syncs counted by sync debug mode."""
+    counts vector on the host, host syncs counted by sync debug mode;
+    batch ``b`` of ``batches`` is the flow's batch ``first + b``."""
     step_ms, encode_ms, collect_ms, syncs, results = [], [], [], [], []
-    sync_sites = set()
-    for b, cols in enumerate(batches):
+    spans, sync_sites = [], set()
+    for b, cols in enumerate(batches, start=first):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
@@ -697,12 +713,13 @@ def drive_on_card(gpu, batches) -> dict:
         datasets, metrics = handle.collect()
         t2 = time.perf_counter()
         step_ms.append((t1 - t0) * 1e3)
+        spans.append((t0, t1))
         encode_ms.append((t_enc - t0) * 1e3)
         collect_ms.append((t2 - t1) * 1e3)
         syncs.append(len(synced))
         sync_sites.update(m[:160] for m in synced)
         results.append((counts, datasets, metrics))
-    return {"step_ms": step_ms, "encode_ms": encode_ms,
+    return {"step_ms": step_ms, "step_spans": spans, "encode_ms": encode_ms,
             "collect_ms": collect_ms, "syncs": syncs,
             "sync_sites": sorted(sync_sites), "results": results}
 
@@ -3855,37 +3872,12 @@ def phase_profile(proc, cols, batch_time_ms) -> None:
     })
 
 
-# -- chaos drills: the JAX package's serve/scenarios.py chaos_* drills,
-# run against the port's StreamingHost. A ChaosFlow says what the host
-# runs and how a drill's event rows become bytes; the drills are the
+# -- chaos drills: the port's serve/scenarios.py chaos_* drills against its
+# StreamingHost. A DrillFlow (serve/scenarios.py) says what the host runs
+# and how a drill's event rows become bytes; the drills are the
 # reference's steps with every count a multiple of the flow's poll size.
 CHAOS_FAULTS = ("preemption", "sink-outage", "hot-key-skew", "malformed-flood",
                 "rescale-state")
-CHAOS_SCHEMA = json.dumps({"type": "struct", "fields": [
-    {"name": "k", "type": "long", "nullable": False, "metadata": {}},
-    {"name": "v", "type": "double", "nullable": False, "metadata": {}},
-    {"name": "seq", "type": "long", "nullable": False, "metadata": {}},
-]})
-CHAOS_TRANSFORM = (
-    "--DataXQuery--\n"
-    "Out = SELECT k, v, seq FROM DataXProcessedInput\n"
-    "--DataXQuery--\n"
-    "Hot = SELECT k, COUNT(*) AS c FROM DataXProcessedInput GROUP BY k\n"
-)
-CHAOS_STATE_TRANSFORM = (
-    "--DataXQuery--\n"
-    "merged = SELECT k, v FROM DataXProcessedInput "
-    "UNION ALL SELECT k, v FROM seen\n"
-    "--DataXQuery--\n"
-    "seen = SELECT k, MAX(v) AS v FROM merged GROUP BY k\n"
-    "--DataXQuery--\n"
-    "Out = SELECT k, v, seq FROM DataXProcessedInput\n"
-    "--DataXQuery--\n"
-    "Win = SELECT k, COUNT(*) AS c "
-    "FROM DataXProcessedInput_30seconds GROUP BY k\n"
-)
-CHAOS_STATE_KEYS = 8
-CHAOS_STATE_PARTS = 8
 # the card's drill flow: the main path (the alerting flow plus the
 # anomaly query) with an event id, and a witness output that carries it
 CHAOS_IOT_SCHEMA = json.dumps({
@@ -3898,44 +3890,9 @@ CHAOS_MAIN_TRANSFORM = TRANSFORM + (
     "Out = SELECT deviceDetails.deviceId AS k, seq FROM DataXProcessedInput\n"
 )
 CHAOS_MAIN_OUTPUTS = OUTPUTS + ["Out"]
-
-
-@dataclass
-class ChaosFlow:
-    """What a drill's host runs. ``poll``: events a poll takes (the
-    reference's drills take 4); ``outputs``: every output, each given a
-    recording sink (``Out`` is the exactly-once witness); ``line``: one
-    event row ``{"k", "v", "seq"}`` as a JSON line; ``udfs``: the UDF
-    objects a host takes; ``device``: where the host runs."""
-
-    poll: int
-    capacity: int
-    schema: str
-    transform: str
-    outputs: list
-    line: object = None
-    udfs: object = None
-    device: str = "cuda"
-    extra: dict = None
-    # polls' worth of events a drill feeds, by fault, where it feeds
-    # fewer than the reference's drill
-    polls: dict = None
-
-    def events(self, fault: str, polls: int) -> int:
-        """The events drill ``fault`` feeds: ``polls`` polls' worth (the
-        reference's count) unless the flow cuts it."""
-        return (self.polls or {}).get(fault, polls) * self.poll
-
-    def payload(self, rows) -> bytes:
-        line = self.line or (lambda r: json.dumps(r))
-        return "".join(line(r) + "\n" for r in rows).encode()
-
-
-def chaos_small_flow(device: str = "cpu") -> ChaosFlow:
-    """The reference drills' own flow and sizes."""
-    return ChaosFlow(poll=4, capacity=8, schema=CHAOS_SCHEMA,
-                     transform=CHAOS_TRANSFORM, outputs=["Out", "Hot"],
-                     device=device)
+# a drain's time limit on the card (twice the reference's: a poll there
+# is a whole batch)
+CHAOS_TIMEOUT_S = 60.0
 
 
 def iot_chaos_line(r) -> str:
@@ -3956,13 +3913,15 @@ CARD_CHAOS_POLLS = {"preemption": 5, "hot-key-skew": 4,
 
 
 def chaos_main_flow(poll: int = CAPACITY, device: str = "cuda", udf=None,
-                    polls: dict = None) -> ChaosFlow:
+                    polls: dict = None):
     """The main path as a drill flow, ``poll`` events a batch."""
-    return ChaosFlow(
+    from data_accelerator_tpu_torch.serve.scenarios import DrillFlow
+
+    return DrillFlow(
         poll=poll, capacity=poll, schema=CHAOS_IOT_SCHEMA, polls=polls,
-        transform=CHAOS_MAIN_TRANSFORM, outputs=list(CHAOS_MAIN_OUTPUTS),
+        transform=CHAOS_MAIN_TRANSFORM, outputs=tuple(CHAOS_MAIN_OUTPUTS),
         line=iot_chaos_line, udfs={"anomalyscore": udf} if udf else None,
-        device=device, extra={
+        device=device, timeout_s=CHAOS_TIMEOUT_S, extra={
             "datax.job.process.timestampcolumn": "eventTimeStamp",
             "datax.job.process.watermark": "0 second",
             "datax.job.process.timewindow.DataXProcessedInput_5seconds"
@@ -3972,134 +3931,14 @@ def chaos_main_flow(poll: int = CAPACITY, device: str = "cuda", udf=None,
         })
 
 
-def chaos_state_flow(poll: int = 4, device: str = "cpu") -> ChaosFlow:
-    """The rescale drill's stateful flow: a 30 s window ring and the
-    ``seen`` MAX accumulator on key-range partitions."""
-    return ChaosFlow(poll=poll, capacity=2 * poll, schema=CHAOS_SCHEMA,
-                     transform=CHAOS_STATE_TRANSFORM, outputs=["Out", "Win"],
-                     device=device)
+def chaos_state_flow(poll: int, device: str = "cuda"):
+    """The rescale drill's stateful flow at ``poll`` events a poll."""
+    import dataclasses
 
+    from data_accelerator_tpu_torch.serve.scenarios import state_drill_flow
 
-def chaos_events(lo: int, hi: int, keys: int = 4) -> list:
-    return [{"k": i % keys, "v": float(i), "seq": i} for i in range(lo, hi)]
-
-
-def _chaos_pilot_conf(conf: dict, pilot: bool, pilot_conf) -> None:
-    if pilot:
-        # tight loop knobs so evaluation windows elapse inside a drill
-        conf.update({
-            "datax.job.process.pilot.windowseconds": "0.02",
-            "datax.job.process.pilot.cooldownseconds": "0.02",
-            "datax.job.process.observability.stallewmams": "200",
-        })
-        for k, v in (pilot_conf or {}).items():
-            conf[f"datax.job.process.pilot.{k}"] = str(v)
-    else:
-        conf["datax.job.process.pilot.enabled"] = "false"
-
-
-def _chaos_host(ctx, conf: dict, flow: ChaosFlow, src=None):
-    from data_accelerator_tpu_torch.core.config import SettingDictionary
-    from data_accelerator_tpu_torch.pilot.chaos import RecordingSink
-    from data_accelerator_tpu_torch.runtime.host import StreamingHost
-    from data_accelerator_tpu_torch.runtime.sources import SocketSource
-
-    src = src if src is not None else SocketSource(port=0)
-    host = StreamingHost(SettingDictionary(conf), source=src, udfs=flow.udfs,
-                         device=flow.device)
-    sinks = {}
-    for out in flow.outputs:
-        sinks[out] = RecordingSink()
-        host.dispatcher.operators[out].sinks = [sinks[out]]
-    ctx["host"], ctx["src"], ctx["sink"] = host, src, sinks["Out"]
-    ctx.setdefault("sinks", []).append(sinks["Out"])
-    ctx.setdefault("all_sinks", []).append(sinks)
-    ctx.setdefault("hosts", []).append(host)
-    ctx["tracefile"] = conf["datax.job.process.telemetry.tracefile"]
-    return host
-
-
-def build_chaos_host(ctx, name: str, pilot: bool, depth: int, flow: ChaosFlow,
-                     pilot_conf=None, reuse_source: bool = False):
-    """``serve/scenarios.py::_build_chaos_host`` for the port: one
-    socket-fed host with a recording sink on every output, the buffer
-    sanitizer and the protocol monitor armed."""
-    workdir = ctx["workdir"]
-    tpath = os.path.join(workdir, "chaos.transform")
-    if not os.path.exists(tpath):
-        with open(tpath, "w", encoding="utf-8") as f:
-            f.write(flow.transform)
-    conf = {
-        "datax.job.name": name,
-        "datax.job.input.default.blobschemafile": flow.schema,
-        "datax.job.input.default.eventhub.maxrate": str(flow.poll),
-        "datax.job.input.default.eventhub.checkpointdir": os.path.join(workdir, "ckpt"),
-        "datax.job.input.default.eventhub.checkpointinterval": "0 second",
-        "datax.job.input.default.streaming.intervalinseconds": "1",
-        "datax.job.process.transform": tpath,
-        "datax.job.process.batchcapacity": str(flow.capacity),
-        "datax.job.process.pipeline.depth": str(depth),
-        "datax.job.process.debug.buffersanitizer": "true",
-        "datax.job.process.debug.protocolmonitor": "true",
-        "datax.job.process.telemetry.tracefile": os.path.join(workdir, "trace.jsonl"),
-        **{f"datax.job.output.{o}.console.maxrows": "0" for o in flow.outputs},
-        **(flow.extra or {}),
-    }
-    _chaos_pilot_conf(conf, pilot, pilot_conf)
-    src = ctx["src"] if reuse_source and ctx.get("src") is not None else None
-    return _chaos_host(ctx, conf, flow, src)
-
-
-def build_stateful_host(ctx, name: str, pilot: bool, depth: int, flow: ChaosFlow,
-                        replica_index: int = 1, replica_count: int = 1, gen: int = 0,
-                        pilot_conf=None):
-    """``serve/scenarios.py::_build_stateful_host`` for the port: the
-    accumulator flow on ``CHAOS_STATE_PARTS`` partitions mirrored through
-    the drill's object store, fleet frames every batch; ``gen`` gives
-    each host instance its own directories."""
-    workdir = ctx["workdir"]
-    tpath = os.path.join(workdir, "state.transform")
-    if not os.path.exists(tpath):
-        with open(tpath, "w", encoding="utf-8") as f:
-            f.write(flow.transform)
-    hostdir = os.path.join(workdir, f"g{gen}-r{replica_index}")
-    conf = {
-        "datax.job.name": name,
-        "datax.job.input.default.blobschemafile": flow.schema,
-        "datax.job.input.default.eventhub.maxrate": str(flow.poll),
-        "datax.job.input.default.eventhub.checkpointdir": os.path.join(hostdir, "ckpt"),
-        "datax.job.input.default.eventhub.checkpointinterval": "0 second",
-        "datax.job.input.default.streaming.intervalinseconds": "1",
-        "datax.job.process.timestampcolumn": "ts",
-        "datax.job.process.watermark": "0 second",
-        "datax.job.process.transform": tpath,
-        "datax.job.process.batchcapacity": str(flow.capacity),
-        "datax.job.process.pipeline.depth": str(depth),
-        "datax.job.process.timewindow.DataXProcessedInput_30seconds"
-        ".windowduration": "30 seconds",
-        "datax.job.process.statetable.seen.schema": "k long, v double",
-        "datax.job.process.statetable.seen.location": os.path.join(hostdir, "state", "seen"),
-        "datax.job.process.state.partitions": str(CHAOS_STATE_PARTS),
-        "datax.job.process.state.partitionkey": "k",
-        "datax.job.process.state.replicaindex": str(replica_index),
-        "datax.job.process.state.replicacount": str(replica_count),
-        "datax.job.process.state.snapshoturl": ctx["store_url"],
-        "datax.job.process.state.filteringest": "true",
-        "datax.job.process.fleet.publishurl": ctx["store_url"],
-        "datax.job.process.fleet.windowseconds": "0",
-        "datax.job.process.fleet.replica": f"g{gen}-r{replica_index}",
-        "datax.job.process.debug.buffersanitizer": "true",
-        "datax.job.process.debug.protocolmonitor": "true",
-        "datax.job.process.telemetry.tracefile": os.path.join(workdir, "trace.jsonl"),
-        "datax.job.output.Out.console.maxrows": "0",
-        "datax.job.output.Win.console.maxrows": "0",
-    }
-    _chaos_pilot_conf(conf, pilot, pilot_conf)
-    return _chaos_host(ctx, conf, flow)
-
-
-def chaos_delivered(ctx) -> list:
-    return [seq for sink in ctx.get("sinks", []) for seq in sink.values("seq")]
+    return dataclasses.replace(state_drill_flow(poll, device),
+                               timeout_s=CHAOS_TIMEOUT_S)
 
 
 def chaos_rows(ctx, output: str = "Out") -> list:
@@ -4108,343 +3947,7 @@ def chaos_rows(ctx, output: str = "Out") -> list:
             for _t, rows in sinks[output].batches for r in rows]
 
 
-def _assert_exactly_once(ctx, n: int) -> None:
-    seqs = chaos_delivered(ctx)
-    if sorted(seqs) != list(range(n)):
-        raise AssertionError(
-            f"exactly-once violated: {len(seqs)} deliveries of {n} events; "
-            f"dupes/losses over {sorted(set(range(n)) ^ set(seqs))[:10]}")
-
-
-def _assert_pilot_reacted(ctx, action: str, host=None) -> None:
-    """The expected actuation fired, ``Pilot_Actuations_Count`` is
-    positive and a ``pilot/decide`` span records it."""
-    host = host if host is not None else ctx["host"]
-    if host.pilot is None:
-        raise AssertionError("pilot not armed")
-    applied = [d for d in ctx.get("applied_decisions", [])
-               if d.applied and d.action == action]
-    if not applied:
-        raise AssertionError(
-            f"no applied {action!r} actuation; decisions="
-            f"{[(d.rule, d.action, d.suppressed) for d in ctx.get('applied_decisions', [])]}")
-    pts = host.metric_logger.store.points(host.metric_logger.key("Pilot_Actuations_Count"))
-    if not pts or float(pts[-1]["val"]) <= 0:
-        raise AssertionError("Pilot_Actuations_Count not > 0")
-    with open(ctx["tracefile"], encoding="utf-8") as f:
-        spans = [json.loads(ln) for ln in f if '"pilot/decide"' in ln]
-    if not any(s.get("type") == "span" and s["properties"].get("applied")
-               and s["properties"].get("action") == action for s in spans):
-        raise AssertionError(f"no applied pilot/decide span for {action!r}")
-    ctx.setdefault("actuations", []).append(action)
-
-
-def _record_decisions(ctx, host):
-    collected = ctx.setdefault("applied_decisions", [])
-    pilot = host.pilot
-    if pilot is None:
-        return None
-    orig = pilot.evaluate
-
-    def evaluate(*a, **k):
-        ds = orig(*a, **k)
-        collected.extend(ds)
-        return ds
-
-    pilot.evaluate = evaluate
-    return orig
-
-
-def chaos_drain(ctx, host, expect_total: int, chunk: int = 4, timeout_s: float = 60.0):
-    """``serve/scenarios.py::_drain``: run the pipelined loop in chunks
-    until every expected event has landed, recording every pilot
-    decision; evaluate once directly if no window elapsed."""
-    orig = _record_decisions(ctx, host)
-    try:
-        deadline = time.time() + timeout_s
-        while len(chaos_delivered(ctx)) < expect_total:
-            host.run_pipelined(max_batches=host.batches_processed + chunk)
-            if time.time() > deadline:
-                raise AssertionError(f"drain timed out: {len(chaos_delivered(ctx))}/"
-                                     f"{expect_total} delivered")
-        if orig is not None and not any(d.applied for d in ctx["applied_decisions"]):
-            host.pilot.evaluate()
-    finally:
-        if orig is not None:
-            host.pilot.evaluate = orig
-
-
-def _feed(ctx, payload: bytes, n_lines: int, src=None) -> None:
-    from data_accelerator_tpu_torch.pilot.chaos import feed_socket
-
-    feed_socket(src if src is not None else ctx["src"], payload,
-                expect_events=n_lines, timeout_s=max(5.0, n_lines / 2e5))
-
-
-def drill_preemption(ctx, pilot, depth, flow):
-    from data_accelerator_tpu_torch.pilot.chaos import (
-        ChaosFault, PreemptionInjector, RecordingRescaler)
-    from data_accelerator_tpu_torch.pilot.controller import ScaleActuator
-
-    n = flow.events("preemption", 8)
-    name = "ChaosPreemptP" if pilot else "ChaosPreemptB"
-    pconf = {"maxdepth": depth, "saturationhigh": "0.5"}
-    build_chaos_host(ctx, name, pilot, depth, flow, pilot_conf=pconf)
-    ctx["event_rows"] = chaos_events(0, n)
-    _feed(ctx, flow.payload(ctx["event_rows"]), n)
-    inj = PreemptionInjector(kill_at_dispatch=3)
-    inj.arm(ctx["host"])
-    try:
-        ctx["host"].run_pipelined(max_batches=n // flow.poll)
-    except ChaosFault:
-        ctx["preempted"] = True
-    finally:
-        inj.disarm()
-        ctx["host"].stop(close_sources=False)
-    if not ctx.get("preempted"):
-        raise AssertionError("injector never fired")
-    ctx["src"].requeue_unacked()
-    host = build_chaos_host(ctx, name, pilot, depth, flow, pilot_conf=pconf,
-                            reuse_source=True)
-    if pilot and host.pilot is not None:
-        scaler = ctx["scaler"] = RecordingRescaler()
-        act = ScaleActuator(scaler, "ChaosPreempt", max_replicas=4)
-        for kind in act.kinds:
-            host.pilot.actuators[kind] = act
-    chaos_drain(ctx, host, n)
-    host.stop()
-    _assert_exactly_once(ctx, n)
-    if pilot:
-        _assert_pilot_reacted(ctx, "rescale-up")
-        if not (ctx["scaler"].calls and ctx["scaler"].calls[0] >= 2):
-            raise AssertionError(f"rescaler calls {ctx['scaler'].calls}")
-    return n
-
-
-def drill_sink_outage(ctx, pilot, depth, flow):
-    from data_accelerator_tpu_torch.pilot.chaos import ChaosFault, SinkOutageInjector
-
-    n = flow.events("sink-outage", 6)
-    build_chaos_host(ctx, "ChaosSinkP" if pilot else "ChaosSinkB", pilot, depth, flow,
-                     pilot_conf={"backloghigh": "2"})
-    ctx["event_rows"] = chaos_events(0, n)
-    _feed(ctx, flow.payload(ctx["event_rows"]), n)
-    inj = SinkOutageInjector(fail=True)
-    inj.arm(ctx["host"])
-    try:
-        ctx["host"].run_pipelined(max_batches=n // flow.poll)
-    except ChaosFault:
-        ctx["outage_hit"] = True
-    finally:
-        inj.disarm()
-    if not ctx.get("outage_hit"):
-        raise AssertionError("outage never hit a write")
-    ctx["src"].requeue_unacked()
-    inj = SinkOutageInjector(delay_s=0.08)
-    inj.arm(ctx["host"])
-    try:
-        chaos_drain(ctx, ctx["host"], n)
-    finally:
-        inj.disarm()
-        ctx["host"].stop()
-    _assert_exactly_once(ctx, n)
-    if pilot:
-        _assert_pilot_reacted(ctx, "backpressure")
-    return n
-
-
-def drill_hot_key_skew(ctx, pilot, depth, flow):
-    from data_accelerator_tpu_torch.pilot.chaos import DeviceSlowdownInjector, skewed_events
-
-    n = flow.events("hot-key-skew", 8)
-    build_chaos_host(ctx, "ChaosSkewP" if pilot else "ChaosSkewB", pilot, depth, flow,
-                     pilot_conf={"stallhighms": "20"})
-    ctx["event_rows"] = skewed_events(n, hot_key=0, hot_fraction=0.9)
-    _feed(ctx, flow.payload(ctx["event_rows"]), n)
-    inj = DeviceSlowdownInjector(extra_s=0.06)
-    inj.arm(ctx["host"])
-    try:
-        chaos_drain(ctx, ctx["host"], n)
-    finally:
-        inj.disarm()
-        ctx["host"].stop()
-    _assert_exactly_once(ctx, n)
-    if pilot:
-        _assert_pilot_reacted(ctx, "depth-down")
-        if ctx["host"].live_depth() >= depth:
-            raise AssertionError(f"depth still {ctx['host'].live_depth()}")
-    return n
-
-
-def drill_malformed_flood(ctx, pilot, depth, flow):
-    from data_accelerator_tpu_torch.pilot.chaos import malformed_payload
-
-    n = flow.events("malformed-flood", 4)
-    build_chaos_host(ctx, "ChaosFloodP" if pilot else "ChaosFloodB", pilot, depth, flow,
-                     pilot_conf={"malformedhigh": "0.3"})
-    ctx["event_rows"] = chaos_events(0, n)
-    payload = malformed_payload(ctx["event_rows"], flood_ratio=0.5)
-    if flow.line is not None:  # the same garbage lines around the flow's events
-        payload = b"\n".join(
-            flow.line(json.loads(ln)).encode() if ln.startswith(b'{"k": ') and
-            ln.endswith(b"}") else ln for ln in payload.split(b"\n")[:-1]) + b"\n"
-    _feed(ctx, payload, payload.count(b"\n"))
-    chaos_drain(ctx, ctx["host"], n)
-    ctx["host"].stop()
-    _assert_exactly_once(ctx, n)
-    if pilot:
-        _assert_pilot_reacted(ctx, "backpressure")
-    return n
-
-
-def _drain_remaining_payload(src) -> bytes:
-    src.requeue_unacked()
-    chunks = []
-    while True:
-        blob, n, _offsets = src.poll_raw(1 << 20)
-        if n == 0:
-            break
-        chunks.append(blob)
-    src.close()
-    return b"".join(chunks)
-
-
-def _drain_group(ctx, hosts, expect_total: int, chunk: int = 2, timeout_s: float = 120.0):
-    deadline = time.time() + timeout_s
-    while len(chaos_delivered(ctx)) < expect_total:
-        for h in hosts:
-            h.run_pipelined(max_batches=h.batches_processed + chunk)
-        if time.time() > deadline:
-            raise AssertionError(f"group drain timed out: {len(chaos_delivered(ctx))}/"
-                                 f"{expect_total} delivered")
-
-
-def _loaded_state_map(host) -> dict:
-    t = host.processor.state_tables["seen"].load(host.processor.dictionary)
-    cols = {c: np.asarray(v.cpu()) for c, v in t.cols.items()}
-    return {int(k): float(v) for k, v, ok in zip(cols["k"], cols["v"],
-                                                 np.asarray(t.valid.cpu())) if ok}
-
-
-def _state_max(hi: int) -> dict:
-    """Each key's MAX(v) over events 0..hi-1 (``v`` is the event id)."""
-    return {k: float(max(i for i in range(hi) if i % CHAOS_STATE_KEYS == k))
-            for k in range(CHAOS_STATE_KEYS)}
-
-
-def drill_rescale_state(ctx, pilot, depth, flow):
-    """``serve/scenarios.py::chaos_rescale_with_state``: a stateful host
-    rescaled mid-window to two replicas with every active state snapshot
-    corrupted in the store, then back to one, then a generation killed
-    without a drain; the lineage delivers every event once and the
-    fleet view conserves it."""
-    from data_accelerator_tpu_torch.obs.fleetview import FleetView
-    from data_accelerator_tpu_torch.pilot.chaos import (
-        PartitionLossInjector, RecordingRescaler)
-    from data_accelerator_tpu_torch.pilot.controller import ScaleActuator
-    from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreServer
-
-    b = flow.poll
-    n_pre, n_tail, n_kill = 6 * b, 2 * b, b
-    name = "RescaleStateP" if pilot else "RescaleStateB"
-    store = ObjectStoreServer(port=0).start()
-    try:
-        ctx["store_url"] = (f"objstore://127.0.0.1:{store.port}/chaos/"
-                            f"rescale-{'p' if pilot else 'b'}-d{depth}")
-        pre = build_stateful_host(ctx, name, pilot, depth, flow, gen=0,
-                                  pilot_conf={"maxdepth": depth, "saturationhigh": "0.5"})
-        _feed(ctx, flow.payload(chaos_events(0, n_pre, CHAOS_STATE_KEYS)), n_pre)
-        orig = None
-        if pilot and pre.pilot is not None:
-            scaler = ctx["scaler"] = RecordingRescaler()
-            act = ScaleActuator(scaler, "RescaleState", max_replicas=4)
-            for kind in act.kinds:
-                pre.pilot.actuators[kind] = act
-            orig = _record_decisions(ctx, pre)
-        pre.run_pipelined(max_batches=pre.batches_processed + 3)
-        if orig is not None:
-            if not any(d.applied and d.action == "rescale-up"
-                       for d in ctx["applied_decisions"]):
-                pre.pilot.evaluate()
-            pre.pilot.evaluate = orig
-        pre_delivered = len(chaos_delivered(ctx))
-        if not 0 < pre_delivered < n_pre:
-            raise AssertionError(f"predecessor delivered {pre_delivered}")
-        pre.stop(close_sources=False)
-        inj = PartitionLossInjector(store_url=ctx["store_url"], table="seen",
-                                    mode="truncate")
-        if not inj.corrupt():
-            raise AssertionError("no active state snapshots to corrupt")
-        payload = _drain_remaining_payload(ctx["src"])
-        b1 = build_stateful_host(ctx, name, False, depth, flow, 1, 2, gen=1)
-        src1 = ctx["src"]
-        b2 = build_stateful_host(ctx, name, False, depth, flow, 2, 2, gen=1)
-        src2 = ctx["src"]
-        for h in (b1, b2):
-            if h.window_restored_from != "partitions":
-                raise AssertionError(f"window from {h.window_restored_from}")
-        fallbacks = sum(h.processor.state_stats.get("LoadFallback_Count", 0)
-                        for h in (b1, b2))
-        if fallbacks < 1:
-            raise AssertionError("corruption never hit the loaders")
-        n_lines = payload.count(b"\n")
-        if n_lines:
-            _feed(ctx, payload, n_lines, src1)
-            _feed(ctx, payload, n_lines, src2)
-        _drain_group(ctx, [b1, b2], n_pre)
-        for h in (b1, b2):
-            h.stop()
-        _assert_exactly_once(ctx, n_pre)
-        merged = {}
-        for h in (b1, b2):
-            merged.update(_loaded_state_map(h))
-        if merged != _state_max(n_pre):
-            raise AssertionError(f"state diverged: {merged}")
-        c = build_stateful_host(ctx, name, False, depth, flow, 1, 1, gen=2)
-        if c.window_restored_from != "partitions":
-            raise AssertionError(f"scale-down window from {c.window_restored_from}")
-        _feed(ctx, flow.payload(chaos_events(n_pre, n_pre + n_tail, CHAOS_STATE_KEYS)),
-              n_tail)
-        _drain_group(ctx, [c], n_pre + n_tail)
-        c.stop()
-        _assert_exactly_once(ctx, n_pre + n_tail)
-        if _loaded_state_map(c) != _state_max(n_pre + n_tail):
-            raise AssertionError(f"final state diverged: {_loaded_state_map(c)}")
-        d = build_stateful_host(ctx, name, False, depth, flow, 1, 1, gen=3)
-        total = n_pre + n_tail + n_kill
-        _feed(ctx, flow.payload(chaos_events(n_pre + n_tail, total, CHAOS_STATE_KEYS)),
-              n_kill)
-        _drain_group(ctx, [d], total)
-        if d.fleet_publisher is None or d.fleet_publisher.frames_published < 1:
-            raise AssertionError("killed replica never published a frame")
-        d.fleet_publisher.kill()
-        d.stop()
-        view = FleetView(url=ctx["store_url"], now_fn=lambda: time.time() + 60.0)
-        if view.refresh() < 5:
-            raise AssertionError("fewer frames than replicas")
-        reps = view.fleet_metrics(name)["replicas"]
-        if set(reps) != {"g0-r1", "g1-r1", "g1-r2", "g2-r1", "g3-r1"}:
-            raise AssertionError(f"lineage not continuous: {sorted(reps)}")
-        audit = view.audit(name, output="Out")
-        counts = audit["counts"]
-        if (counts.get("DX540", 0), counts.get("DX541", 0), counts.get("DX542", 0)) \
-                != (0, 0, 1) or not audit["conserved"] or audit["ingested"] != total \
-                or audit["emitted"].get("Out") != total:
-            raise AssertionError(f"fleet audit: {audit}")
-        stale = [r for r, st in reps.items() if st["status"] == "stale"]
-        if stale != ["g3-r1"]:
-            raise AssertionError(f"stale replicas {stale}")
-        if pilot:
-            ctx["host"] = pre
-            _assert_pilot_reacted(ctx, "rescale-up", host=pre)
-            if not (ctx["scaler"].calls and ctx["scaler"].calls[0] >= 2):
-                raise AssertionError(f"rescaler calls {ctx['scaler'].calls}")
-        return total
-    finally:
-        store.stop()
-
-
-def chaos_cpu_replay(flow: ChaosFlow, rows, outputs=None) -> dict:
+def chaos_cpu_replay(flow, rows, outputs=None) -> dict:
     """The drill flow's ``outputs`` (default: all) for event ``rows`` on
     a CPU processor, a poll's worth a batch: the plain reference for
     every output whose rows do not depend on where batches break."""
@@ -4490,31 +3993,44 @@ def same_multiset(got, want, what, rtol=1e-5) -> None:
                 raise AssertionError(f"{what}: row {a} against {b}")
 
 
-CHAOS_DRILLS = {
-    "preemption": drill_preemption,
-    "sink-outage": drill_sink_outage,
-    "hot-key-skew": drill_hot_key_skew,
-    "malformed-flood": drill_malformed_flood,
-    "rescale-state": drill_rescale_state,
-}
+def chaos_drill(fault: str, pilot: bool, flow, depth: int = 2):
+    """The port's ``serve/scenarios.py`` drill for ``fault`` over
+    ``flow``."""
+    from data_accelerator_tpu_torch.serve import scenarios
+
+    build = {
+        "preemption": scenarios.chaos_preemption,
+        "sink-outage": scenarios.chaos_sink_outage,
+        "hot-key-skew": scenarios.chaos_hot_key_skew,
+        "malformed-flood": scenarios.chaos_malformed_flood,
+        "rescale-state": scenarios.chaos_rescale_with_state,
+    }[fault]
+    return build(pilot=pilot, depth=depth, flow=flow)
 
 
-def run_chaos_drill(fault: str, pilot: bool, workdir: str, flow: ChaosFlow,
+def run_chaos_drill(fault: str, pilot: bool, workdir: str, flow,
                     depth: int = 2) -> dict:
-    """One drill on the port's host: ``fault`` at pipeline depth
-    ``depth``, the pilot on or off. Raises when an event is lost or
-    duplicated, a sanitizer poison hit or a protocol violation shows,
-    the monitor sealed no batch, or (pilot on) the expected actuation
-    did not fire. Returns the drill's context (``hosts``, ``sinks``,
-    ``actuations``) with ``events`` and ``seconds``."""
-    ctx = {"workdir": workdir}
+    """One drill of the port's ``serve/scenarios.py`` on its host:
+    ``fault`` at pipeline depth ``depth``, the pilot on or off. Raises
+    when a step of the drill fails (an event lost or duplicated, or,
+    pilot on, the expected actuation missing), a sanitizer poison hit
+    or a protocol violation shows, or the monitor sealed no batch.
+    Returns the drill's context (``hosts``, ``sinks``, ``actuations``)
+    with ``events`` (the valid events the drill fed) and ``seconds``."""
+    from data_accelerator_tpu_torch.serve.scenario import ScenarioContext
+
+    ctx = ScenarioContext({"workdir": workdir})
     logging.disable(logging.ERROR)
     t0 = time.perf_counter()
     try:
-        ctx["events"] = CHAOS_DRILLS[fault](ctx, pilot, depth, flow)
+        result = chaos_drill(fault, pilot, flow, depth).run(ctx)
     finally:
         logging.disable(logging.NOTSET)
     ctx["seconds"] = time.perf_counter() - t0
+    if not result.success:
+        raise AssertionError(f"{fault}: step {result.failed_step} failed: " + "".join(
+            s.error or "" for s in result.steps if not s.success))
+    ctx["events"] = ctx["n_events"]
     hits = sum(h.processor.buffer_sanitizer.poison_hits for h in ctx["hosts"])
     violations = sum(h.protocol_monitor.violations for h in ctx["hosts"])
     sealed = sum(h.protocol_monitor.batches_sealed for h in ctx["hosts"])
@@ -4594,6 +4110,252 @@ def phase_chaos(nvidia_smi: str, udf) -> dict:
             gc.collect()
     return total
 
+
+
+# -- mesh execution (slice 8a) --------------------------------------------
+MESH_BATCHES = 4
+MESH_SHARDS = 4
+
+
+def mesh_processor(conf: dict, udf, mesh=None, device="cuda"):
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    return FlowProcessor(SettingDictionary(conf), batch_capacity=CAPACITY,
+                         output_datasets=OUTPUTS, udfs={"anomalyscore": udf},
+                         device=device, mesh=mesh)
+
+
+def mesh_ingest(rs, type_ids) -> dict:
+    """``HostIngestPlan`` under a world-size-1 NCCL group on ``cuda:0``:
+    the plan over the 4 virtual shards owns every partition and row, and
+    one all-reduce of the host's temperature sum returns it (the only
+    host)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from data_accelerator_tpu_torch.dist import HostIngestPlan, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=timedelta(seconds=60))
+    try:
+        mesh = make_mesh(MESH_SHARDS, devices=("cuda:0",) * MESH_SHARDS)
+        plan = HostIngestPlan(mesh, global_capacity=CAPACITY, n_partitions=8,
+                              max_rate=8 * CAPACITY)
+        cols = make_columns(rs, type_ids, plan.local_capacity)
+        batch = plan.make_global(cols, np.ones(plan.local_capacity, bool))
+        local = sum(s.cols["deviceDetails.temperature"].double().sum()
+                    for s in batch.shards)
+        total = batch.all_reduce(local.clone().reshape(1), "sum")
+        torch.cuda.synchronize()
+        want = float(cols["deviceDetails.temperature"].astype(np.float64).sum())
+        if (plan.process_index, plan.process_count) != (0, 1) or \
+                plan.partitions != list(range(8)) or plan.rows != range(CAPACITY) or \
+                abs(float(total[0]) - want) > 1e-9 * abs(want) or \
+                {s.valid.device for s in batch.shards} != set(mesh.distinct_devices):
+            raise AssertionError(f"mesh ingest: {plan.partitions} {plan.rows} "
+                                 f"{float(total[0])} vs {want}")
+        return {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+                "shards": len(batch.shards), "all_reduce_sum": float(total[0])}
+    finally:
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """Yields a list that gathers the garbage collector's pauses while
+    the block runs, each as its ``(start, end)`` on ``perf_counter``."""
+    pauses, started = [], [0.0]
+
+    def on_gc(stage, _info):
+        if stage == "start":
+            started[0] = time.perf_counter()
+        else:
+            pauses.append((started[0], time.perf_counter()))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def overlap_ms(pauses, lo: float, hi: float) -> float:
+    """The ms of ``pauses`` that fall inside ``[lo, hi]``."""
+    return sum(max(0.0, min(b, hi) - max(a, lo)) for a, b in pauses) * 1e3
+
+
+def profile_mesh_step(proc, cols, batch_time_ms) -> dict:
+    """One batch from host columns to counts under ``torch.profiler``:
+    its wall ms and its device ms split three ways, each with its count
+    of device activities: ``gather`` (the concatenation kernels of
+    ``torch.cat``, which the mesh step's gathers launch), ``copy``
+    (memcpy and memset) and ``kernels`` (every other kernel). Runs after
+    the path's launches were read, so it does not count towards them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        raw = proc.encode_columns(cols, CAPACITY)
+        proc.dispatch_batch(raw, batch_time_ms).collect_counts()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    split = {k: {"ms": 0.0, "count": 0} for k in ("gather", "copy", "kernels")}
+    for e in prof.key_averages():
+        if e.key.startswith("aten::") or device_us(e) <= 0:
+            continue
+        kind = ("gather" if "CatArray" in e.key else
+                "copy" if e.key.startswith(("Memcpy", "Memset")) else "kernels")
+        split[kind]["ms"] += device_us(e) / 1e3
+        split[kind]["count"] += e.count
+    return {"wall_ms": wall_ms, **split}
+
+
+def phase_mesh(seed: int, nvidia_smi: str, udf) -> dict:
+    """The main flow (the config-1 queries plus the anomaly query) over a
+    mesh, ``MESH_BATCHES`` batches of ``CAPACITY`` rows, three ways: over
+    ``MESH_SHARDS`` virtual shards on ``cuda:0``, over ``make_mesh(1)``,
+    and from a conf with ``process.numchips=4``, which clamps to the
+    visible cards (on one card: the single-card path). Each batch's
+    counts and rows equal a single-card processor's (ints exactly,
+    floats within rtol 1e-4); ``Mesh_ICI_Bytes`` and
+    ``Mesh_Reshard_Count`` are nonzero on the sharded mesh and the same
+    every batch, and 0 on the one-device mesh; ms a batch beside the
+    single card's, the four processors driven batch by batch in turns
+    (the garbage collector's pauses in each batch timed apart), and one
+    more batch a way under the profiler, its device time split
+    into gathers, copies and other kernels. Then
+    ``mesh_ingest`` under a world-size-1 NCCL group, and, when there
+    are two cards or more, the same flow over every real card. Returns
+    each kernel's launches over the three runs."""
+    from data_accelerator_tpu_torch.dist import make_mesh
+    from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+    t_phase = time.perf_counter()
+    conf = flow_conf()
+    single = mesh_processor(conf, anomalyscore())
+    virtual = mesh_processor(conf, udf, make_mesh(MESH_SHARDS, devices=("cuda:0",) * MESH_SHARDS))
+    one = mesh_processor(conf, udf, make_mesh(1))
+    log = logging.getLogger("data_accelerator_tpu_torch.runtime.processor")
+    records = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = records.append
+    log.addHandler(handler)
+    try:
+        clamped = mesh_processor({**conf, "datax.job.process.numchips": "4"}, udf)
+    finally:
+        log.removeHandler(handler)
+    clamp_warning = [r.getMessage() for r in records if "numchips" in r.getMessage()]
+    real = torch.cuda.device_count()
+    if real < 4 and not clamp_warning:
+        raise AssertionError("mesh: numchips=4 clamped without the warning")
+    procs = {"virtual": virtual, "one": one, "numchips": clamped}
+    type_ids = np.array([single.dictionary.encode(t) for t in DEVICE_TYPES], np.int32)
+    for name, p in procs.items():
+        if not np.array_equal(type_ids, [p.dictionary.encode(t) for t in DEVICE_TYPES]):
+            raise AssertionError(f"mesh {name}: dictionaries disagree")
+    rs = np.random.RandomState(seed + 23)
+    batches = [make_columns(rs, type_ids, CAPACITY) for _ in range(MESH_BATCHES)]
+
+    # batch by batch, the four processors in turns, so that each sees the
+    # host in the same state; the mesh path's run: the counts at 0 just
+    # before, read just after (the single card's UDF is its own object)
+    # the garbage collector's pauses are timed apart: those inside each
+    # batch's step (host columns to counts) and those in the whole batch
+    # (its rows' materialization too)
+    reset_launch_counts(udf)
+    turns = {name: [] for name in ("single", *procs)}
+    gc_ms = {name: [] for name in turns}
+    with gc_pauses() as paused:
+        for b, cols in enumerate(batches):
+            for name, p in (("single", single), *procs.items()):
+                lo = time.perf_counter()
+                turns[name].append(drive_on_card(p, [cols], first=b))
+                gc_ms[name].append(overlap_ms(paused, lo, time.perf_counter()))
+    torch.cuda.synchronize()
+    launches = launch_counts(udf)
+    runs = {name: {k: [v for r in rs for v in r[k]]
+                   for k in ("step_ms", "step_spans", "syncs", "results")}
+            for name, rs in turns.items()}
+    gc_step_ms = {name: [overlap_ms(paused, lo, hi) for lo, hi in run["step_spans"]]
+                  for name, run in runs.items()}
+    ref = runs.pop("single")
+    line_gc = {"single_gc_step_ms": gc_step_ms["single"],
+               "single_gc_batch_ms": gc_ms["single"]}
+    per_batch = {name: len(p.mesh.distinct_devices) if p.mesh is not None else 1
+                 for name, p in procs.items()}
+    if launches["anomaly_score"] != MESH_BATCHES * sum(per_batch.values()):
+        raise AssertionError(f"mesh: anomaly_score launched {launches['anomaly_score']} "
+                             f"times, not once a batch and replica ({per_batch})")
+    line = {"phase": "mesh", "capacity": CAPACITY, "batches": MESH_BATCHES,
+            "shards": MESH_SHARDS, "real_cards": real,
+            "single_step_ms": ref["step_ms"],
+            "single_step_ms_median": statistics.median(ref["step_ms"][1:]),
+            **line_gc}
+    for name, run in runs.items():
+        p = procs[name]
+        for b, ((g_counts, g_ds, g_m), (c_counts, c_ds, _cm)) in enumerate(
+                zip(run["results"], ref["results"])):
+            if not np.array_equal(g_counts, c_counts):
+                raise AssertionError(f"mesh {name} batch {b}: counts {g_counts} vs {c_counts}")
+            for out in OUTPUTS:
+                same_rows(g_ds[out], c_ds[out], f"mesh {name} batch {b} {out}")
+        ici = [m.get("Mesh_ICI_Bytes") for _c, _d, m in run["results"]]
+        reshard = [m.get("Mesh_Reshard_Count") for _c, _d, m in run["results"]]
+        if p.mesh is not None and (len(set(ici)) != 1 or len(set(reshard)) != 1
+                                   or None in ici or None in reshard):
+            raise AssertionError(f"mesh {name}: Mesh_* {ici} {reshard}")
+        # a sharded mesh gathers and sums across its shards; a one-device
+        # mesh runs no collective, as the JAX package's one-partition step
+        if p.mesh is not None and (p.mesh.size > 1) != bool(ici[0] and reshard[0]):
+            raise AssertionError(f"mesh {name} of {p.mesh.size}: Mesh_* {ici} {reshard}")
+        if name == "virtual" and not ici[0]:
+            raise AssertionError(f"mesh {name}: no interconnect bytes {ici}")
+        line[name] = {
+            "mesh_size": p.mesh.size if p.mesh is not None else None,
+            "devices": sorted({str(d) for d in p.mesh.devices}) if p.mesh is not None
+            else [str(p.device)],
+            "step_ms": run["step_ms"],
+            "step_ms_median": statistics.median(run["step_ms"][1:]),
+            "gc_step_ms": gc_step_ms[name], "gc_batch_ms": gc_ms[name],
+            "host_syncs_per_step": run["syncs"],
+            "Mesh_ICI_Bytes": ici[0], "Mesh_Reshard_Count": reshard[0],
+            "census": p.mesh_collectives.to_dict() if p.mesh_collectives else None,
+            "rows_equal_single_card": True,
+        }
+    line["numchips_warning"] = clamp_warning
+    # one more batch a way under the profiler, after the launches were
+    # read: where the mesh step's time goes on the card
+    line["profile"] = {
+        name: profile_mesh_step(p, batches[-1], BASE_MS + 1000 * MESH_BATCHES)
+        for name, p in (("single", single), ("virtual", virtual), ("one", one))
+    }
+    line["ingest"] = mesh_ingest(rs, type_ids)
+    if real >= 2:
+        cards = mesh_processor(conf, anomalyscore(), make_mesh())
+        run = drive_on_card(cards, batches)
+        for b, ((g_counts, g_ds, _gm), (c_counts, c_ds, _cm)) in enumerate(
+                zip(run["results"], ref["results"])):
+            if not np.array_equal(g_counts, c_counts):
+                raise AssertionError(f"mesh cards batch {b}: counts differ")
+            for out in OUTPUTS:
+                same_rows(g_ds[out], c_ds[out], f"mesh cards batch {b} {out}")
+        line["cards"] = {"mesh_size": cards.mesh.size,
+                         "step_ms_median": statistics.median(run["step_ms"][1:])}
+    else:
+        line["cross_card_mesh"] = "not run: one card is visible"
+    line["launches"] = launches
+    line["seconds"] = time.perf_counter() - t_phase
+    line["card"] = nvidia_smi
+    emit(line)
+    return launches
 
 
 # -- the control plane (slice 9a) ---------------------------------------------
@@ -4801,6 +4563,52 @@ def control_livequery(web_port: int, flow: str, runtime, seed: int) -> dict:
     return out
 
 
+def control_jobrunner(base_url: str, runtime) -> dict:
+    """The JobRunner probe (``serve/jobrunner.py``) over the port's
+    ``default_suite`` against the one-box server at ``base_url`` (the
+    gateway, with the writer's token), one round: both scenarios pass,
+    their ``DATAX-JobRunner:<scenario>`` points are 1, and the deploy's
+    job child ran on the card (``cuda``, that is ``cuda:0``)."""
+    from data_accelerator_tpu_torch.obs.metrics import MetricLogger, MetricStore
+    from data_accelerator_tpu_torch.serve.jobrunner import JobRunner
+    from data_accelerator_tpu_torch.serve.scenario import ScenarioContext
+    from data_accelerator_tpu_torch.serve.scenarios import default_suite
+
+    store = MetricStore()
+    contexts = []
+
+    def context():
+        contexts.append(ScenarioContext())
+        return contexts[-1]
+
+    runner = JobRunner(default_suite(base_url, token=CONTROL_TOKEN),
+                       metric_logger=MetricLogger("DATAX-JobRunner", store=store),
+                       context_factory=context)
+    t0 = time.perf_counter()
+    results = runner.run_once()
+    seconds = time.perf_counter() - t0
+    failed = {r.name: (r.failed_step, [st.error for st in r.steps if not st.success])
+              for r in results if not r.success}
+    if failed:
+        raise AssertionError(f"jobrunner: {failed}")
+    points = {r.name: store.points(f"DATAX-JobRunner:{r.name}")[-1]["val"] for r in results}
+    if sorted(points) != ["SaveAndDeploy", "SchemaAndQuery"] or set(points.values()) != {1}:
+        raise AssertionError(f"jobrunner metrics: {points}")
+    [job] = contexts[0]["jobNames"]
+    log = (Path(runtime.resolve("logs")) / f"{job}.log").read_text(
+        encoding="utf-8", errors="replace")
+    started_on = HOST_START_LINE.search(log)
+    # a child given no index runs on the current card, cuda:0
+    if started_on is None or started_on.group(1) not in ("cuda", "cuda:0"):
+        raise AssertionError(f"jobrunner: the deploy's child ran on "
+                             f"{started_on and started_on.group(1)}: {log[-2000:]}")
+    return {"jobrunner": {
+        "seconds": seconds, "metrics": points, "deploy_job": job,
+        "deploy_child_device": started_on.group(1),
+        "elapsed_ms": {h["scenario"]: h["elapsedMs"] for h in runner.history},
+    }}
+
+
 def phase_control(seed: int, nvidia_smi: str) -> dict:
     """The control plane on the card, the one-box stack in process:
     ``DataXApiService`` (roles on, ``device="cuda"``), a ``Gateway`` and a
@@ -4935,6 +4743,7 @@ def phase_control(seed: int, nvidia_smi: str) -> dict:
                                          f"{[m.get(key) for m in cpu]} on the CPU")
             launch.reset_launches()
             lq = control_livequery(web.port, CONTROL_FLOW, runtime, seed)
+            jr = control_jobrunner(f"http://127.0.0.1:{gw.port}", runtime)
             torch.cuda.synchronize()
             launches = process_launches()
         finally:
@@ -4945,7 +4754,7 @@ def phase_control(seed: int, nvidia_smi: str) -> dict:
     line = {"phase": "control", "seconds": time.perf_counter() - t_phase,
             "job": job_name, "child_device": started_on.group(1),
             "batches": len(batches), "events": events, "output_counts": counts,
-            "conformance_model": "the port's plan", **times, **lq,
+            "conformance_model": "the port's plan", **times, **lq, **jr,
             "launches": launches, "card": nvidia_smi}
     emit(line)
     if launches["anomaly_score"] < 2 or launches["dx305_double"]:
@@ -5002,6 +4811,9 @@ def main(argv=None) -> int:
     # planned processor launch anomaly_score
     slice_launches["debug"] = phase_debug(args.seed, nvidia_smi, host_events_per_s)
     slice_launches["plan"] = phase_plan(args.seed, nvidia_smi)
+    # mesh execution: the main flow over virtual shards and a clamped
+    # numchips conf launches anomaly_score on the gathered rows
+    slice_launches["mesh"] = phase_mesh(args.seed, nvidia_smi, udf)
     # the chaos drills: the main path's host under five faults
     slice_launches["chaos"] = phase_chaos(nvidia_smi, udf)
     # the control plane: the server process's LiveQuery part launches

@@ -38,13 +38,12 @@ Trimmed: the ``CONF.md`` renderer and its ``__main__``. The rows
 describe the keys by their JAX-package meaning; where the port reads a
 key differently (``compile.*``, ``debug.*``), its reader says so.
 
-Five rows the reference reads are ``read=False`` here, because nothing
+Four rows the reference reads are ``read=False`` here, because nothing
 in the port reads them: ``compile.cachedir`` and ``compile.cacheurl``
 (the JAX package's persistent compilation cache) and
 ``compile.jitcachecap`` (its transfer-helper jit cache; the port has
 neither, and ``analysis/compilecheck.py`` retires DX601), and
-``mesh.observe`` and ``conformance.iciratiohigh`` (the mesh and its ICI
-conformance, multi-GPU slice 8). Every type, default and bound is the
+``conformance.iciratiohigh`` (the mesh's ICI conformance, slice 8b). Every type, default and bound is the
 reference's, so the boot audit's ``Conf_*`` gauges are unchanged.
 """
 
@@ -454,7 +453,7 @@ CONF_REGISTRY: Tuple[ConfKey, ...] = (
     _K("mesh.model", "json", None, "mesh", source="generation",
        description="sharding-plan artifact (S660 embed; DX510/511 "
                    "conformance input)"),
-    _K("mesh.observe", "bool", "true", "mesh", source="manual", read=False,
+    _K("mesh.observe", "bool", "true", "mesh", source="manual",
        description="summarize compiled collectives for ICI conformance"),
     # -- observability -----------------------------------------------------
     _K("observability.port", "port", None, "observability",

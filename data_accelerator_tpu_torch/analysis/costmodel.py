@@ -16,10 +16,13 @@ x64-off encoding): long/string/timestamp -> int32 (4 B), double ->
 float32 (4 B), boolean -> bool (1 B); the validity mask is one bool per
 row.
 
-Copy of the JAX package's ``analysis/costmodel.py`` without the mesh
-collective forms (``ici_*``, ``*_wire_bytes``, ``mesh_runtime_model``,
-``stage_ici_bytes``), which wait for multi-GPU (slice 8): the port
-prices one card, where no byte crosses an interconnect. Every other
+Copy of the JAX package's ``analysis/costmodel.py``. The ring
+collective wire forms (``allgather_wire_bytes``, ``allreduce_wire_bytes``,
+``alltoall_wire_bytes``, ``collective_wire_bytes``) are the reference's,
+term for term: the mesh's census (``dist/mesh.py::MeshCollectives``)
+turns its recorded result bytes into ``Mesh_ICI_Bytes`` with them. The
+mesh model forms (``ici_*``, ``mesh_runtime_model``,
+``stage_ici_bytes``) come with the DX7xx tier (slice 8b). Every other
 form is the reference's, term for term, except where the port
 materializes other dtypes than the JAX package:
 
@@ -439,3 +442,66 @@ def warm_kernel_cache_budget_bytes(
         else:
             chip_hbm_bytes = CPU_DEVICE_MEMORY_BYTES
     return int(chip_hbm_bytes * float(headroom))
+
+
+# ---------------------------------------------------------------------------
+# Mesh collective wire-cost closed forms (the DX7xx tier,
+# analysis/meshcheck.py). Two byte conventions, deliberately separate:
+#
+# - **result bytes**: the full logical size of a collective's result —
+#   chip-count-INDEPENDENT, deterministic from static shapes, and the
+#   quantity the analyzer asserts exactly equal between the closed-form
+#   model and the Mesh-lowered program (the DX2xx `model ==
+#   materialized` analog).
+# - **wire bytes**: total bytes crossing ICI links across the whole
+#   slice for a ring-algorithm collective over `result bytes` — the
+#   Megatron-LM closed forms over chip count N. This is the term DX703
+#   budgets and the runtime's Mesh_ICI_Bytes series observes.
+#
+# ring all-gather of S result bytes: each chip forwards (N-1) shard
+# messages of S/N bytes -> total S*(N-1). ring all-reduce =
+# reduce-scatter + all-gather -> 2*S*(N-1)/N per chip, total 2*S*(N-1).
+# all-to-all keeps 1/N local -> total S*(N-1)/N.
+# ---------------------------------------------------------------------------
+def allgather_wire_bytes(result_bytes: float, chips: int) -> float:
+    """Total slice-wide ICI bytes of a ring all-gather producing
+    ``result_bytes`` on every chip."""
+    if chips <= 1:
+        return 0.0
+    return float(result_bytes) * (chips - 1)
+
+
+def allreduce_wire_bytes(result_bytes: float, chips: int) -> float:
+    """Total slice-wide ICI bytes of a ring all-reduce (reduce-scatter
+    + all-gather) over ``result_bytes``."""
+    if chips <= 1:
+        return 0.0
+    return 2.0 * float(result_bytes) * (chips - 1)
+
+
+def alltoall_wire_bytes(result_bytes: float, chips: int) -> float:
+    """Total slice-wide ICI bytes of an all-to-all over
+    ``result_bytes`` (1/N of every shard stays local)."""
+    if chips <= 1:
+        return 0.0
+    return float(result_bytes) * (chips - 1) / chips
+
+
+# wire factor per compiled-HLO collective op name — the same convention
+# dist/mesh.py's runtime collective_summary applies, so the model and
+# the observed Mesh_ICI_Bytes series can never disagree about what a
+# byte over the ICI means
+COLLECTIVE_WIRE_FACTORS = {
+    "all-gather": allgather_wire_bytes,
+    "all-reduce": allreduce_wire_bytes,
+    "reduce-scatter": alltoall_wire_bytes,  # S*(N-1)/N: one shard stays
+    "all-to-all": alltoall_wire_bytes,
+    "collective-permute": lambda s, n: float(s),  # every byte moves once
+}
+
+
+def collective_wire_bytes(op: str, result_bytes: float, chips: int) -> float:
+    """Wire bytes of one collective given its result bytes — shared by
+    the DX7xx model and the runtime observation path."""
+    fn = COLLECTIVE_WIRE_FACTORS.get(op)
+    return fn(result_bytes, chips) if fn else float(result_bytes)

@@ -12,9 +12,10 @@ project/filter/group-by, configured bound for joins, sum for unions).
 Each view records a ``StagePlan``, its lowering decisions (kind, row
 counts, one ``JoinSite`` per JOIN, group bound, ORDER/LIMIT), as the JAX
 package's planner does: the input of the cost model
-(``analysis/costmodel.py``, ``analysis/deviceplan.py``). The JAX
-package's ``sources`` and ``unshardable_udfs`` fields feed its mesh
-planner and come with it (multi-GPU slice 8).
+(``analysis/costmodel.py``, ``analysis/deviceplan.py``) and of the mesh
+step (``runtime/processor.py::build_mesh_step_fn``): ``sources`` names
+the tables a view reads, ``unshardable_udfs`` the kernel UDFs
+(``CudaKernelUdf``, where the JAX package counts Pallas UDFs) it calls.
 
 Deferred string columns (CONCAT results etc.) materialize their device
 inputs as hidden ``__defer.`` columns so they ride along through
@@ -150,6 +151,14 @@ class StagePlan:
     kind: str  # "project" | "group" | "union"
     input_rows: int  # FROM-scope capacity feeding the select
     output_rows: int  # final output capacity (post ORDER/LIMIT)
+    # table names the FROM chain reads (base + join right sides; union:
+    # all branches' sources) — the mesh step reads these to tell a
+    # sharded stage from a replicated one
+    sources: Tuple[str, ...] = ()
+    # names of kernel UDFs the view's expressions call: a hand-written
+    # kernel sees whole columns, so the mesh step gathers the stage's
+    # rows and runs it replicated
+    unshardable_udfs: Tuple[str, ...] = ()
     joins: Tuple[JoinSite, ...] = ()
     grouped: bool = False
     group_keys: int = 0
@@ -306,15 +315,38 @@ class SelectCompiler:
         from .stringops import AuxRegistry
 
         self.aux = aux if aux is not None else AuxRegistry()
+        # every expression compiler built while compiling the current
+        # view — compile_select drains it to attribute UDF calls to the
+        # view's StagePlan (see StagePlan.unshardable_udfs)
+        self._view_expr_compilers: List[ExprCompiler] = []
 
     def _expr_compiler(self, scope: Scope) -> ExprCompiler:
-        return ExprCompiler(scope, self.dictionary, self.udfs, aux=self.aux)
+        ec = ExprCompiler(scope, self.dictionary, self.udfs, aux=self.aux)
+        self._view_expr_compilers.append(ec)
+        return ec
 
     # -- entry -----------------------------------------------------------
     def compile_select(self, name: str, sel: Select) -> CompiledView:
+        mark = len(self._view_expr_compilers)
         if sel.union is not None:
-            return self._compile_union(name, sel)
-        return self._compile_single(name, sel)
+            view = self._compile_union(name, sel)
+        else:
+            view = self._compile_single(name, sel)
+        # attribute the UDF calls compiled for this view (union: all
+        # branches) to its plan; only kernel UDFs matter — a kernel sees
+        # whole columns, so the mesh step replicates the stage
+        called = [
+            u for ec in self._view_expr_compilers[mark:]
+            for u in ec.called_udfs
+        ]
+        del self._view_expr_compilers[mark:]
+        kernels = tuple(sorted({
+            str(getattr(u, "name", type(u).__name__))
+            for u in called if hasattr(u, "kernel")
+        }))
+        if kernels and view.plan is not None:
+            view.plan = replace(view.plan, unshardable_udfs=kernels)
+        return view
 
     @staticmethod
     def _inject_aux(scopes, tables) -> None:
@@ -370,6 +402,9 @@ class SelectCompiler:
                     for c in compiled
                 ),
                 output_rows=capacity,
+                sources=tuple(dict.fromkeys(
+                    s for c in compiled if c.plan for s in c.plan.sources
+                )),
                 joins=tuple(s for c in compiled for s in c.joins),
                 union_branches=len(compiled),
             ),
@@ -385,8 +420,12 @@ class SelectCompiler:
 
         # 1. FROM/JOIN scope
         scope, build_scope, scope_capacity, join_sites = self._compile_from(sel)
+        from_tables = tuple(dict.fromkeys(
+            [sel.from_table.name] + [j.table.name for j in sel.joins]
+        ))
 
         compiler = _AggCollector(scope, self.dictionary, self.udfs, aux=self.aux)
+        self._view_expr_compilers.append(compiler)
 
         # 2. WHERE
         where_fn = None
@@ -419,7 +458,7 @@ class SelectCompiler:
                 name, sel, scope, compiler, build_scope, scope_capacity,
                 where_fn, out_types, deferred, flat_outputs, out_values,
                 having_fn=having_c.fn if having_c is not None else None,
-                join_sites=join_sites,
+                join_sites=join_sites, from_tables=from_tables,
             )
             view.select_values = out_values
             if sel.order_by or sel.limit is not None:
@@ -469,6 +508,7 @@ class SelectCompiler:
                 kind="project",
                 input_rows=scope_capacity,
                 output_rows=scope_capacity,
+                sources=from_tables,
                 joins=tuple(join_sites),
                 distinct=bool(sel.distinct),
             ),
@@ -1151,7 +1191,7 @@ class SelectCompiler:
     def _compile_grouped(
         self, name, sel, scope, compiler, build_scope, scope_capacity,
         where_fn, out_types, deferred, flat_outputs, out_values,
-        having_fn=None, join_sites=(),
+        having_fn=None, join_sites=(), from_tables=(),
     ) -> CompiledView:
         # group keys: resolve against select aliases first, then scope
         alias_map = {}
@@ -1323,6 +1363,7 @@ class SelectCompiler:
                 kind="group",
                 input_rows=scope_capacity,
                 output_rows=capacity,
+                sources=tuple(from_tables),
                 joins=tuple(join_sites),
                 grouped=True,
                 group_keys=len(key_compiled),

@@ -218,7 +218,7 @@ class BatchHost:
             (self.dict.get_sub_dictionary("datax.job.process.pipeline.")
              .get_or_else("backgroundtransfer", "true") or "")
             .lower() != "false"
-        )
+        ) and self.processor.mesh is None
         totals: Dict[str, float] = {"Batch_Files_Count": float(len(files))}
         batch_time_ms = int(t0 * 1000)
         pending = deque()  # FIFO window of (handle, trace) in flight

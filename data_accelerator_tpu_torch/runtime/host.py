@@ -32,9 +32,12 @@ and the delivery-protocol monitor (``runtime/protocolmonitor.py``,
 sanitizer's DX805 events (``sanitizer/poison``) and checks every window
 checkpoint for aliasing and sentinel residue before it is saved.
 
+A conf's ``process.numchips`` runs the flow over a mesh
+(``dist/mesh.py``), clamped to the visible cards; under a mesh the
+landing runs inline (background transfer off), as in the JAX package.
 Not ported yet, and refused by conf with an ``EngineException`` that
 names it (``_refuse_unported``): the mesh sharding model
-(``process.mesh.model``, ``dist/``).
+(``process.mesh.model``, the DX7xx tier of slice 8b).
 
 CUDA state is per thread in PyTorch: the current device and stream.
 The decode-ahead worker (which copies ``LocalSource`` columns to the
@@ -100,8 +103,9 @@ def _refuse_unported(dict_: SettingDictionary) -> None:
     naming it, rather than run the flow without it."""
     if dict_.get(SettingNamespace.JobProcessPrefix + "mesh.model"):
         raise EngineException(
-            "the mesh sharding model (process.mesh.model, dist/, "
-            "multi-GPU slice 8) is not ported to data_accelerator_tpu_torch yet"
+            "the mesh sharding model (process.mesh.model, the DX7xx tier "
+            "of slice 8b that models the dist/ census) is not ported to "
+            "data_accelerator_tpu_torch yet"
         )
 
 
@@ -380,14 +384,15 @@ class StreamingHost:
         # metrics -> checkpoint) runs on this one-thread landing
         # executor, so landings stay strictly FIFO while the dispatch
         # loop keeps feeding the device. Conf
-        # datax.job.process.pipeline.backgroundtransfer (default on).
+        # datax.job.process.pipeline.backgroundtransfer (default on);
+        # off under a mesh like sized transfer.
         pipe_conf = dict_.get_sub_dictionary(
             SettingNamespace.JobProcessPrefix + "pipeline."
         )
         self.background_transfer = (
             (pipe_conf.get_or_else("backgroundtransfer", "true") or "")
             .lower() != "false"
-        )
+        ) and self.processor.mesh is None
         self._landing_pool = (
             ThreadPoolExecutor(
                 1, thread_name_prefix="landing",

@@ -58,12 +58,32 @@ The ``process.debug`` block arms the debug runtime: ``nans`` and
 poisons released ingest matrices, scans landed tables and checks window
 checkpoints (``runtime/sanitizer.py``, runtime DX805).
 
-Mesh execution is not ported yet; a flow whose conf asks for it raises
-``EngineException``.
+Mesh execution (``mesh=`` or ``process.numchips``, clamped to the
+visible cards): the processor runs its step over a ``dist/mesh.py``
+mesh, one process over an ordered tuple of devices (virtual shards may
+share one). Each source's capacity rounds up to a multiple of the mesh
+size; the packed ``[n_cols+1, capacity]`` matrix still crosses to each
+distinct device in one copy, and the step splits it into one row range
+per shard (where the JAX package ships columns under a mesh). Rows
+project, and window rings update, per shard (``build_mesh_step_fn``). A
+view whose lowering needs its rows whole (a *collective* stage:
+grouped, joined, DISTINCT, ORDER BY, LIMIT, a multi-branch UNION, a
+host order, or a kernel UDF) gathers its sharded inputs and runs
+replicated, once per distinct device; a sharded output gathers at the
+step boundary, before ``compact_indices``, and the counts vector sums
+the shards' partial vectors. Every gather and that sum record
+themselves in the step's ``MeshCollectives`` (a one-device mesh has no
+collective, as a one-partition XLA program has none: its step gathers
+nothing and records nothing), exported each batch as
+``Mesh_ICI_Bytes`` and ``Mesh_Reshard_Count``
+(``process.mesh.observe``, default on). Sized transfer, output slots
+and (in the hosts) background transfer are off under a mesh, as in the
+JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -86,6 +106,15 @@ from ..compile.stringops import _MAX_ROUNDS, AuxTableBuilder
 from ..constants import ColumnName, DatasetName
 from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.schema import ColType, Schema, StringDictionary
+from ..dist.mesh import (
+    Mesh,
+    MeshCollectives,
+    is_collective_view,
+    logical_nbytes,
+    make_mesh,
+    ring_sharding,
+    row_sharding,
+)
 from ..kernels import build as kernel_build
 from ..native import NativeDecoder, PackedBufferPool
 from ..obs import tracing
@@ -106,6 +135,7 @@ from .statepartition import (
 from . import debugguard, sanitizer
 from .statetable import StateTable
 from .timewindow import (
+    ShardedWindowBuffers,
     WindowBuffers,
     make_buffers,
     num_slots,
@@ -421,6 +451,32 @@ def _table_nbytes(t: TableData) -> int:
     return sum(a.nbytes for a in t.cols.values()) + t.valid.nbytes
 
 
+def _compact_table(t: TableData) -> TableData:
+    """An output table with its valid rows moved to the front, so the
+    host copies only ``[:count]`` rows."""
+    idx, ov = compact_indices(t.valid, t.valid.shape[0])
+    return TableData(
+        {c: v[idx] if _row_shaped(v, t) else v for c, v in t.cols.items()}, ov
+    )
+
+
+def _counts_layout(primary, outputs: list, whole: List[TableData],
+                   targets: list, device) -> List[Tuple[bool, object]]:
+    """The counts vector's entries in order, the layout the host's
+    counts decoder reads: the primary target's input count, each
+    output's count, per output one groups-overflow then one join-overflow
+    slot (-1: the output does not track it), and each source target's
+    projected count. An entry is ``(True, table)`` for a table's count,
+    ``(False, tensor)`` for a value; ``whole[i]`` is ``outputs[i]`` as
+    one table, which holds the overflow columns."""
+    entries = [(True, primary)] + [(True, o) for o in outputs]
+    missing = torch.full((), -1, dtype=torch.int32, device=device)
+    for key in ("__overflow.groups", "__overflow.joins"):
+        entries += [(False, t.cols[key][0] if key in t.cols else missing)
+                    for t in whole]
+    return entries + [(True, t) for t in targets]
+
+
 def build_step_fn(
     ts_col: Optional[str],
     windows: Dict[str, Tuple[str, float]],
@@ -498,33 +554,279 @@ def build_step_fn(
 
         new_state = {n: out.get(n, state[n]) for n in state_names}
 
-        # compact outputs on the device (valid rows to the front) so the
-        # host copies only [:count] rows; every per-batch scalar rides
+        # compact outputs on the device; every per-batch scalar rides
         # ONE int32 vector
-        datasets = {}
-        counts = [projected[primary_target].count()]
-        for n in output_datasets:
-            t = out[n]
-            idx, ov = compact_indices(t.valid, t.valid.shape[0])
-            datasets[n] = TableData(
-                {c: v[idx] if v.shape[:1] == t.valid.shape else v
-                 for c, v in t.cols.items()},
-                ov,
-            )
-            counts.append(t.count())
-        # fixed layout: per output one groups-overflow then one
-        # join-overflow slot; -1 marks "output does not track this
-        # overflow" so the host can keep emitting 0 for ones that do
-        missing = torch.full((), -1, dtype=torch.int32, device=base_s.device)
-        for key in ("__overflow.groups", "__overflow.joins"):
-            for n in output_datasets:
-                counts.append(
-                    out[n].cols[key][0] if key in out[n].cols else missing
-                )
-        # per-target projected input counts (multi-source metrics)
-        for _sname, target in source_targets:
-            counts.append(projected[target].count())
-        counts_vec = torch.stack([c.to(torch.int32) for c in counts])
+        outs = [out[n] for n in output_datasets]
+        datasets = {n: _compact_table(t) for n, t in zip(output_datasets, outs)}
+        entries = _counts_layout(
+            projected[primary_target], outs, outs,
+            [projected[t] for _s, t in source_targets], base_s.device)
+        counts_vec = torch.stack([
+            (x.count() if is_count else x).to(torch.int32)
+            for is_count, x in entries
+        ])
+        return datasets, counts_vec, new_state
+
+    return step
+
+
+class _Sharded:
+    """A table laid out over the mesh's data axis: one ``TableData`` a
+    mesh device, in mesh order. ``slots`` 1: shard ``i`` is row range
+    ``i``; ``slots`` k: shard ``i`` is a ring's capacity range ``i``
+    flattened slot-major (a window table), so the gather interleaves the
+    shards per slot and keeps the single-device row order."""
+
+    def __init__(self, shards: List[TableData], slots: int = 1):
+        self.shards = shards
+        self.slots = slots
+        self.gathered: Dict[torch.device, TableData] = {}
+
+
+class _Replicated:
+    """A value (a table, a dict of tensors, a tensor) held once per
+    distinct device, copied from the first device it was given on to
+    another at its first use there."""
+
+    def __init__(self, by_device: Dict[torch.device, object]):
+        self.by_device = dict(by_device)
+        self._first = next(iter(self.by_device.values()))
+
+    def on(self, device: torch.device):
+        v = self.by_device.get(device)
+        if v is None:
+            v = self.by_device[device] = _to_device(self._first, device)
+        return v
+
+
+def _to_device(v, device: torch.device):
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if isinstance(v, TableData):
+        return _map_table(v, lambda a: a.to(device))
+    return {k: _to_device(a, device) for k, a in v.items()}
+
+
+def _gather_table(sh: _Sharded, device: torch.device) -> TableData:
+    """``sh`` whole on ``device``, in single-device row order."""
+    k = sh.slots
+
+    def cat(parts: List[torch.Tensor]) -> torch.Tensor:
+        parts = [p.to(device) for p in parts]
+        if k == 1:
+            return torch.cat(parts)
+        rest = parts[0].shape[1:]
+        return torch.cat(
+            [p.reshape(k, -1, *rest) for p in parts], dim=1
+        ).reshape(-1, *rest)
+
+    first = sh.shards[0]
+    cols = {
+        c: cat([s.cols[c] for s in sh.shards]) if _row_shaped(v, first)
+        else v.to(device)
+        for c, v in first.cols.items()
+    }
+    return TableData(cols, cat([s.valid for s in sh.shards]))
+
+
+def _table_logical_nbytes(t: TableData) -> int:
+    """A gathered table's logical size: its row-shaped columns and its
+    validity, every row."""
+    return sum(
+        logical_nbytes(v) for v in t.cols.values() if _row_shaped(v, t)
+    ) + logical_nbytes(t.valid)
+
+
+class _MeshEnv(dict):
+    """The tables one view run reads: on shard ``shard`` of the mesh, or
+    (``shard`` None) whole on ``device``. A name resolves at its first
+    read and is kept, so ``values()`` holds only what the view read."""
+
+    def __init__(self, env: dict, device: torch.device,
+                 shard: Optional[int], gather):
+        super().__init__()
+        self._env, self._device, self._shard, self._gather = env, device, shard, gather
+
+    def __missing__(self, name):
+        v = self._env[name]
+        if isinstance(v, _Sharded):
+            t = (v.shards[self._shard] if self._shard is not None
+                 else self._gather(v, self._device))
+        else:
+            t = v.on(self._device)
+        self[name] = t
+        return t
+
+    def get(self, name, default=None):
+        try:
+            return self[name]
+        except KeyError:
+            return default
+
+
+def _shard_rows(mesh: Mesh, raw: Union[TableData, PackedRaw]) -> List[TableData]:
+    """One raw batch as one row range a mesh device (views where the
+    batch already lies on the shard's device)."""
+    if isinstance(raw, PackedRaw):
+        return [
+            PackedRaw(part, raw.layout).unpack()
+            # the packed [n_cols + 1, capacity] matrix shards its
+            # capacity, as a ring does
+            for part in ring_sharding(mesh).shard(raw.data)
+        ]
+    sharding = row_sharding(mesh)
+    cols = {c: sharding.shard(v) for c, v in raw.cols.items()}
+    valid = sharding.shard(raw.valid)
+    return [
+        TableData({c: parts[i] for c, parts in cols.items()}, valid[i])
+        for i in range(mesh.size)
+    ]
+
+
+def build_mesh_step_fn(
+    mesh: Mesh,
+    ts_col: Optional[str],
+    windows: Dict[str, Tuple[str, float]],
+    output_datasets: List[str],
+    state_names: List[str],
+    refdata_names: List[str],
+    ring_tables: List[str],
+    pipeline: Pipeline,
+    source_targets: List[Tuple[str, str]],
+    proj_views: Dict[str, list],
+    primary_target: str,
+):
+    """``build_step_fn``'s step partitioned over ``mesh``; the same
+    arguments plus ``census``, the ``MeshCollectives`` the step's
+    collectives record into, and the same results.
+
+    Rings are ``ShardedWindowBuffers``; raw batches, state, reference
+    and string-op tables and the time scalars lie on the mesh's first
+    device (a raw batch may also still be on the host). Each source's
+    rows split into one range a mesh device and project there; a
+    projection that comes out replicated is split again (a local
+    slice). Each ring shard takes its own rows. Then every view runs
+    either per shard — it reads a sharded table and is not a
+    collective stage (``dist/mesh.py::is_collective_view``); its output
+    keeps its input's layout — or replicated, once per distinct device,
+    over its inputs gathered there (each sharded table gathered at most
+    once a device, recorded once as an ``all-gather`` of its logical
+    bytes). Outputs and new state are taken whole on the first device:
+    a sharded one gathers there. The counts vector is the sum of one
+    partial vector a shard (a sharded table's count on each shard, any
+    other value on shard 0 alone), recorded as an ``all-reduce``. On a
+    one-device mesh a sharded table's one shard is the whole table, so
+    the step copies nothing and records no collective.
+    """
+    d0 = mesh.devices[0]
+
+    def step(raw, rings, state, refdata, base_s, now_rel_ms, counter,
+             delta_ms, aux, census: MeshCollectives):
+        def gather(sh: _Sharded, device: torch.device) -> TableData:
+            t = sh.gathered.get(device)
+            if t is None and len(sh.shards) == 1:
+                # a one-device mesh: the shard is the whole table, so
+                # there is nothing to copy and no collective to record
+                t = sh.gathered[device] = _to_device(sh.shards[0], device)
+            elif t is None:
+                t = sh.gathered[device] = _gather_table(sh, device)
+                if len(sh.gathered) == 1:
+                    census.record("all-gather", _table_logical_nbytes(t))
+            return t
+
+        def whole(v) -> TableData:
+            return gather(v, d0) if isinstance(v, _Sharded) else v.on(d0)
+
+        base_r, now_r = _Replicated({d0: base_s}), _Replicated({d0: now_rel_ms})
+
+        def run_views(views, env):
+            for v in views:
+                sources = v.plan.sources if v.plan is not None else ()
+                src = next((env[s] for s in sources
+                            if isinstance(env.get(s), _Sharded)), None)
+                if src is not None and not is_collective_view(v):
+                    env[v.name] = _Sharded([
+                        v.fn(_MeshEnv(env, dev, i, gather),
+                             base_r.on(dev), now_r.on(dev))
+                        for i, dev in enumerate(mesh.devices)
+                    ], src.slots)
+                else:
+                    env[v.name] = _Replicated({
+                        dev: v.fn(_MeshEnv(env, dev, None, gather),
+                                  base_r.on(dev), now_r.on(dev))
+                        for dev in mesh.distinct_devices
+                    })
+
+        aux_r = _Replicated({d0: aux})
+        # 1. per-source projection, per shard
+        projected: Dict[str, _Sharded] = {}
+        for sname, target in source_targets:
+            shards = _Sharded(_shard_rows(mesh, raw[sname]))
+            env = {"Raw": shards, DatasetName.DataStreamRaw: shards,
+                   "__aux": aux_r}
+            run_views(proj_views[sname], env)
+            out = env[target]
+            if not isinstance(out, _Sharded):
+                out = _Sharded(_shard_rows(mesh, out.on(d0)))
+            projected[target] = out
+
+        # 2. ring updates, in place, each ring shard from its own rows
+        for table in ring_tables:
+            buf = rings[table]
+            for b, part in zip(buf.shards, projected[table].shards):
+                update_buffers(b, part, counter % b.slots, delta_ms, ts_col)
+
+        env: Dict[str, object] = {"__aux": aux_r, **projected}
+        for wname, (table, dur_s) in windows.items():
+            buf = rings[table]
+            env[wname] = _Sharded([
+                window_table(b, int(dur_s * 1000), now_r.on(b.valid.device), ts_col)
+                for b in buf.shards
+            ], buf.slots)
+        for rname in refdata_names:
+            env[rname] = _Replicated({d0: refdata[rname]})
+        for sname in state_names:
+            env[sname] = _Replicated({d0: state[sname]})
+
+        run_views(pipeline.views, env)
+
+        new_state = {n: whole(env[n]) for n in state_names}
+
+        # partial counts vectors, one a shard, summed across the mesh
+        n_shards = mesh.size
+        zeros = {dev: torch.zeros((), dtype=torch.int32, device=dev)
+                 for dev in mesh.distinct_devices}
+        partials: List[list] = [[] for _ in range(n_shards)]
+
+        def add_count(v) -> None:
+            if isinstance(v, _Sharded):
+                for i, s in enumerate(v.shards):
+                    partials[i].append(s.count())
+            else:
+                add_value(v.on(d0).count())
+
+        def add_value(c) -> None:
+            partials[0].append(c)
+            for i in range(1, n_shards):
+                partials[i].append(zeros[mesh.devices[i]])
+
+        outs = [env[n] for n in output_datasets]
+        whole_outs = [whole(v) for v in outs]
+        datasets = {n: _compact_table(t)
+                    for n, t in zip(output_datasets, whole_outs)}
+        for is_count, x in _counts_layout(
+                projected[primary_target], outs, whole_outs,
+                [projected[t] for _s, t in source_targets], d0):
+            if is_count:
+                add_count(x)
+            else:
+                add_value(x)
+        vecs = [torch.stack([c.to(torch.int32) for c in p]) for p in partials]
+        counts_vec = vecs[0]
+        for v in vecs[1:]:
+            counts_vec = counts_vec + v.to(d0)
+        if n_shards > 1:
+            census.record("all-reduce", logical_nbytes(counts_vec))
         return datasets, counts_vec, new_state
 
     return step
@@ -561,7 +863,15 @@ class FlowProcessor:
 
     ``device`` is where the step runs: ``"cuda"`` by default, which
     raises when no CUDA device is present; ``"cpu"`` runs the same step
-    with each kernel's plain PyTorch version."""
+    with each kernel's plain PyTorch version.
+
+    ``mesh`` (``dist/mesh.py``) runs the step sharded over the mesh's
+    devices, the first of which takes ``device``'s place. Without one,
+    ``process.numchips`` > 1 builds a mesh over that many visible cards,
+    clamped to the cards there are (the CPU counts as one device) with
+    the JAX package's warning; a clamp to 1 keeps the single-device
+    path. (The JAX package logs the warning only when more than one
+    device remains.)"""
 
     def __init__(
         self,
@@ -571,15 +881,35 @@ class FlowProcessor:
         batch_capacity: Optional[int] = None,
         output_datasets: Optional[List[str]] = None,
         device: "torch.device | str" = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
-        self.device = torch.device(device)
+        self.device = torch.device(device) if mesh is None else mesh.devices[0]
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise EngineException(
                 f"FlowProcessor device {str(self.device)!r}: no CUDA device "
                 "is present (pass device='cpu' to run on the CPU)"
             )
         self.dict = dict_
-        self._refuse_unported(dict_)
+        # designer chip count (jobNumChips -> guiJobNumChips -> S650
+        # process.numchips): honored when no mesh was passed in,
+        # clamped to the locally visible devices so a conf generated
+        # for an 8-card host still boots on a one-box dev host
+        if mesh is None:
+            chips = dict_.get_int_option(
+                SettingNamespace.JobProcessPrefix + "numchips")
+            if chips is not None and chips > 1:
+                visible = (torch.cuda.device_count()
+                           if self.device.type == "cuda" else 1)
+                n = min(chips, visible)
+                if n < chips:
+                    logger.warning(
+                        "process.numchips=%d clamped to %d visible "
+                        "devices", chips, n,
+                    )
+                if n > 1:
+                    mesh = make_mesh(n)
+                    self.device = mesh.devices[0]
+        self.mesh = mesh
         self.dictionary = dictionary or StringDictionary()
         # dictionary capacity bound (see StringDictionary.__init__) —
         # applied even to an injected shared dictionary so the flow conf
@@ -633,12 +963,23 @@ class FlowProcessor:
                 f"{decoder_threads}"
             )
         self.decoder_threads = decoder_threads
+        # sized transfer and output slots are off under a mesh, as in
+        # the JAX package
         self.sized_transfer = (
             pipe_conf.get_or_else("sizedtransfer", "true") or ""
-        ).lower() != "false"
+        ).lower() != "false" and self.mesh is None
         self.output_slots_enabled = (
             pipe_conf.get_or_else("outputslots", "true") or ""
-        ).lower() != "false"
+        ).lower() != "false" and self.mesh is None
+        # observed mesh communication (datax.job.process.mesh.observe,
+        # default on): under a mesh each step's collective census
+        # exports per batch as Mesh_ICI_Bytes / Mesh_Reshard_Count; the
+        # last step's census (dist/mesh.py MeshCollectives) is kept here
+        self.mesh_observe = (
+            process_conf.get_sub_dictionary("mesh.")
+            .get_or_else("observe", "true") or ""
+        ).lower() != "false" and self.mesh is not None
+        self.mesh_collectives: Optional[MeshCollectives] = None
         # per-output EWMA of observed valid row counts — the sized
         # transfer capacity tracks this, bucketed to powers of two
         self.transfer_ewma: Dict[str, float] = {}
@@ -738,9 +1079,6 @@ class FlowProcessor:
         )
         self.spec = self.specs[self.primary]
         self.batch_capacity = self.spec.capacity
-        # what a host reads of the mesh, which this port refuses by conf
-        # (_refuse_unported)
-        self.mesh = None
         # the debug runtime (process.debug.*): conf nans / tracerleaks
         # arm the step's guards around every view and UDF call, conf
         # buffersanitizer the dynamic half of the DX8xx buffer-lifetime
@@ -886,17 +1224,6 @@ class FlowProcessor:
             self._aot_warm()
 
     # -- build -----------------------------------------------------------
-    @staticmethod
-    def _refuse_unported(dict_: SettingDictionary) -> None:
-        """Raise for conf that asks for a feature this port lacks, naming
-        it, rather than run the flow without it."""
-        proc = SettingNamespace.JobProcessPrefix
-        if (dict_.get_int_option(proc + "numchips") or 1) > 1:
-            raise EngineException(
-                "mesh execution (process.numchips > 1) is not ported to "
-                "data_accelerator_tpu_torch yet"
-            )
-
     def _planner_config(self, process_conf: SettingDictionary) -> PlannerConfig:
         kwargs = {}
         maxgroups = (
@@ -934,6 +1261,10 @@ class FlowProcessor:
         capacity = (
             conf.get_int_option("streaming.maxbatchsize") or default_capacity
         )
+        if self.mesh is not None:
+            # row shards must divide evenly over the data axis
+            n = self.mesh.size
+            capacity = ((capacity + n - 1) // n) * n
         target = conf.get("target") or (
             DatasetName.DataStreamProjection if name == DEFAULT_SOURCE else name
         )
@@ -1090,7 +1421,10 @@ class FlowProcessor:
                 s: [guard.view_fn(v) for v in views]
                 for s, views in proj_views.items()
             }
-        self._step = build_step_fn(
+        build = build_step_fn
+        if self.mesh is not None:
+            build = functools.partial(build_mesh_step_fn, self.mesh)
+        self._step = build(
             ts_col=self.timestamp_column,
             windows=dict(self.windows),
             output_datasets=list(self.output_datasets),
@@ -1106,15 +1440,41 @@ class FlowProcessor:
     def _target_caps(self) -> Dict[str, int]:
         return {sp.target: sp.capacity for sp in self.specs.values()}
 
-    def _fresh_rings(self) -> Dict[str, WindowBuffers]:
+    def _fresh_rings(self) -> Dict[str, Union[WindowBuffers, ShardedWindowBuffers]]:
+        """Zeroed rings; under a mesh, one ``[slots, capacity/n]`` shard
+        a mesh device."""
         target_caps = self._target_caps()
+        if self.mesh is None:
+            return {
+                table: make_buffers(
+                    self.target_schemas[table], target_caps[table], slots,
+                    self.device,
+                )
+                for table, slots in self.ring_slots.items()
+            }
+        n = self.mesh.size
         return {
-            table: make_buffers(
-                self.target_schemas[table], target_caps[table], slots,
-                self.device,
-            )
+            table: ShardedWindowBuffers([
+                make_buffers(self.target_schemas[table],
+                             target_caps[table] // n, slots, dev)
+                for dev in self.mesh.devices
+            ])
             for table, slots in self.ring_slots.items()
         }
+
+    def _placed_ring(self, buf: WindowBuffers):
+        """A whole ring laid out as this processor holds rings: itself,
+        or under a mesh one capacity range a mesh device."""
+        if self.mesh is None:
+            return buf
+        sharding = ring_sharding(self.mesh)
+        cols = {c: sharding.shard(a) for c, a in buf.cols.items()}
+        valid = sharding.shard(buf.valid)
+        return ShardedWindowBuffers([
+            WindowBuffers({c: parts[i].contiguous() for c, parts in cols.items()},
+                          valid[i].contiguous())
+            for i in range(self.mesh.size)
+        ])
 
     def _init_device_state(self):
         # dx-race: single-threaded init path — runs in __init__, before
@@ -1174,18 +1534,24 @@ class FlowProcessor:
         (on CUDA into pinned host memory, queued on the stream of the
         last step, behind it) and the counter, the time base and the
         dictionary are read. No dispatch lands between two copies; the
-        caller waits for the copies after the lock is released."""
+        caller waits for the copies after the lock is released. Under a
+        mesh the ring shards are gathered first, on the same stream, so
+        the snapshot has the single-device layout."""
         cuda = self.device.type == "cuda"
         with self._dispatch_lock:
             stream = self._step_stream if cuda else None
             if cuda and stream is None:
                 stream = torch.cuda.current_stream(self.device)
+            rings = (
+                self._gathered_rings(stream) if self.mesh is not None
+                else self.window_buffers
+            )
             copies = {
                 table: (
                     {c: self._copy_out(a, stream) for c, a in buf.cols.items()},
                     self._copy_out(buf.valid, stream),
                 )
-                for table, buf in self.window_buffers.items()
+                for table, buf in rings.items()
             }
             counter, base_ms = self._slot_counter, self._base_ms
             entries = self.dictionary.entries()
@@ -1205,6 +1571,12 @@ class FlowProcessor:
             "base_ms": base_ms,
             "dictionary": entries,
         }
+
+    def _gathered_rings(self, stream) -> Dict[str, WindowBuffers]:
+        """Under a mesh, every ring whole on the processor's device (a
+        copy), gathered on ``stream`` (None on the CPU)."""
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            return {t: b.gathered(self.device) for t, b in self.window_buffers.items()}
 
     @staticmethod
     def _copy_out(a: torch.Tensor, stream) -> torch.Tensor:
@@ -1226,28 +1598,31 @@ class FlowProcessor:
         process has already encoded (same conf => same compile-time
         literals in the same order); on agreement the remaining saved
         entries replay so every restored ring id decodes to the string
-        it meant before."""
+        it meant before. Under a mesh the restored rings are re-sharded
+        over it."""
         saved_dict = snap.get("dictionary")
         if saved_dict is not None:
             if not self.dictionary.restore_entries(saved_dict):
                 return False
         rings = snap.get("rings", {})
-        restored: Dict[str, WindowBuffers] = {}
+        restored: Dict[str, object] = {}
         for table, buf in self.window_buffers.items():
             saved = rings.get(table)
             if saved is None:
                 return False
-            if set(saved["cols"]) != set(buf.cols) or any(
-                tuple(saved["cols"][c].shape) != tuple(buf.cols[c].shape)
-                or saved["cols"][c].dtype != _np_dtype(buf.cols[c])
-                for c in buf.cols
+            shards = getattr(buf, "shards", [buf])
+            want = (buf.slots, buf.capacity)
+            if set(saved["cols"]) != set(shards[0].cols) or any(
+                tuple(saved["cols"][c].shape) != want
+                or saved["cols"][c].dtype != _np_dtype(shards[0].cols[c])
+                for c in shards[0].cols
             ):
                 return False
-            restored[table] = WindowBuffers(
+            restored[table] = self._placed_ring(WindowBuffers(
                 {c: torch.from_numpy(np.array(a, copy=True)).to(self.device)
                  for c, a in saved["cols"].items()},
                 torch.from_numpy(np.array(saved["valid"], copy=True)).to(self.device),
-            )
+            ))
         base = snap.get("base_ms")
         with self._dispatch_lock:
             self.window_buffers = restored
@@ -1379,10 +1754,11 @@ class FlowProcessor:
             cuda = self.device.type == "cuda"
             if cuda and self._step_stream is not None:
                 torch.cuda.current_stream(self.device).wait_stream(self._step_stream)
-            for buf in self.window_buffers.values():
-                for a in buf.cols.values():
-                    a.zero_()
-                buf.valid.zero_()
+            for ring in self.window_buffers.values():
+                for buf in getattr(ring, "shards", [ring]):
+                    for a in buf.cols.values():
+                        a.zero_()
+                    buf.valid.zero_()
             self.state_data = {
                 sname: st.load(self.dictionary)
                 for sname, st in self.state_tables.items()
@@ -1406,8 +1782,17 @@ class FlowProcessor:
         constants, the transfer slots' device side) that lie on its
         device, so pinned host memory is left out. On CUDA each storage
         counts at the caching allocator's 512-byte block granularity,
-        the unit of ``torch.cuda.memory_allocated``."""
-        storages: Dict[int, int] = {}
+        the unit of ``torch.cuda.memory_allocated``. Under a mesh every
+        distinct device of the mesh counts."""
+        devices = self.mesh.distinct_devices if self.mesh is not None else (self.device,)
+
+        def mine(dev: torch.device) -> bool:
+            return any(
+                dev.type == d.type and (d.index is None or dev.index == d.index)
+                for d in devices
+            )
+
+        storages: Dict[Tuple[str, int], int] = {}
         seen: set = set()
         stack: list = [self.__dict__]
         # nothing under these holds a tensor of the processor's
@@ -1419,13 +1804,10 @@ class FlowProcessor:
                 continue
             seen.add(id(obj))
             if isinstance(obj, torch.Tensor):
-                dev = obj.device
-                if dev.type == self.device.type and (
-                    self.device.index is None or dev.index == self.device.index
-                ):
+                if mine(obj.device):
                     st = obj.untyped_storage()
                     if st.data_ptr():
-                        storages[st.data_ptr()] = st.nbytes()
+                        storages[(str(obj.device), st.data_ptr())] = st.nbytes()
             elif isinstance(obj, dict):
                 stack.extend(obj.values())
             elif isinstance(obj, (list, tuple, set, frozenset, deque)):
@@ -1452,14 +1834,17 @@ class FlowProcessor:
         keys: ``bytes_in_use`` and ``peak_bytes_in_use`` from
         ``torch.cuda.memory_stats`` (``allocated_bytes.all.current`` and
         ``.peak``) of the processor's card. None on the CPU, which
-        reports none, as in the JAX package."""
+        reports none, as in the JAX package. Under a mesh, summed over
+        its distinct cards."""
         if self.device.type != "cuda":
             return None
-        stats = torch.cuda.memory_stats(self.device)
-        return {
-            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
-        }
+        devices = self.mesh.distinct_devices if self.mesh is not None else (self.device,)
+        out = {"bytes_in_use": 0, "peak_bytes_in_use": 0}
+        for dev in devices:
+            stats = torch.cuda.memory_stats(dev)
+            out["bytes_in_use"] += int(stats.get("allocated_bytes.all.current", 0))
+            out["peak_bytes_in_use"] += int(stats.get("allocated_bytes.all.peak", 0))
+        return out
 
     # -- per-batch host path ----------------------------------------------
     def _properties_id(self, base_ms: int, file_info: Optional[dict] = None) -> int:
@@ -1801,8 +2186,11 @@ class FlowProcessor:
         non-blocking copy of the matrix on the current stream, and the
         event after it that gates the pool's reuse of the matrix. A
         PackedRaw already on the card, or any on a CPU processor, is
-        returned as it is."""
-        if self.device.type != "cuda" or raw.data.is_cuda:
+        returned as it is; so is one under a mesh over several cards,
+        whose step copies each card its rows."""
+        if self.device.type != "cuda" or raw.data.is_cuda or (
+            self.mesh is not None and len(self.mesh.distinct_devices) > 1
+        ):
             return raw
         data = raw.data.to(self.device, non_blocking=True)
         copied = torch.cuda.Event()
@@ -1854,7 +2242,7 @@ class FlowProcessor:
                     ingest.append((*r.ingest_slot, r.h2d_event))
             raws[name] = r
         try:
-            out_datasets, counts_vec, new_state, new_base_ms = self._advance(
+            out_datasets, counts_vec, new_state, new_base_ms, census = self._advance(
                 raws, batch_time_ms
             )
         except Exception:
@@ -1895,6 +2283,7 @@ class FlowProcessor:
                 )
                 for n, st in self.state_tables.items()
             },
+            mesh_collectives=census,
         )
         # each staged slot is owned by THIS batch until its transfer
         # lands: the dispatch that next rotates onto the slot checks the
@@ -1912,7 +2301,8 @@ class FlowProcessor:
         here, so every write below is seen under it): the
         UDF refresh, the time base and slot counter, and the step
         enqueued on the current stream. Returns (output tables, counts
-        vector, new state, the batch's whole-second base). The new state
+        vector, new state, the batch's whole-second base, the step's
+        collective census under an observed mesh, else None). The new state
         is the next batch's state input: the step never writes a state
         table in place, so an earlier batch still copying its own state
         off the card reads what its step made."""
@@ -1959,18 +2349,24 @@ class FlowProcessor:
             refdata = {n: t for n, (_s, t) in self.refdata.items()}
             # child span of the host's "dispatch" when a batch trace is
             # active; a no-op without one
+            census = MeshCollectives() if self.mesh is not None else None
+            mesh_arg = {} if census is None else {"census": census}
             with tracing.span("device-enqueue"), kernel_build.loads_recorded() as loads:
                 out_datasets, counts_vec, new_state = self._step(
                     raw, self.window_buffers, self.state_data, refdata, base_s,
-                    now_rel_ms, counter, delta_ms, aux,
+                    now_rel_ms, counter, delta_ms, aux, **mesh_arg,
                 )
+            if self.mesh_observe:
+                self.mesh_collectives = census
+            else:
+                census = None
             self.state_data = new_state
             if self._aot_warmed and loads:
                 # a kernel of this flow first built or loaded after its warm
                 self._count_compile("WarmMiss_Count", len(loads))
             if self.device.type == "cuda":
                 self._step_stream = torch.cuda.current_stream(self.device)
-            return out_datasets, counts_vec, new_state, new_base_ms
+            return out_datasets, counts_vec, new_state, new_base_ms, census
 
     def _stage_output(
         self, name: str, t: TableData, cap: int, full_cap: int,
@@ -2239,8 +2635,11 @@ class PendingBatch:
         fetch_caps: Dict[str, int],
         ingest: Optional[List[tuple]] = None,
         state: Optional[Dict[str, TableData]] = None,
+        mesh_collectives: Optional[MeshCollectives] = None,
     ):
         self.proc = proc
+        # the collective census of THIS batch's step (observed mesh only)
+        self.mesh_collectives = mesh_collectives
         # THIS batch's pipeline: a UDF onInterval refresh may rebuild
         # proc.pipeline before an in-flight batch collects; its outputs
         # must decode against the schemas of the step that produced them
@@ -2508,6 +2907,13 @@ class PendingBatch:
         if proc.retrace_count:
             metrics["Retrace_Count"] = float(proc.retrace_count)
             proc.retrace_count = 0
+        # observed mesh communication: the collectives this batch's step
+        # ran, as per-batch series (the DX510/DX511 inputs); each step
+        # records its own, so a rebuilt step reports its own census
+        mc = self.mesh_collectives
+        if mc is not None:
+            metrics["Mesh_ICI_Bytes"] = mc.wire_bytes(proc.mesh.size)
+            metrics["Mesh_Reshard_Count"] = float(mc.op_count)
         for k, v in proc._drain_compile_stats().items():
             metrics[f"Compile_{k}"] = float(v)
         # sized-transfer accounting: bytes actually moved device->host

@@ -153,13 +153,14 @@ class BufferSanitizer:
                     continue
                 saved_arrays.append(a)
                 others = list(earlier)
-                live_arr = None
-                if live is not None:
+                # a ring under a mesh is held as shards: each is live
+                for part in getattr(live, "shards", [live]) if live is not None else ():
                     live_arr = (
-                        live.valid if cname == "__valid__"
-                        else live.cols.get(cname)
+                        part.valid if cname == "__valid__"
+                        else part.cols.get(cname)
                     )
-                if live_arr is not None:
+                    if live_arr is None:
+                        continue
                     # the ring's own memory, viewed: only a CPU ring has
                     # host memory to share
                     # dx-race: allow-zero-copy read-only identity probe —

@@ -15,13 +15,21 @@ delta as host integers, so the update needs no device-to-host read.
 
 Windowed views (``DataXProcessedInput_5minutes``) are exposed to the
 pipeline as plain input tables of capacity K*capacity.
+
+Under a mesh (``dist/mesh.py``) a ring is held as one ``[K,
+capacity/n]`` shard per mesh device (``ShardedWindowBuffers``, the
+layout of ``ring_sharding``). Shard ``i`` holds the ring's columns
+``i*capacity/n`` up to ``(i+1)*capacity/n``: batch rows shard the same
+way, so each shard's update reads only its own rows and the ring update
+needs no communication. ``update_buffers`` and ``window_table`` work on
+one shard as on a whole ring.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -42,6 +50,33 @@ class WindowBuffers:
     @property
     def capacity(self) -> int:
         return int(self.valid.shape[1])
+
+
+@dataclass
+class ShardedWindowBuffers:
+    """A ring held as one ``WindowBuffers`` shard per mesh device: shard
+    ``i`` is the ring's capacity range ``i`` of ``len(shards)``."""
+
+    shards: List[WindowBuffers]
+
+    @property
+    def slots(self) -> int:
+        return self.shards[0].slots
+
+    @property
+    def capacity(self) -> int:
+        return sum(b.capacity for b in self.shards)
+
+    def gathered(self, device: "torch.device | str") -> WindowBuffers:
+        """The whole ring on ``device``: the shards concatenated along
+        their capacity dim (a copy)."""
+        def cat(parts):
+            return torch.cat([p.to(device) for p in parts], dim=1)
+
+        return WindowBuffers(
+            {c: cat([b.cols[c] for b in self.shards]) for c in self.shards[0].cols},
+            cat([b.valid for b in self.shards]),
+        )
 
 
 def num_slots(max_window_s: float, watermark_s: float, interval_s: float) -> int:

@@ -4,8 +4,7 @@ The analog of the reference's Services/ layer (DataX.Config +
 DataX.Flow.* + DataX.Gateway): design-time flow documents in, runnable
 flat ``datax.job.*`` confs and managed engine jobs out.
 
-Exports what the JAX package's ``serve/__init__.py`` does, less
-``Scenario`` and ``ScenarioContext`` (``serve/scenario.py``, slice 9b).
+Exports what the JAX package's ``serve/__init__.py`` does.
 """
 
 from .templating import TokenDictionary
@@ -31,6 +30,7 @@ from .flowservice import FlowOperation
 from .schemainference import SchemaInferenceManager, infer_schema
 from .sqlanalyzer import SqlAnalyzer
 from .livequery import KernelService
+from .scenario import Scenario, ScenarioContext
 from .restapi import DataXApi, DataXApiService
 
 __all__ = [
@@ -56,6 +56,8 @@ __all__ = [
     "infer_schema",
     "SqlAnalyzer",
     "KernelService",
+    "Scenario",
+    "ScenarioContext",
     "DataXApi",
     "DataXApiService",
 ]

@@ -41,9 +41,9 @@ GENERATION = os.path.join(os.path.dirname(HERE), "data_accelerator_tpu", "serve"
                           "generation.py")
 TWINS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(CONF_DIR, "dx*")))
 # rows the reference reads and the port does not (compile cache, jit
-# cache, mesh): read=False in the port
+# cache, the mesh's ICI conformance): read=False in the port
 PORT_UNREAD = {"compile.cachedir", "compile.cacheurl", "compile.jitcachecap",
-               "mesh.observe", "conformance.iciratiohigh"}
+               "conformance.iciratiohigh"}
 
 
 def _diags(report):
@@ -86,13 +86,14 @@ def test_port_tree_is_conf_clean_with_pinned_inventory():
     report = tconf.analyze_conf_modules(paths)
     assert report.diagnostics == [], [d.render() for d in report.diagnostics]
     cd = report.conf_dict()
-    assert cd["analyzedFiles"] == len(paths) == 88
-    assert cd["readSites"] == 98
-    assert cd["readKeys"] == 92
+    assert cd["analyzedFiles"] == len(paths) == 94
+    assert cd["readSites"] == 99
+    assert cd["readKeys"] == 93
     # the flattener template's keys, the control plane's generation scan
-    # (serve/generation.py; its S400 knob tokens too) and the REST API's
-    # UDF class keys for a flow's kernels (serve/restapi.py)
-    assert cd["producedKeys"] == 42
+    # (serve/generation.py; its S400 knob tokens too), the REST API's
+    # UDF class keys for a flow's kernels (serve/restapi.py) and the
+    # chaos drills' host confs (serve/scenarios.py)
+    assert cd["producedKeys"] == 53
     assert cd["knobTokens"] == 6
     assert cd["registryKeys"] == len(tspec.CONF_REGISTRY) == 109
 
@@ -128,7 +129,7 @@ def test_registry_rows_equal_the_reference_but_for_the_unread_five():
         else:
             assert t == j
     parity = [e for e in tspec.CONF_REGISTRY if not e.read]
-    assert len(parity) == 10
+    assert len(parity) == 9
     assert {e.key for e in parity} - PORT_UNREAD == {
         e.key for e in jspec.CONF_REGISTRY if not e.read}
 

@@ -264,14 +264,19 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
                       output_datasets=OUTPUTS)
 
 
-@pytest.mark.parametrize("key,value,feature", [
-    ("datax.job.process.numchips", "4", "mesh"),
-])
-def test_unported_features_raise_by_name(key, value, feature):
-    with pytest.raises(EngineException, match=feature):
-        FlowProcessor(SettingDictionary(_conf(**{key: value})),
-                      batch_capacity=CAPACITY, output_datasets=OUTPUTS,
-                      device="cpu")
+def test_numchips_runs_clamped_to_the_visible_devices(caplog):
+    """``process.numchips=4`` runs: on a CPU processor (one device) it
+    clamps to 1 with the JAX package's warning and keeps the
+    single-device path."""
+    import logging
+
+    with caplog.at_level(logging.WARNING):
+        proc = FlowProcessor(
+            SettingDictionary(_conf(**{"datax.job.process.numchips": "4"})),
+            udfs={"anomalyscore": anomalyscore()}, batch_capacity=CAPACITY,
+            output_datasets=OUTPUTS, device="cpu")
+    assert "process.numchips=4 clamped to 1 visible devices" in caplog.text
+    assert proc.mesh is None and proc.sized_transfer
 
 
 # -- objstore:// reads, through the port's own object-store client -----------

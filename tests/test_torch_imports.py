@@ -197,6 +197,54 @@ def test_slice_7b_modules_load_without_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+# the scenario runner and the JobRunner probe (slice 9b), and mesh
+# execution (slice 8a)
+SLICE_9B_8A = (
+    "serve/scenario.py", "serve/jobrunner.py", "serve/scenarios.py",
+    "dist/__init__.py", "dist/mesh.py", "dist/ingest.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_9B_8A)
+def test_slice_9b_8a_module_is_checked(rel):
+    path = PORT_DIR / rel
+    assert path in PORT_FILES
+    assert not [m for m in _imported_modules(path) if _forbidden(m)]
+
+
+def test_slice_9b_8a_modules_load_without_jax():
+    """Each module of the slices imports in a fresh interpreter and
+    leaves neither JAX nor the JAX package loaded."""
+    import subprocess
+    import sys
+
+    mods = tuple("data_accelerator_tpu_torch." + rel[:-3].replace("/", ".")
+                 .replace(".__init__", "") for rel in SLICE_9B_8A)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_only_meshcheck_lacks_a_counterpart():
+    """Of the JAX package's modules, only the DX7xx mesh analyzer
+    (``analysis/meshcheck.py``, slice 8b) has no counterpart in the
+    port."""
+    ref = ROOT / "data_accelerator_tpu"
+    missing = sorted(
+        str(p.relative_to(ref)) for p in ref.rglob("*.py")
+        if not (PORT_DIR / p.relative_to(ref)).exists()
+    )
+    assert missing == ["analysis/meshcheck.py"]
+
+
 # -- strings that name modules ----------------------------------------------------
 # A JAX-package module as a string names it ``data_accelerator_tpu``, then
 # ``.`` or ``:``, then an identifier: a dotted module path, a

@@ -12,6 +12,7 @@ import chip_smoke
 from data_accelerator_tpu.pilot.__main__ import main as jax_main
 from data_accelerator_tpu_torch.pilot.__main__ import main as port_main
 from data_accelerator_tpu_torch.pilot.controller import SignalSnapshot
+from data_accelerator_tpu_torch.serve.scenarios import DrillFlow
 
 
 def _write_trace(path, records):
@@ -83,7 +84,7 @@ def test_replay_of_a_piloted_drill_recording(tmp_path, capsys):
     ``pilot/evaluate`` spans; both CLIs replay them, under the default
     knobs, to the same decisions."""
     ctx = chip_smoke.run_chaos_drill("hot-key-skew", True, str(tmp_path),
-                                     chip_smoke.chaos_small_flow())
+                                     DrillFlow(device="cpu"))
     rc, tout, jout, _te, _je = _both(["--replay", ctx["tracefile"], "--json"], capsys)
     assert rc == 0 and tout == jout
     doc = json.loads(tout)

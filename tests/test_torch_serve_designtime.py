@@ -191,11 +191,12 @@ def test_simulated_data_feeds_the_ports_socket_source():
 
 
 def test_serve_exports_the_references_less_the_scenarios():
-    """``serve/__init__.py`` exports the JAX package's names but the
-    scenario runner's (``Scenario``, ``ScenarioContext``: slice 9b)."""
+    """``serve/__init__.py`` exports the JAX package's names: since slice
+    9b the scenario runner's (``Scenario``, ``ScenarioContext``) too."""
     import data_accelerator_tpu.serve as jserve
     import data_accelerator_tpu_torch.serve as tserve
 
-    assert set(tserve.__all__) == set(jserve.__all__) - {"Scenario", "ScenarioContext"}
+    assert set(tserve.__all__) == set(jserve.__all__)
+    assert {"Scenario", "ScenarioContext"} <= set(tserve.__all__)
     for name in tserve.__all__:
         assert getattr(tserve, name).__module__.startswith("data_accelerator_tpu_torch.")

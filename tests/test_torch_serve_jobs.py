@@ -341,6 +341,16 @@ def _whole(pkg, root, events_path, monkeypatch):
     clock = _Clock()
     mod = {"jax": jhost_mod, "torch": thost_mod}[pkg]
     monkeypatch.setattr(mod, "time", clock.module())
+    if pkg == "jax":
+        # the JAX processor's transfer-helper jit cache is process-wide:
+        # one filled by earlier tests in this process would evict during
+        # this run and add Compile_JitCacheEvict_Count to its metrics
+        from collections import OrderedDict
+
+        from data_accelerator_tpu.runtime import processor as jprocessor
+
+        monkeypatch.setattr(jprocessor, "_HELPER_JITS", OrderedDict())
+        jprocessor.drain_jit_evictions()
     made = []
 
     class Kept(mod.StreamingHost):
