@@ -161,6 +161,20 @@ Phases, each printing JSON lines:
    batch beside the single card's, one profiled batch a way split into
    gathers, copies and other kernels; ``HostIngestPlan`` and one all-reduce under a world-size-1
    NCCL group; over every real card when there are two or more;
+   mesh_model: the DX7xx mesh model. ``analyze_flow_mesh`` on the main
+   flow at 4 chips with its cross-check on ``cuda:0`` (the flow's mesh
+   step over 4 virtual shards, its census against the model edge by
+   edge): validated, the reference's totals 60,817,408 / 182,452,224 /
+   3 and codes DX700, DX704, DX705; the main flow from a socket with
+   ``jobNumChips`` 4 through the port's generation, its
+   ``process.mesh.model`` run by a host over 4 virtual shards for 2
+   warm-up batches and a window of 4: ``Conformance_MeshIci_Ratio``
+   182,452,488 / 182,452,224 within 1e-6, no DX510/511,
+   ``anomaly_score`` once a batch, counts and rows a single-card
+   processor's, each batch's tail split into landing and sinks; the
+   same conf with the model's wire bytes / 16 fires DX510 once in 2
+   batches; the ICI probe (None on one card, with its reason); REST
+   ``flow/validate`` mesh equal to the CLI's ``--mesh --json``;
    chaos: the five drills of the port's ``serve/scenarios.py``
    (preemption mid-window, sink outage, hot-key skew, malformed flood,
    rescale with state), pilot off and on, at depth 2 with the buffer
@@ -4358,6 +4372,345 @@ def phase_mesh(seed: int, nvidia_smi: str, udf) -> dict:
     return launches
 
 
+# -- the mesh model (slice 8b) ------------------------------------------------
+MESH_MODEL_FLOW = "ChipSmokeMesh"
+MESH_MODEL_CHIPS = 4
+# the host's batches: the conformance monitor's warm-up, then its window
+MESH_MODEL_WARMUP = 2
+MESH_MODEL_WINDOW = 4
+# the run on the divided model: one warm-up batch (the monitor's least),
+# then the first judged batch fires
+MESH_MODEL_DRIFT_WARMUP = 1
+MESH_MODEL_DRIFT_BATCHES = MESH_MODEL_DRIFT_WARMUP + 1
+# the model's wire bytes are divided by this for the DX510 run
+MESH_MODEL_DIVISOR = 16
+# the reference's totals of the main flow at 4 chips (the JAX package's
+# analyze_flow_mesh on the CPU): result, wire, reshards, per-chip bytes
+MESH_MODEL_TOTALS = (60_817_408, 182_452_224.0, 3, 38_080_512)
+# the wire bytes of the mesh step's census a batch (the `mesh` phase's
+# Mesh_ICI_Bytes): the three gathers' and one all-reduce of the 44-byte
+# counts vector, 2 x 3 x 44 = 264 B at 4 chips
+MESH_MODEL_CENSUS_WIRE = 182_452_488.0
+MESH_MODEL_CODES = ["DX700", "DX704", "DX705"]
+# the device the virtual shards and the analyzer's cross-check use
+MESH_MODEL_DEVICE = "cuda:0"
+
+
+class DriftEvents:
+    """A telemetry writer that keeps the codes of the conformance drift
+    events a host records."""
+
+    def __init__(self):
+        self.codes = []
+
+    def write(self, record):
+        if record.get("type") == "event" and record.get("name") == "conformance/drift":
+            self.codes.append(record["properties"]["code"])
+
+
+def mesh_model_job(tmp: str) -> Path:
+    """The main flow from a socket with ``jobNumChips`` 4 through the
+    port's generation: a conf that carries ``process.mesh.model``."""
+    from data_accelerator_tpu_torch.serve.flowbuilder import FlowConfigBuilder
+    from data_accelerator_tpu_torch.serve.generation import RuntimeConfigGeneration
+    from data_accelerator_tpu_torch.serve.storage import (
+        LocalDesignTimeStorage, LocalRuntimeStorage)
+
+    gui = control_gui("socket")
+    gui["name"] = gui["displayName"] = MESH_MODEL_FLOW
+    gui["process"]["jobconfig"]["jobNumChips"] = str(MESH_MODEL_CHIPS)
+    design = LocalDesignTimeStorage(f"{tmp}/design")
+    design.save(FlowConfigBuilder().build(gui))
+    res = RuntimeConfigGeneration(design, LocalRuntimeStorage(f"{tmp}/runtime")) \
+        .generate(MESH_MODEL_FLOW)
+    if not res.ok:
+        raise AssertionError(f"mesh_model generation: {res.errors}")
+    return Path(res.conf_paths[0])
+
+
+def time_batch_tail(host, rec) -> None:
+    """Split each batch's tail into ``rec["split"]``: the ms of landing
+    its tables (``collect_tables``: the copy to the host and the rows
+    made in Python), of its sinks in all, and of each sink kind."""
+    split = rec["split"] = {"collect_ms": [], "sinks_ms": [], "sink_kind_ms": []}
+    # busy ms of each sink kind: the dispatcher runs the outputs' sinks
+    # on threads of their own, so the kinds may add up past the total
+    kinds: dict = {}
+    lock = threading.Lock()
+    for op in host.dispatcher.operators.values():
+        for sink in op.sinks:
+            write = sink.write
+
+            def timed(dataset, rows, batch_time_ms, _write=write, _kind=sink.kind):
+                t0 = time.perf_counter()
+                n = _write(dataset, rows, batch_time_ms)
+                with lock:
+                    kinds[_kind] = kinds.get(_kind, 0.0) + (time.perf_counter() - t0) * 1e3
+                return n
+
+            sink.write = timed
+    dispatch_sinks = host.dispatcher.dispatch
+
+    def sinks_timed(datasets, batch_time_ms, *a, **kw):
+        kinds.clear()
+        t0 = time.perf_counter()
+        out = dispatch_sinks(datasets, batch_time_ms, *a, **kw)
+        split["sinks_ms"].append((time.perf_counter() - t0) * 1e3)
+        split["sink_kind_ms"].append(dict(kinds))
+        return out
+
+    host.dispatcher.dispatch = sinks_timed
+    dispatch = host.processor.dispatch_batch
+
+    def dispatch_split(raw, batch_time_ms):
+        handle = dispatch(raw, batch_time_ms)
+        collect = handle.collect_tables
+
+        def collect_timed():
+            t0 = time.perf_counter()
+            out = collect()
+            split["collect_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        handle.collect_tables = collect_timed
+        return handle
+
+    host.processor.dispatch_batch = dispatch_split
+
+
+def run_mesh_host(conf_path: Path, payloads, batches: int, overrides=None,
+                  mesh=None) -> tuple:
+    """A socket-fed ``StreamingHost`` over ``mesh`` (by default
+    ``MESH_MODEL_CHIPS`` virtual shards of ``MESH_MODEL_DEVICE``) on a
+    generated conf, ``batches`` batches: (host, recording with each
+    batch's tail split under ``split``, drift codes, anomaly_score
+    launches)."""
+    from data_accelerator_tpu_torch.core.confmanager import ConfigManager
+    from data_accelerator_tpu_torch.dist import make_mesh
+    from data_accelerator_tpu_torch.runtime.host import StreamingHost
+
+    ConfigManager.reset()
+    ConfigManager.get_configuration_from_arguments([f"conf={conf_path}"])
+    conf = ConfigManager.load_config().with_settings({
+        "datax.job.input.default.socket.port": "0",
+        "datax.job.process.conformance.warmup": str(MESH_MODEL_WARMUP),
+        "datax.job.process.conformance.window": str(MESH_MODEL_WINDOW),
+        **(overrides or {})})
+    ConfigManager.reset()
+    if mesh is None:
+        mesh = make_mesh(MESH_MODEL_CHIPS, devices=(MESH_MODEL_DEVICE,) * MESH_MODEL_CHIPS)
+    host = StreamingHost(conf, mesh=mesh)
+    rec = record_host(host, ThreadSyncCount())
+    time_batch_tail(host, rec)
+    drift = DriftEvents()
+    host.telemetry.writers.append(drift)
+    udf = host.processor.udfs["anomalyscore"]
+    try:
+        feed_socket(host.source.port, payloads, batches * CAPACITY, host.source)
+        udf.kernel.launches = 0
+        host.run(max_batches=batches)
+        launches = udf.launches
+    finally:
+        host.stop()
+    if host.batches_processed != batches:
+        raise AssertionError(f"mesh_model host: {host.batches_processed} of {batches} batches")
+    return host, rec, drift.codes, launches
+
+
+def same_counts_single_card(conf_path: Path, rec, what: str) -> list:
+    """The recorded batches through a single-card processor of the same
+    conf (``numchips`` 1): every output's rows and every count metric of
+    each batch equal the mesh host's; returns the rows per batch."""
+    from data_accelerator_tpu_torch.core.confmanager import ConfigManager
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    ConfigManager.reset()
+    ConfigManager.get_configuration_from_arguments([f"conf={conf_path}"])
+    conf = ConfigManager.load_config().with_settings({"datax.job.process.numchips": "1"})
+    ConfigManager.reset()
+    single = FlowProcessor(conf, device=MESH_MODEL_DEVICE)
+    if single.mesh is not None:
+        raise AssertionError(f"{what}: the reference processor runs a mesh")
+    out = []
+    for b, t_ms in enumerate(rec["times"]):
+        data, base_ms, source = rec["encoded"][b]
+        raw = single.encode_json_bytes(data, base_ms, source=source)
+        datasets, metrics = single.dispatch_batch({source or single.primary: raw},
+                                                  t_ms).collect_tables()
+        counts = {k: v for k, v in metrics.items() if k.endswith("_Events_Count")}
+        got = {k: rec["metrics"][b].get(k) for k in counts}
+        if got != counts:
+            raise AssertionError(f"{what} batch {b}: counts {got} vs single card {counts}")
+        for name in datasets:
+            same_rows(rec["rows"][(t_ms, name)], datasets[name], f"{what} batch {b} {name}")
+        out.append({name: len(rows) for name, rows in datasets.items()})
+    del single
+    return out
+
+
+def phase_mesh_model(seed: int, nvidia_smi: str, udf) -> dict:
+    """The DX7xx mesh model on the card, four parts:
+
+    (a) ``analyze_flow_mesh(main_flow_gui(), chips=4)`` with its
+        cross-check on the card: the flow's mesh step over 4 virtual
+        shards of ``cuda:0`` at ``CAPACITY`` rows, its census against
+        the model edge by edge: validated, the reference's totals and
+        codes;
+    (b) the main flow with ``jobNumChips`` 4 through the port's
+        generation, its conf's ``process.mesh.model`` run by a
+        socket-fed host over 4 virtual shards for ``MESH_MODEL_WARMUP``
+        + ``MESH_MODEL_WINDOW`` batches: ``Conformance_MeshIci_Ratio``
+        census / model each judged batch, DX510/511 silent,
+        ``anomaly_score`` once a batch, each batch's counts and rows a
+        single-card processor's; then the same conf with the model's
+        wire bytes divided by ``MESH_MODEL_DIVISOR`` fires DX510 once;
+    (c) the ICI probe: None on one card, with its reason; measured
+        across two cards or more;
+    (d) REST ``flow/validate {"mesh": true, "chips": 4}`` equal to the
+        CLI's ``--mesh --chips=4 --json``.
+
+    Returns each kernel's launches in (b)'s run, its counts set to 0
+    just before it."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.analysis import analyze_flow_mesh
+    from data_accelerator_tpu_torch.kernels import launch
+    from data_accelerator_tpu_torch.obs.calibrate import ici_probe
+    from data_accelerator_tpu_torch.serve.flowservice import FlowOperation
+    from data_accelerator_tpu_torch.serve.restapi import DataXApi
+    from data_accelerator_tpu_torch.serve.storage import (
+        LocalDesignTimeStorage, LocalRuntimeStorage)
+
+    t_phase = time.perf_counter()
+    gui = main_flow_gui()
+    # (a) the analyzer, its cross-check on the card
+    t0 = time.perf_counter()
+    report = analyze_flow_mesh(gui, chips=MESH_MODEL_CHIPS, device=MESH_MODEL_DEVICE)
+    analyze_s = time.perf_counter() - t0
+    t = report.totals()
+    got = (t["iciResultBytesPerBatch"], t["iciWireBytesPerBatch"], t["reshardCount"],
+           t["perChipHbmBytes"])
+    check = report.cross_check
+    if not report.validated or got != MESH_MODEL_TOTALS or \
+            report.codes() != MESH_MODEL_CODES or report.errors or \
+            any(e["censusBytes"] != e["modelBytes"] for e in check.edges):
+        raise AssertionError(f"mesh_model analyzer: {report.codes()} {got} "
+                             f"validated={report.validated} {check.to_dict()}")
+    analyzer = {
+        "validated": report.validated, "codes": report.codes(), "totals": t,
+        "per_chip_hbm_bytes": t["perChipHbmBytes"],
+        "per_chip_hbm_bytes_reference_cpu": MESH_MODEL_TOTALS[3],
+        "per_chip_note": "closed forms over the plan's shapes (costmodel.table_bytes): "
+                         "the card plan's 512-byte allocator blocks do not enter the "
+                         "mesh model, so the card and the CPU give one figure",
+        "cross_check": check.to_dict(), "cross_check_ms": check.ms,
+        "analyze_s": analyze_s,
+    }
+
+    # (b) a generated mesh job on a host over 4 virtual shards
+    rs = np.random.RandomState(seed + 29)
+    n_batches = MESH_MODEL_WARMUP + MESH_MODEL_WINDOW
+    payloads = [make_json_payload(rs, CAPACITY) for _ in range(n_batches)]
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(LineCount()):
+        conf_path = mesh_model_job(tmp)
+        conf_text = conf_path.read_text(encoding="utf-8")
+        model_line = next(ln for ln in conf_text.splitlines()
+                          if ln.startswith("datax.job.process.mesh.model="))
+        model = json.loads(model_line.split("=", 1)[1])
+        wire = model["totals"]["iciWireBytesPerBatch"]
+        if model["totals"]["chips"] != MESH_MODEL_CHIPS or wire != MESH_MODEL_TOTALS[1]:
+            raise AssertionError(f"mesh_model conf: {model['totals']}")
+        reset_launch_counts(udf)
+        t0 = time.perf_counter()
+        host, rec, drift, host_launches = run_mesh_host(conf_path, payloads, n_batches)
+        run_s = time.perf_counter() - t0
+        launches = {"anomaly_score": host_launches,
+                    "dx305_double": launch.launches("dx305_double")}
+        census = host.processor.mesh_collectives
+        ici = [m.get("Mesh_ICI_Bytes") for m in rec["metrics"]]
+        reshards = [m.get("Mesh_Reshard_Count") for m in rec["metrics"]]
+        ratios = [m.get("Conformance_MeshIci_Ratio") for m in rec["metrics"]]
+        want_ratio = MESH_MODEL_CENSUS_WIRE / wire
+        judged = ratios[MESH_MODEL_WARMUP:]
+        if set(ici) != {MESH_MODEL_CENSUS_WIRE} or set(reshards) != {4.0} \
+                or None in judged or any(abs(r - want_ratio) > 1e-6 for r in judged) \
+                or {"DX510", "DX511"} & set(drift):
+            raise AssertionError(f"mesh_model host: ici {ici} reshards {reshards} "
+                                 f"ratios {ratios} vs {want_ratio} drift {drift}")
+        if host_launches != n_batches:
+            raise AssertionError(f"mesh_model host: anomaly_score launched "
+                                 f"{host_launches} times in {n_batches} batches")
+        t0 = time.perf_counter()
+        per_batch_rows = same_counts_single_card(conf_path, rec, "mesh_model host")
+        single_card_s = time.perf_counter() - t0
+        ms = [m.get("Latency-Batch") for m in rec["metrics"]]
+        del host
+        # the same conf, its model's wire bytes divided: DX510 fires once
+        cut = dict(model, totals=dict(model["totals"],
+                                      iciWireBytesPerBatch=wire / MESH_MODEL_DIVISOR))
+        conf2 = relocate_job_dir(conf_path, Path(tmp) / "relocated")
+        t0 = time.perf_counter()
+        _h2, rec2, drift2, _l2 = run_mesh_host(
+            conf2, payloads[:MESH_MODEL_DRIFT_BATCHES], MESH_MODEL_DRIFT_BATCHES,
+            {"datax.job.process.mesh.model": json.dumps(cut, separators=(",", ":")),
+             "datax.job.process.conformance.warmup": str(MESH_MODEL_DRIFT_WARMUP)})
+        divided_s = time.perf_counter() - t0
+        if drift2.count("DX510") != 1 or "DX511" in drift2:
+            raise AssertionError(f"mesh_model divided model: drift {drift2}")
+        ratios2 = [m.get("Conformance_MeshIci_Ratio") for m in rec2["metrics"]]
+        del _h2
+    host_line = {
+        "conf_mesh_model_totals": model["totals"], "batches": n_batches,
+        "warmup": MESH_MODEL_WARMUP, "window": MESH_MODEL_WINDOW,
+        "Mesh_ICI_Bytes": ici, "Mesh_Reshard_Count": reshards,
+        "Conformance_MeshIci_Ratio": ratios, "census_over_model": want_ratio,
+        "census": census.to_dict(), "drift_codes": drift, "rows_per_batch": per_batch_rows,
+        "counts_equal_single_card": True, "latency_batch_ms": ms, "run_s": run_s,
+        "dispatch_ms": rec["dispatch_ms"], **rec["split"],
+        "single_card_s": single_card_s,
+        "divided_model": {"divisor": MESH_MODEL_DIVISOR, "warmup": MESH_MODEL_DRIFT_WARMUP,
+                          "batches": MESH_MODEL_DRIFT_BATCHES,
+                          "Conformance_MeshIci_Ratio": ratios2, "drift_codes": drift2,
+                          "run_s": divided_s},
+        "launches": launches,
+    }
+
+    # (c) the ICI probe
+    ici_gbps, ici_how = ici_probe(MESH_MODEL_DEVICE)
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if (ici_gbps is None) != (cards < 2):
+        raise AssertionError(f"mesh_model ici probe on {cards} card(s): {ici_gbps} ({ici_how})")
+
+    # (d) REST flow/validate against the CLI, on the main flow
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "main_flow.json"
+        path.write_text(json.dumps(gui))
+        rc, out, err = run_analysis_cli(["--mesh", f"--chips={MESH_MODEL_CHIPS}", "--json",
+                                         str(path)])
+        if rc != 0:
+            raise AssertionError(f"mesh_model cli: exit {rc}: {err[-500:]}")
+        cli = json.loads(out)
+        ops = FlowOperation(LocalDesignTimeStorage(f"{tmp}/design"),
+                            LocalRuntimeStorage(f"{tmp}/runtime"),
+                            fleet_admission=False, device=MESH_MODEL_DEVICE)
+        api = DataXApi(ops, device=MESH_MODEL_DEVICE)
+        try:
+            status, res = api.dispatch("POST", "api/flow/validate", body={
+                "flow": gui, "mesh": True, "chips": MESH_MODEL_CHIPS})
+        finally:
+            api.livequery.stop()
+        if status != 200 or res["result"]["mesh"] != cli["mesh"] or \
+                res["result"]["diagnostics"] != cli["diagnostics"]:
+            raise AssertionError(f"mesh_model surfaces: REST {status} differs from the CLI")
+    emit({"phase": "mesh_model", "capacity": CAPACITY, "chips": MESH_MODEL_CHIPS,
+          "analyzer": analyzer, "host": host_line,
+          "calibration": {"ici_gbps": ici_gbps, "how": ici_how, "cards": cards},
+          "surfaces": {"rest_equals_cli": True, "codes": [d["code"] for d in cli["diagnostics"]],
+                       "cross_check_device": cli["mesh"]["crossCheck"]["device"]},
+          "seconds": time.perf_counter() - t_phase, "card": nvidia_smi})
+    return launches
+
+
 # -- the control plane (slice 9a) ---------------------------------------------
 CONTROL_FLOW = "ChipSmokeControl"
 CONTROL_BATCHES = 4
@@ -4814,6 +5167,9 @@ def main(argv=None) -> int:
     # mesh execution: the main flow over virtual shards and a clamped
     # numchips conf launches anomaly_score on the gathered rows
     slice_launches["mesh"] = phase_mesh(args.seed, nvidia_smi, udf)
+    # the mesh model: the analyzer's cross-check, then a generated mesh
+    # job's host over virtual shards launches anomaly_score once a batch
+    slice_launches["mesh_model"] = phase_mesh_model(args.seed, nvidia_smi, udf)
     # the chaos drills: the main path's host under five faults
     slice_launches["chaos"] = phase_chaos(nvidia_smi, udf)
     # the control plane: the server process's LiveQuery part launches

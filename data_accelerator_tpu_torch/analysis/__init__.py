@@ -21,6 +21,12 @@ The ported tiers:
 - the compile tier (``analyze_flow_compile``,
   ``analyze_processor_compile``): the dispatch surface and its
   manifest, DX6xx (``compilecheck.py``);
+- the mesh tier (``analyze_flow_mesh``, ``analyze_processor_mesh``):
+  the flow's partition plan over a 1-D data mesh (per-stage shard axis,
+  forced reshard edges, closed-form collective bytes over chips N),
+  cross-checked exactly against the census of the flow's mesh step, with
+  the DX7xx lints and the sharding-plan artifact mesh jobs' confs embed
+  for runtime ICI-drift conformance (``meshcheck.py``);
 - the engine gates over the port's own source: buffer lifetime and
   locksets (``analyze_modules``, ``analyze_flow_race``, DX80x,
   ``racecheck.py``), the delivery protocol (``analyze_proto_modules``,
@@ -31,11 +37,9 @@ The ported tiers:
   (``runtime/protocolmonitor.py``, DX906) and the conf audit
   (``runtime/confaudit.py``, DX1006).
 
-The JAX package's mesh tier waits for multi-GPU slice 8.
-
 CLI: ``python -m data_accelerator_tpu_torch.analysis flow.json [--json]
-[--device] [--udfs] [--fleet] [--compile] [--race] [--protocol]
-[--conf] [--all]`` (non-zero exit on error-severity diagnostics).
+[--device] [--udfs] [--fleet] [--compile] [--mesh [--chips=N]]
+[--race] [--protocol] [--conf] [--all]`` (non-zero exit on error-severity diagnostics).
 """
 
 from .analyzer import (
@@ -77,6 +81,14 @@ from .fleetcheck import (
     flow_footprint,
     load_fleet_spec,
 )
+from .meshcheck import (
+    DEFAULT_MESH_CHIPS,
+    MeshPlanReport,
+    MeshStage,
+    ReshardEdge,
+    analyze_flow_mesh,
+    analyze_processor_mesh,
+)
 from .protocheck import analyze_flow_protocol, analyze_proto_modules, proto_module_paths
 from .racecheck import (
     ENGINE_PACKAGES,
@@ -113,6 +125,12 @@ __all__ = [
     "engine_module_paths",
     "proto_module_paths",
     "DEFAULT_CHIPS",
+    "DEFAULT_MESH_CHIPS",
+    "MeshPlanReport",
+    "MeshStage",
+    "ReshardEdge",
+    "analyze_flow_mesh",
+    "analyze_processor_mesh",
     "DEFAULT_MAX_STATE_ROWS",
     "FlowAnalyzer",
     "analyze_script",

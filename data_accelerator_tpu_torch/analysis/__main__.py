@@ -1,10 +1,10 @@
 """Flow static analyzer CLI.
 
     python -m data_accelerator_tpu_torch.analysis flow.json [flow2.json ...]
-        [--json] [--device] [--chips=1] [--udfs]
+        [--json] [--device] [--chips=N] [--udfs]
         [--fleet] [--fleet-spec=spec.json] [--fleet-device=cuda|cpu]
         [--compile] [--manifest=m.json] [--manifest-out=m.json]
-        [--race] [--protocol] [--conf] [--all]
+        [--mesh] [--race] [--protocol] [--conf] [--all]
 
 Each argument is a flow config file: either a designer gui JSON or a
 full flow document (``{"gui": {...}}``). Prints one line per diagnostic
@@ -16,10 +16,10 @@ contract.
 (``analysis/deviceplan.py``): every compiled view evaluated on ``meta``
 tensors (no data, no device), printing the per-stage byte/FLOP cost
 report and the DX2xx lints. Its error diagnostics fail the run the same
-way the semantic tier's do. The port prices one card: ``--chips`` above
-1 exits 2, naming multi-GPU slice 8. The latency model needs a
-calibrated machine profile, which a design-time analysis has none of:
-the report says ``uncalibrated`` and prints no milliseconds.
+way the semantic tier's do. ``--chips=N`` sets the chip count for the
+ICI model (default 1, one card). The latency model needs a calibrated
+machine profile, which a design-time analysis has none of: the report
+says ``uncalibrated`` and prints no milliseconds.
 
 ``--udfs`` additionally runs the UDF tier (``analysis/udfcheck.py``):
 every declared UDF/UDAF resolves through the production loader and its
@@ -45,24 +45,34 @@ the compile manifest (in ``--json`` under ``compile.manifest``;
 ``--manifest=<file>`` checks a manifest for drift (DX602/DX603; digests
 only against a manifest of the same digest backend).
 
+``--mesh`` runs the mesh-sharding tier (``analysis/meshcheck.py``):
+the flow's partition plan over a 1-D data mesh (per-stage shard axis,
+forced reshard edges, closed-form collective bytes) with the DX7xx
+lints, cross-checked EXACTLY against the census of the flow's mesh step
+run once over virtual shards on ``meta`` (no data, no device).
+``--chips=N`` sets the mesh size (default 8, one HGX H100 node); the one
+``--chips`` flag feeds the device tier's ICI model and the mesh tier
+alike, and a non-positive or non-integer value exits 2. DX702 holds the
+per-chip bytes to the fleet spec of ``--fleet-spec``/``--fleet-device``,
+as ``--fleet`` reads them: without a card, pass ``--fleet-device=cpu``
+or a spec with ``hbmPerChipBytes``, else it exits 2. Same exit contract.
+
 ``--race``, ``--protocol`` and ``--conf`` run the engine gates over the
 port's own source: buffer lifetime and locksets (``analysis/racecheck.py``,
 DX80x), the exactly-once delivery ordering (``analysis/protocheck.py``,
 DX90x) and the configuration lattice (``analysis/confcheck.py``, DX10xx,
 plus this flow's knob values). Cached per engine-source state.
 
-``--all`` runs every ported tier (semantic, device, udfs, fleet,
-compile, race, protocol, conf) with one merged ``--json`` report, and
-names on stderr the tier it left out: ``--mesh`` (multi-GPU slice 8),
-which exits 2 naming its slice.
+``--all`` runs every tier (semantic, device, udfs, fleet, compile,
+mesh, race, protocol, conf) with one merged ``--json`` report.
 
 Unknown ``--`` flags are rejected with exit 2 (a typo like ``--devcie``
 must not silently skip a tier and report a false clean pass).
 
 Exit codes: 0 clean (warnings allowed) · 1 errors found · 2 usage/IO.
 
-Copy of the JAX package's ``analysis/__main__.py`` without the mesh
-tier; the report dicts and the 0/1/2 contract are the reference's.
+Copy of the JAX package's ``analysis/__main__.py``; the report dicts
+and the 0/1/2 contract are the reference's.
 """
 
 from __future__ import annotations
@@ -70,8 +80,6 @@ from __future__ import annotations
 import json
 import sys
 from typing import List, Optional
-
-from ..core.config import EngineException
 
 
 def _fmt_bytes(n: float) -> str:
@@ -93,12 +101,13 @@ def _fmt_count(n: float) -> str:
 def _print_device_plan(path: str, device) -> None:
     totals = device.totals()
     print(
-        f"{path}: device plan ({device.chips} card): "
+        f"{path}: device plan ({device.chips} card{'s' if device.chips > 1 else ''}): "
         f"{len(device.stages)} stage(s), "
         f"device bytes {_fmt_bytes(totals['hbmBytes'])} "
         f"(persistent {_fmt_bytes(totals['persistentBytes'])}, "
         f"per-batch {_fmt_bytes(totals['perBatchBytes'])}), "
-        f"~{_fmt_count(totals['flops'])} FLOP/batch"
+        f"~{_fmt_count(totals['flops'])} FLOP/batch, "
+        f"ICI {_fmt_bytes(totals['iciBytesPerBatch'])}/batch"
     )
     print(f"{path}: roofline latency: uncalibrated (no machine profile)")
     for s in device.stages:
@@ -110,6 +119,31 @@ def _print_device_plan(path: str, device) -> None:
             line += f" flops={_fmt_count(s.flops)}"
         if s.transient_bytes:
             line += f" transient={_fmt_bytes(s.transient_bytes)}"
+        if s.ici_bytes:
+            line += f" ici={_fmt_bytes(s.ici_bytes)}"
+        if s.detail:
+            line += f" ({s.detail})"
+        print(line)
+
+
+def _print_mesh_plan(path: str, mesh) -> None:
+    t = mesh.totals()
+    state = "validated" if mesh.validated else "UNVALIDATED"
+    print(
+        f"{path}: mesh plan ({mesh.chips} chips, {state}): "
+        f"{len(mesh.stages)} stage(s), "
+        f"ICI {_fmt_bytes(t['iciWireBytesPerBatch'])}/batch wire "
+        f"({_fmt_bytes(t['iciResultBytesPerBatch'])} result, "
+        f"{t['reshardCount']} reshard(s)), "
+        f"per-chip HBM {_fmt_bytes(t['perChipHbmBytes'])}"
+    )
+    for s in mesh.stages:
+        line = (
+            f"{path}:   [{s.kind}] {s.name} axis={s.axis} rows={s.rows} "
+            f"per-chip={_fmt_bytes(s.per_chip_bytes)}"
+        )
+        if s.ici_wire_bytes:
+            line += f" ici={_fmt_bytes(s.ici_wire_bytes)}"
         if s.detail:
             line += f" ({s.detail})"
         print(line)
@@ -178,12 +212,7 @@ def _print_gates(path: str, comp, race, protocol, conf) -> None:
 
 # flags the CLI understands; anything else --prefixed is a usage error
 KNOWN_FLAGS = {"--json", "--device", "--udfs", "--fleet", "--compile",
-               "--race", "--protocol", "--conf", "--all"}
-# the JAX package's tier this port has not ported yet, by the slice that
-# brings it
-UNPORTED_FLAGS = {
-    "--mesh": "multi-GPU slice 8 (analysis/meshcheck.py)",
-}
+               "--mesh", "--race", "--protocol", "--conf", "--all"}
 
 
 def main(argv: List[str]) -> int:
@@ -193,6 +222,7 @@ def main(argv: List[str]) -> int:
     udf_tier = "--udfs" in argv or all_tiers
     fleet_tier = "--fleet" in argv or all_tiers
     compile_tier = "--compile" in argv or all_tiers
+    mesh_tier = "--mesh" in argv or all_tiers
     race_tier = "--race" in argv or all_tiers
     protocol_tier = "--protocol" in argv or all_tiers
     conf_tier = "--conf" in argv or all_tiers
@@ -220,12 +250,6 @@ def main(argv: List[str]) -> int:
             manifest_path = a.split("=", 1)[1]
         elif a.startswith("--manifest-out="):
             manifest_out = a.split("=", 1)[1]
-        elif a in UNPORTED_FLAGS:
-            print(
-                f"{a}: this tier is not ported to data_accelerator_tpu_torch "
-                f"yet ({UNPORTED_FLAGS[a]})", file=sys.stderr,
-            )
-            return 2
         else:
             print(f"unknown flag: {a}", file=sys.stderr)
             print(__doc__.strip(), file=sys.stderr)
@@ -237,19 +261,13 @@ def main(argv: List[str]) -> int:
     if manifest_out and len(paths) > 1:
         print("--manifest-out accepts a single flow", file=sys.stderr)
         return 2
-    if all_tiers:
-        print(
-            "--all ran the ported tiers (semantic, device, udfs, fleet, "
-            "compile, race, protocol, conf); not ported yet: " + ", ".join(
-                f"{f} ({t})" for f, t in UNPORTED_FLAGS.items()
-            ), file=sys.stderr,
-        )
 
     from .analyzer import analyze_flow
     from .compilecheck import analyze_flow_compile
     from .confcheck import analyze_flow_conf
     from .deviceplan import analyze_flow_device, combined_report_dict
     from .diagnostics import REPORT_SCHEMA_VERSION
+    from .meshcheck import analyze_flow_mesh
     from .protocheck import analyze_flow_protocol
     from .racecheck import analyze_flow_race
     from .udfcheck import analyze_flow_udfs
@@ -264,7 +282,7 @@ def main(argv: List[str]) -> int:
             return 2
 
     fleet_spec = None
-    if fleet_tier:
+    if fleet_tier or mesh_tier:
         from .fleetcheck import FleetSpec, load_fleet_spec
 
         try:
@@ -273,7 +291,8 @@ def main(argv: List[str]) -> int:
                 if fleet_spec_path is not None else FleetSpec(device=fleet_device)
             )
         except (OSError, ValueError, KeyError, RuntimeError) as e:
-            print(f"{fleet_spec_path or '--fleet'}: cannot read fleet spec: {e}",
+            tier = "--fleet" if fleet_tier else "--mesh"
+            print(f"{fleet_spec_path or tier}: cannot read fleet spec: {e}",
                   file=sys.stderr)
             return 2
 
@@ -289,23 +308,21 @@ def main(argv: List[str]) -> int:
             return 2
         flows.append(flow)
         report = analyze_flow(flow)
-        try:
-            device = (
-                analyze_flow_device(flow, chips=chips) if device_tier else None
-            )
-        except EngineException as e:
-            print(f"{path}: {e}", file=sys.stderr)
-            return 2
+        device = analyze_flow_device(flow, chips=chips) if device_tier else None
         udfs = analyze_flow_udfs(flow) if udf_tier else None
         comp = (
             analyze_flow_compile(flow, manifest=shipped_manifest)
             if compile_tier else None
         )
+        mesh = (
+            analyze_flow_mesh(flow, chips=chips, spec=fleet_spec)
+            if mesh_tier else None
+        )
         race = analyze_flow_race(flow) if race_tier else None
         protocol = analyze_flow_protocol(flow) if protocol_tier else None
         conf = analyze_flow_conf(flow) if conf_tier else None
-        tiers = [t for t in (report, device, udfs, comp, race, protocol, conf)
-                 if t is not None]
+        tiers = [t for t in (report, device, udfs, comp, mesh, race, protocol,
+                             conf) if t is not None]
         any_errors |= not all(t.ok for t in tiers)
         if comp is not None and manifest_out and comp.manifest is not None:
             with open(manifest_out, "w", encoding="utf-8") as f:
@@ -316,7 +333,7 @@ def main(argv: List[str]) -> int:
                     "file": path,
                     **combined_report_dict(
                         report, device, udfs, compile_surface=comp,
-                        race=race, protocol=protocol, conf=conf,
+                        mesh=mesh, race=race, protocol=protocol, conf=conf,
                     ),
                 })
             else:
@@ -338,6 +355,8 @@ def main(argv: List[str]) -> int:
                         f"{u.kind or 'unloadable'} ({u.path}) "
                         f"analyzed={roles}"
                     )
+            if mesh is not None and mesh.stages:
+                _print_mesh_plan(path, mesh)
             _print_gates(path, comp, race, protocol, conf)
 
     fleet = None

@@ -38,13 +38,13 @@ Trimmed: the ``CONF.md`` renderer and its ``__main__``. The rows
 describe the keys by their JAX-package meaning; where the port reads a
 key differently (``compile.*``, ``debug.*``), its reader says so.
 
-Four rows the reference reads are ``read=False`` here, because nothing
+Three rows the reference reads are ``read=False`` here, because nothing
 in the port reads them: ``compile.cachedir`` and ``compile.cacheurl``
 (the JAX package's persistent compilation cache) and
 ``compile.jitcachecap`` (its transfer-helper jit cache; the port has
-neither, and ``analysis/compilecheck.py`` retires DX601), and
-``conformance.iciratiohigh`` (the mesh's ICI conformance, slice 8b). Every type, default and bound is the
-reference's, so the boot audit's ``Conf_*`` gauges are unchanged.
+neither, and ``analysis/compilecheck.py`` retires DX601). Every type,
+default and bound is the reference's, so the boot audit's ``Conf_*``
+gauges are unchanged.
 """
 
 from __future__ import annotations
@@ -499,7 +499,7 @@ CONF_REGISTRY: Tuple[ConfKey, ...] = (
        source="manual", min=0,
        description="observed/predicted HBM watermark alarm ratio"),
     _K("conformance.iciratiohigh", "float", "8.0", "conformance",
-       source="manual", min=0, read=False,
+       source="manual", min=0,
        description="observed/predicted ICI bytes alarm ratio"),
     _K("conformance.occupancyfactor", "float", "2.0", "conformance",
        source="manual", min=0,

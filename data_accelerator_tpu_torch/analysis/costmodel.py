@@ -20,11 +20,13 @@ Copy of the JAX package's ``analysis/costmodel.py``. The ring
 collective wire forms (``allgather_wire_bytes``, ``allreduce_wire_bytes``,
 ``alltoall_wire_bytes``, ``collective_wire_bytes``) are the reference's,
 term for term: the mesh's census (``dist/mesh.py::MeshCollectives``)
-turns its recorded result bytes into ``Mesh_ICI_Bytes`` with them. The
-mesh model forms (``ici_*``, ``mesh_runtime_model``,
-``stage_ici_bytes``) come with the DX7xx tier (slice 8b). Every other
-form is the reference's, term for term, except where the port
-materializes other dtypes than the JAX package:
+turns its recorded result bytes into ``Mesh_ICI_Bytes`` with them, and
+the DX7xx mesh model (``analysis/meshcheck.py``) prices its reshard
+edges with them. The mesh model forms (``ici_bytes_group``,
+``ici_bytes_join``, ``stage_ici_bytes``, ``mesh_runtime_model``) are
+the reference's too. Every other form is the reference's, term for
+term, except where the port materializes other dtypes than the JAX
+package:
 
 - ``stage_transient_bytes``: a match-matrix join with a residual
   evaluates the residual over blocks of at most
@@ -77,6 +79,9 @@ COLUMN_WIDTH: Dict[str, int] = {
 # pairs budget above which a match-matrix join is flagged as the
 # O(n*m) cliff (DX203): 2^24 pair evaluations per batch
 DEFAULT_MATCH_MATRIX_BUDGET = 1 << 24
+
+# bytes of one equality/sort key element (all key-able types are 4 B)
+KEY_BYTES = 4
 
 # bytes of one gathered residual operand (every key-able type is 4 B)
 OPERAND_BYTES = 4
@@ -505,3 +510,134 @@ def collective_wire_bytes(op: str, result_bytes: float, chips: int) -> float:
     the DX7xx model and the runtime observation path."""
     fn = COLLECTIVE_WIRE_FACTORS.get(op)
     return fn(result_bytes, chips) if fn else float(result_bytes)
+
+
+def mesh_runtime_model(
+    totals: Dict[str, object], stages: Optional[list] = None,
+) -> dict:
+    """The sharding plan as a *runtime artifact*: the compact JSON slice
+    of a mesh-plan report that config generation embeds into mesh jobs'
+    confs (``datax.job.process.mesh.model``, the S660 stage) and the
+    host's ``ConformanceMonitor`` judges the observed ``Mesh_ICI_Bytes``
+    / ``Mesh_Reshard_Count`` series against (DX510/DX511)."""
+    return {
+        "totals": {
+            "iciResultBytesPerBatch": totals.get("iciResultBytesPerBatch"),
+            "iciWireBytesPerBatch": totals.get("iciWireBytesPerBatch"),
+            "reshardCount": totals.get("reshardCount"),
+            "chips": totals.get("chips"),
+        },
+        "stages": [
+            {
+                "name": s.get("name"),
+                "axis": s.get("axis"),
+                "iciWireBytes": s.get("iciWireBytes"),
+                "reshards": s.get("reshards"),
+            }
+            for s in (stages or [])
+        ],
+    }
+
+
+def ici_bytes_group(
+    input_rows: int,
+    group_keys: int,
+    n_aggregates: int,
+    groups: int,
+    group_row_bytes: int,
+    chips: int,
+) -> float:
+    """Expected ICI bytes/batch of one GROUP BY under the 1-D data-mesh
+    layout (dist/mesh.py): rows shard, outputs replicate.
+
+    - distributed sort (group_ids): each of the N rows' key + aggregated
+      value elements crosses chips with probability (C-1)/C;
+    - all-gather of the replicated [G]-row group output to every chip:
+      G * row_bytes * (C-1).
+
+    The second term is the one that scales with group cardinality G —
+    the quantity bounded by ``process.maxgroups``.
+    """
+    if chips <= 1:
+        return 0.0
+    shuffle = (
+        float(input_rows)
+        * KEY_BYTES
+        * (group_keys + n_aggregates)
+        * (chips - 1)
+        / chips
+    )
+    gather = float(groups) * group_row_bytes * (chips - 1)
+    return shuffle + gather
+
+
+def ici_bytes_join(
+    left_rows: int,
+    right_rows: int,
+    n_eq_keys: int,
+    out_rows: int,
+    out_row_bytes: int,
+    chips: int,
+    match_matrix: bool = False,
+    right_row_bytes: int = 0,
+) -> float:
+    """Expected ICI bytes/batch of one JOIN site.
+
+    Sort-merge: the union gid sort shuffles (n+m) key elements like the
+    group-by sort; match-matrix instead broadcasts the whole right table
+    to every chip (the [n, m] compare needs it locally). Both then
+    all-gather the capacity-bounded output — the term that scales with
+    join fan-out F = out_rows.
+    """
+    if chips <= 1:
+        return 0.0
+    if match_matrix:
+        shuffle = float(right_rows) * right_row_bytes * (chips - 1)
+    else:
+        shuffle = (
+            float(left_rows + right_rows)
+            * KEY_BYTES
+            * n_eq_keys
+            * (chips - 1)
+            / chips
+        )
+    gather = float(out_rows) * out_row_bytes * (chips - 1)
+    return shuffle + gather
+
+
+def stage_ici_bytes(
+    plan: Optional[StagePlan],
+    out_row_bytes_: int,
+    chips: int,
+    right_row_bytes: Dict[str, int],
+) -> float:
+    """Total expected ICI bytes/batch for one stage at ``chips`` chips.
+
+    ``right_row_bytes``: per right-table row bytes (match-matrix joins
+    broadcast the right side). Projections/unions move nothing — rows
+    stay sharded and the ops are elementwise.
+    """
+    if plan is None or chips <= 1:
+        return 0.0
+    total = 0.0
+    for s in plan.joins:
+        total += ici_bytes_join(
+            s.left_rows,
+            s.right_rows,
+            s.n_eq_keys,
+            s.out_rows,
+            out_row_bytes_,
+            chips,
+            match_matrix=(s.algorithm == "match-matrix"),
+            right_row_bytes=right_row_bytes.get(s.right_table, KEY_BYTES),
+        )
+    if plan.grouped:
+        total += ici_bytes_group(
+            plan.input_rows,
+            plan.group_keys,
+            plan.n_aggregates,
+            plan.groups_bound,
+            out_row_bytes_,
+            chips,
+        )
+    return total

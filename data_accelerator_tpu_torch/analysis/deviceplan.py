@@ -26,10 +26,13 @@ changes:
   The port's step has no data-dependent shape (its compactions are
   prefix sums, never ``nonzero``, and nothing reads a value back), so
   every view evaluates on ``meta`` as it runs on a card.
-- One card: the plan is priced at 1 chip, so every stage's ICI bytes
-  are 0; ``chips`` above 1 (an argument, or the flow's
-  ``jobNumChips``) raises ``EngineException`` naming multi-GPU slice 8,
-  which brings the collective forms and the mesh.
+- The plan is priced at 1 chip (one card) unless a chip count is
+  given: an argument, the flow's ``jobNumChips`` (or the legacy
+  ``jobNumExecutors``), or for a processor the size of its mesh (what
+  its step runs over, where the JAX package reads ``process.numchips``
+  before the clamp to the visible cards). At more than one chip every
+  stage carries the reference's expected ICI bytes
+  (``costmodel.stage_ici_bytes``).
 - ``latencyModel`` prices the plan under a calibrated machine profile
   (``obs/calibrate.py``) that the caller passes; without one it reports
   ``source: "uncalibrated"`` and no milliseconds (the JAX package falls
@@ -78,14 +81,17 @@ from .costmodel import (
     OUTPUT_SLOT_BUFFERS,
     d2h_transfer_bytes,
     output_slot_bytes,
+    row_bytes,
     stage_flops,
+    stage_ici_bytes,
     stage_transient_bytes,
     table_bytes,
     view_output_bytes,
 )
 from .diagnostics import AnalysisReport, Diagnostic, make
 
-# the port runs a flow on one card; mesh execution is multi-GPU slice 8
+# the plan's chip count when nothing names one: the port's flow runs on
+# one card unless a mesh is asked for
 DEFAULT_CHIPS = 1
 
 # int32 relative-millis horizon for ring timestamps (~24.8 days); DX205
@@ -108,17 +114,6 @@ CUDA_BLOCK_BYTES = 512
 # materialized per batch; "outslot" = the A/B output transfer slots the
 # runtime keeps resident per output
 PERSISTENT_KINDS = ("ring", "state", "refdata", "outslot")
-
-
-def refuse_chips(chips: Optional[int]) -> None:
-    """The port prices one card: a chip count above 1 asks for the mesh
-    model, which is not ported yet."""
-    if chips is not None and chips > 1:
-        raise EngineException(
-            f"device analysis at {chips} chips needs the mesh cost model "
-            "(multi-GPU slice 8), which is not ported to "
-            "data_accelerator_tpu_torch yet; the port prices one card"
-        )
 
 
 def _table(schema: ViewSchema, rows: int, device) -> TableData:
@@ -175,7 +170,7 @@ class StageCost:
     model_bytes: int  # closed-form prediction (costmodel.py)
     transient_bytes: int = 0  # peak in-stage intermediates (match matrix)
     flops: float = 0.0
-    ici_bytes: float = 0.0  # interconnect bytes/batch: 0 on one card
+    ici_bytes: float = 0.0  # expected interconnect bytes/batch at `chips`
     # device->host bytes a full-capacity fetch of this stage moves per
     # batch: non-zero only for OUTPUT views (the sync-stage wire cost)
     d2h_bytes: int = 0
@@ -306,19 +301,20 @@ def _ordered(diags: List[Diagnostic]) -> List[Diagnostic]:
 
 def combined_report_dict(
     base: AnalysisReport, device: Optional[DevicePlanReport] = None,
-    udfs=None, fleet=None, compile_surface=None, race=None,
+    udfs=None, fleet=None, compile_surface=None, mesh=None, race=None,
     protocol=None, conf=None,
 ) -> dict:
     """Merge the semantic tier with the optional device, UDF, fleet,
-    compile, race, protocol and conf tiers into one response: a
+    compile, mesh, race, protocol and conf tiers into one response: a
     superset of ``AnalysisReport.to_dict()`` plus each tier's block,
     with one ``schemaVersion``, one merged diagnostics list and one exit
-    contract. The JAX package's mesh block belongs to multi-GPU slice 8."""
+    contract."""
     from .diagnostics import REPORT_SCHEMA_VERSION
 
     tiers = [("device", device, "plan_dict"), ("udfs", udfs, "udfs_dict"),
              ("fleet", fleet, "fleet_dict"),
              ("compile", compile_surface, "compile_dict"),
+             ("mesh", mesh, "mesh_dict"),
              ("race", race, "race_dict"), ("protocol", protocol, "protocol_dict"),
              ("conf", conf, "conf_dict")]
     diags = list(base.diagnostics)
@@ -424,9 +420,6 @@ def _plan_from_gui(
     iprops = (gui.get("input") or {}).get("properties") or {}
     proc = gui.get("process") or {}
     jobconf = proc.get("jobconfig") or {}
-    # the designer's chip count; executors are the reference designer's
-    # word for the same knob and say nothing of chips here
-    refuse_chips(_jobconf_int(jobconf, "jobNumChips"))
 
     batch_capacity = _jobconf_int(jobconf, "jobBatchCapacity") or 65536
     try:
@@ -666,7 +659,9 @@ def _plan_from_gui(
         uses_string_ops=not pc.aux.empty,
         watermark_s=watermark_s,
         interval_s=interval_s,
-        chips=DEFAULT_CHIPS,
+        chips=chips
+        or _jobconf_int(jobconf, "jobNumChips", "jobNumExecutors")
+        or DEFAULT_CHIPS,
         output_datasets=out_datasets,
     )
 
@@ -678,10 +673,11 @@ def flow_plan_from_processor(
     proc, chips: Optional[int] = None, output_slots: Optional[int] = None,
 ) -> FlowDevicePlan:
     """Bundle an already-built ``FlowProcessor``'s compiled plan (the
-    exact views its step runs) for cost analysis. ``output_slots``: the
-    transfer slots each output holds; by default the processor's own
-    (``OUTPUT_SLOT_BUFFERS``, or 0 with its output slots off)."""
-    refuse_chips(chips)
+    exact views its step runs) for cost analysis, priced at ``chips``,
+    by default the size of the processor's mesh (1 without one).
+    ``output_slots``: the transfer slots each output holds; by default
+    the processor's own (``OUTPUT_SLOT_BUFFERS``, or 0 with its output
+    slots off)."""
     if output_slots is None:
         output_slots = OUTPUT_SLOT_BUFFERS if proc.output_slots_enabled else 0
     cards: Dict[str, int] = {}
@@ -722,7 +718,9 @@ def flow_plan_from_processor(
         uses_string_ops=not proc.aux_registry.empty,
         watermark_s=proc.watermark_s,
         interval_s=proc.interval_s,
-        chips=DEFAULT_CHIPS,
+        chips=chips
+        or (proc.mesh.size if proc.mesh is not None else None)
+        or DEFAULT_CHIPS,
         output_datasets=list(proc.output_datasets),
         output_slots=output_slots,
         block_bytes=CUDA_BLOCK_BYTES if proc.device.type == "cuda" else 0,
@@ -732,7 +730,12 @@ def flow_plan_from_processor(
 # ---------------------------------------------------------------------------
 # Evaluator: abstract-interpret every stage of the compiled plan
 # ---------------------------------------------------------------------------
-def _view_stage(view: CompiledView, out_bytes: int) -> StageCost:
+def _view_stage(
+    view: CompiledView,
+    out_bytes: int,
+    plan: FlowDevicePlan,
+    catalog: Dict[str, ViewSchema],
+) -> StageCost:
     p = view.plan
     kind = p.kind if p is not None else "project"
     details = []
@@ -751,6 +754,9 @@ def _view_stage(view: CompiledView, out_bytes: int) -> StageCost:
             details.append(f"union x{p.union_branches}")
         if p.limit is not None:
             details.append(f"limit {p.limit}")
+    right_rb = {
+        t: row_bytes(sch.types) for t, sch in catalog.items()
+    }
     return StageCost(
         name=view.name,
         kind=kind,
@@ -759,6 +765,9 @@ def _view_stage(view: CompiledView, out_bytes: int) -> StageCost:
         model_bytes=view_output_bytes(view.schema.types, p, view.capacity),
         transient_bytes=stage_transient_bytes(p),
         flops=stage_flops(p, len(view.schema.types)),
+        ici_bytes=stage_ici_bytes(
+            p, row_bytes(view.schema.types), plan.chips, right_rb
+        ),
         detail="; ".join(details),
     )
 
@@ -788,10 +797,14 @@ def _stage_walk(
         penv: Dict[str, object] = {
             "Raw": raw, DatasetName.DataStreamRaw: raw, "__aux": aux_tables,
         }
+        proj_catalog = {"Raw": raw_schema}
         for v in views:
             out = eval_view(v, penv)
             penv[v.name] = out
-            stages.append(_view_stage(v, _table_data_bytes(out)))
+            stages.append(_view_stage(
+                v, _table_data_bytes(out), plan, proj_catalog
+            ))
+            proj_catalog[v.name] = v.schema
         target = plan.target_of[source]
         env[target] = penv[target]
 
@@ -841,7 +854,9 @@ def _stage_walk(
     for view in plan.pipeline.views:
         out = eval_view(view, env)
         env[view.name] = out
-        stage = _view_stage(view, _table_data_bytes(out))
+        stage = _view_stage(
+            view, _table_data_bytes(out), plan, plan.pipeline.catalog
+        )
         if view.name in plan.output_datasets:
             # the sync-stage wire cost: a full-capacity fetch of this
             # output's table crosses the device->host boundary per batch
@@ -1155,7 +1170,6 @@ def analyze_flow_device(
     """Device-plan analysis of a flow config (gui JSON or full flow
     document). Pure abstract interpretation: compiles with the
     production planner and evaluates on ``meta``; touches no device."""
-    refuse_chips(chips)
     gui = flow.get("gui") if isinstance(flow.get("gui"), dict) else flow
     diags: List[Diagnostic] = []
     bundle = _plan_from_gui(gui, diags, chips)

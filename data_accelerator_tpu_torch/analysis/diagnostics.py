@@ -12,8 +12,9 @@ registry (every code, at the same severity) and the same
 ``REPORT_SCHEMA_VERSION``, so the two packages' reports compare field
 for field. The wording of the codes the port emits speaks of PyTorch:
 DX204 of a step rebuild, DX290 of a failed meta evaluation, DX300-DX305
-of eager CUDA hazards. The codes of tiers the port has not yet ported
-(DX4xx, DX6xx-DX10xx) keep the reference's words.
+of eager CUDA hazards, DX700/DX790/DX791 of CUDA kernel UDFs and the
+mesh step's census. The other tiers' codes (DX4xx, DX6xx, DX8xx-DX10xx)
+keep the reference's words.
 
 reference: the platform promise in PAPER.md §1 — design-time services
 (SqlParser/Analyzer, schema inference, codegen validation) catch a bad
@@ -187,11 +188,11 @@ CODES: Dict[str, tuple] = {
     "DX310": (SEV_ERROR, "UDF conf entry does not load: bad package.module:attr, non-callable target, or aggregate without reduce",
               "point class/module at an importable UDF object or zero-arg factory; aggregates must provide reduce"),
     # -- pass 10: mesh sharding (analysis/meshcheck.py, the --mesh
-    #    tier: static SPMD partition plan over the compiled views —
+    #    tier: static partition plan over the compiled views —
     #    per-stage shard axis, reshard edges, collective byte model
-    #    cross-checked exactly against the Mesh lowering) -------------
-    "DX700": (SEV_WARNING, "unshardable stage forces full replication: a global ORDER BY (device or host-side) or a Pallas-kernel UDF call materializes every row on every chip, so the stage gains nothing from more chips",
-              "drop the ORDER BY (sinks can sort), push it behind a GROUP BY that shrinks the rows, or rewrite the kernel UDF in jax.numpy so GSPMD can shard it"),
+    #    cross-checked exactly against the mesh step's census) --------
+    "DX700": (SEV_WARNING, "unshardable stage forces full replication: a global ORDER BY (device or host-side) or a CUDA-kernel UDF call materializes every row on every chip, so the stage gains nothing from more chips",
+              "drop the ORDER BY (sinks can sort), push it behind a GROUP BY that shrinks the rows, or rewrite the kernel UDF in torch ops so the mesh step can run it per shard"),
     "DX701": (SEV_WARNING, "resharding between adjacent stages: the same sharded table is gathered onto every chip at two or more stage boundaries, paying the all-gather repeatedly",
               "fold the consumers into one statement, or materialize a shared intermediate view so the gather happens once"),
     "DX702": (SEV_ERROR, "per-chip shard exceeds chip HBM at the requested chip count: the sharded residency plus replicated tables cannot fit one chip",
@@ -202,10 +203,10 @@ CODES: Dict[str, tuple] = {
               "reshape the stage so rows stay sharded (shard-friendly keys, no full-capacity replication), or stop adding chips past the cliff"),
     "DX705": (SEV_WARNING, "sized output transfer and donated output slots auto-disable under a mesh: every output fetch moves the full padded capacity and no background double-buffering applies",
               "expect full-capacity D2H under the mesh, or keep the flow single-chip until the sharded sized-transfer path exists"),
-    "DX790": (SEV_ERROR, "mesh lowering failed or disagrees with the sharding model: the partition plan's closed-form collective bytes do not match what the SPMD partitioner emitted",
-              "fix the statement per the lowering error, or regenerate after engine changes — the byte model must match the lowering exactly"),
-    "DX791": (SEV_WARNING, "mesh analysis unavailable or unvalidated: no concrete input schema, or fewer than two devices to lower the partition plan against",
-              "inline the input schema JSON; run under a multi-device backend (the CLI virtualizes CPU devices) to validate the model"),
+    "DX790": (SEV_ERROR, "mesh step failed or disagrees with the sharding model: the partition plan's closed-form collective bytes do not match the collectives the mesh step recorded",
+              "fix the statement per the error, or regenerate after engine changes — the byte model must match the mesh step's census exactly"),
+    "DX791": (SEV_WARNING, "mesh analysis unavailable: no concrete input schema, or a UDF that cannot load, so the flow has no partition plan",
+              "inline the input schema JSON and make every UDF module importable where the analyzer runs"),
     # -- pass 9: compile surface (analysis/compilecheck.py, the
     #    --compile tier: enumerate every jit entry point, lower each
     #    over eval_shape avals, prove the signature set finite and

@@ -49,9 +49,8 @@ device plan, with the fleet described by the machine the port runs on:
 - Footprints come from the port's plan (``hbmBytes`` of config 1 is
   144,388,096 against the JAX plan's 133,902,336), so the two tiers
   agree on placement only when fed the same footprints.
-- A flow that declares more than one card cannot be priced until the
-  mesh model comes (multi-GPU slice 8): its footprint carries a DX291
-  warning and it is left out of packing.
+- A flow that declares more than one card is priced at its chip count,
+  as in the reference (``analyze_flow_device(flow, chips=N)``).
 """
 
 from __future__ import annotations
@@ -64,7 +63,6 @@ from typing import List, Optional, Sequence, Set, Tuple
 import torch
 
 from ..constants import CPU_DEVICE_MEMORY_BYTES, MetricName
-from ..core.config import EngineException
 from .diagnostics import REPORT_SCHEMA_VERSION, Diagnostic, make
 
 # ---------------------------------------------------------------------------
@@ -352,19 +350,7 @@ def flow_footprint(flow: dict, name: Optional[str] = None) -> FlowFootprint:
         fp.interval_s = 1.0
     flow_resources(gui, fp)
 
-    if chips_req > 1:
-        fp.diagnostics = [make(
-            "DX291", fname,
-            f"flow declares {chips_req} cards: its device plan needs the "
-            "mesh cost model (multi-GPU slice 8), so it is left out of "
-            "placement",
-        )]
-        return fp
-    try:
-        device = analyze_flow_device(flow)
-    except EngineException as e:
-        fp.diagnostics = [make("DX291", fname, f"device plan unavailable: {e}")]
-        return fp
+    device = analyze_flow_device(flow, chips=chips_req)
     if device.stages and device.ok:
         totals = device.totals()
         fp.hbm_bytes = int(totals["hbmBytes"])

@@ -44,8 +44,8 @@ are control-flow properties of the SOURCE (except-handler shape, call
 order across a config-build function), not of one batch's event list.
 
 Copy of the JAX package's ``analysis/protospec.py``, whole. The static
-tier (``analysis/protocheck.py``) is not ported yet (slice 7); the
-port's ``runtime/protocolmonitor.py`` reads the runtime rules.
+tier (``analysis/protocheck.py``) reads it, and the port's
+``runtime/protocolmonitor.py`` reads the runtime rules.
 """
 
 from __future__ import annotations

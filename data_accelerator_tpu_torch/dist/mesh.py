@@ -194,30 +194,45 @@ def is_collective_view(view) -> bool:
 #
 # - the runtime (`FlowProcessor` under a mesh) exports the census per
 #   batch as the `Mesh_ICI_Bytes` / `Mesh_Reshard_Count` series;
-# - the DX7xx mesh analyzer (slice 8b) models it statically.
+# - the DX7xx mesh analyzer (`analysis/meshcheck.py`) models it
+#   statically, and its cross-check holds one step's census against
+#   the model, gather by gather.
 #
 # Byte convention: `result_bytes` per collective = the full logical
 # size of the op's result (chip-count-independent). Wire bytes apply
 # the ring closed forms per op kind.
 # ---------------------------------------------------------------------------
+# the name the step's all-reduce of the counts vector records
+COUNTS_TABLE = "counts"
+
+
 @dataclass
 class MeshCollectives:
     """Census of the collectives one mesh step ran."""
 
-    # op kind -> (op count, total result bytes)
-    ops: Dict[str, Tuple[int, int]] = field(default_factory=dict)
+    # (op kind, table, result bytes) per collective, in the order they
+    # ran: the table a gather brought whole, or COUNTS_TABLE
+    log: List[Tuple[str, str, int]] = field(default_factory=list)
 
-    def record(self, op: str, result_bytes: int) -> None:
-        c, b = self.ops.get(op, (0, 0))
-        self.ops[op] = (c + 1, b + int(result_bytes))
+    def record(self, op: str, result_bytes: int, table: str = "") -> None:
+        self.log.append((op, table, int(result_bytes)))
+
+    @property
+    def ops(self) -> Dict[str, Tuple[int, int]]:
+        """Op kind -> (op count, total result bytes)."""
+        out: Dict[str, Tuple[int, int]] = {}
+        for op, _table, b in self.log:
+            c, total = out.get(op, (0, 0))
+            out[op] = (c + 1, total + b)
+        return out
 
     @property
     def op_count(self) -> int:
-        return sum(c for c, _b in self.ops.values())
+        return len(self.log)
 
     @property
     def result_bytes(self) -> int:
-        return sum(b for _c, b in self.ops.values())
+        return sum(b for _op, _table, b in self.log)
 
     def wire_bytes(self, chips: int) -> float:
         """Total mesh-wide interconnect bytes per execution under the

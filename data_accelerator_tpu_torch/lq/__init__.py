@@ -15,9 +15,8 @@ multiplexing thousands of concurrent tenant sessions onto a few chips:
                   signature per deadline tick, identical payloads share
                   one device dispatch, the compile surface stays
                   bounded by the bucket lattice while QPS scales;
-- ``service``   — the facade the REST surface (the JAX package's
-                  serve/restapi.py ``lq/*`` routes; not ported yet)
-                  talks to, with the ``LQ_*`` /
+- ``service``   — the facade the REST surface (``serve/restapi.py``'s
+                  ``lq/*`` routes) talks to, with the ``LQ_*`` /
                   ``Latency-LQExec-pNN`` observability surface.
 
 Imports are lazy (PEP 562): ``serve/livequery.py`` imports the session

@@ -22,6 +22,14 @@ is a max, overhead a min, so best-of is the right estimator):
   a synchronize: the copy the collect stage makes (``PendingBatch``).
 - **decode rows/s**: the port's own native decoder
   (``native/decoder.py``) over a reference payload.
+- **ici GB/s** (``ici_probe``): an all-reduce across the distinct cards
+  the process sees, made of peer copies (reduce to the first card, then
+  broadcast), priced with the ring all-reduce wire bytes
+  (``costmodel.allreduce_wire_bytes``). It stays inside the process: a
+  collective across ranks would have to run in every rank at once, which
+  a per-process, cached calibration cannot promise. One card, virtual
+  shards of one card and the CPU have no link to measure: ``ici_gbps``
+  stays None, as the reference's probe on a one-device host.
 
 On the CPU the bandwidth and FLOP probes are wall-clock times less the
 measured dispatch cost, as in the reference. On a card they are the
@@ -41,9 +49,11 @@ Differences:
   matmul's cuBLAS workspace is released, and when the probe raised the
   allocator's peak, calibration resets it once the probe is freed, and
   hands the probe's cached blocks back.
-- No ICI probe: one card has no link to price (``ici_gbps`` stays
-  None; multi-GPU is slice 8). No ``DEFAULT_PROFILE``: the reference's
-  is a TPU datasheet, read only by tiers the port does not have yet.
+- The ICI probe moves ``CARD_ICI_ELEMS`` float32 a card (the
+  reference's ``PROBE_ELEMS // 8`` a device is latency, not bandwidth,
+  on NVLink). No ``DEFAULT_PROFILE``: the reference's is a TPU
+  datasheet; a tier that prices without a measured profile says
+  ``uncalibrated``.
 - The process cache holds one profile per device, so a CPU profile
   never prices a card's stages, nor the reverse.
 - ``backend`` is ``torch-cuda`` or ``torch-cpu``: a profile that the
@@ -85,6 +95,8 @@ CARD_L2_MULTIPLE = 16
 CARD_MATMUL_N = 2048
 # back-to-back launches a card probe's CUDA events enclose
 CARD_LAUNCHES = 4
+# float32 a card the ICI probe all-reduces (64 MiB: past launch latency)
+CARD_ICI_ELEMS = 1 << 24
 # best-of over enough reps to shrug off scheduler noise on a loaded
 # host (bandwidth probes are single-digit ms; reps are cheap)
 PROBE_REPS = 8
@@ -235,6 +247,49 @@ def _device_seconds(fn, launches: int = CARD_LAUNCHES,
     return max(best, 1e-9)
 
 
+def ici_probe(device="cuda") -> Tuple[Optional[float], str]:
+    """``(GB/s, how)``: the interconnect rate of an all-reduce across
+    the distinct cards this process sees, priced with the ring
+    all-reduce wire bytes, and how it was measured; or ``(None, why
+    not)``."""
+    from ..analysis.costmodel import allreduce_wire_bytes
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None, f"{dev.type}: no interconnect to probe"
+    n = torch.cuda.device_count()
+    if n < 2:
+        return None, (
+            f"{n} card(s) visible: an all-reduce needs two distinct cards "
+            "(virtual shards of one card share its memory, with no link)"
+        )
+    cards = [torch.device("cuda", i) for i in range(n)]
+    try:
+        parts = [torch.ones(CARD_ICI_ELEMS, dtype=torch.float32, device=c)
+                 for c in cards]
+        inbox = [torch.empty_like(parts[0]) for _ in cards[1:]]
+
+        def reduce():
+            # reduce to the first card, then broadcast: 2 S (n - 1) bytes
+            # cross the links, as the ring closed form counts
+            for buf, part in zip(inbox, parts[1:]):
+                buf.copy_(part, non_blocking=True)
+            total = parts[0].clone()
+            for buf in inbox:
+                total.add_(buf)
+            for part in parts[1:]:
+                part.copy_(total, non_blocking=True)
+            for c in cards:
+                torch.cuda.synchronize(c)
+
+        reduce()
+        secs = _best_seconds(reduce)
+    except Exception as e:  # noqa: BLE001 — the ICI term is optional
+        return None, f"ici probe failed: {e}"
+    wire = allreduce_wire_bytes(CARD_ICI_ELEMS * 4, n)
+    return wire / secs / 1e9, f"peer-copy all-reduce over {n} cards"
+
+
 def calibrate(device="cuda") -> MachineProfile:
     """Run the micro-probes on ``device`` (the card by default; raises
     without one) and return a fresh profile."""
@@ -317,6 +372,8 @@ def calibrate(device="cuda") -> MachineProfile:
         return amount / max(s - fixed_s, 1e-9) / 1e9
 
     nbytes = elems * 4
+    ici_gbps, ici_how = ici_probe(dev)
+    logger.info("ici probe: %s", ici_how)
     profile = MachineProfile(
         backend=backend,
         device_kind=kind,
@@ -325,7 +382,7 @@ def calibrate(device="cuda") -> MachineProfile:
         flops_gflops=round(rate(2.0 * mm_n ** 3, secs["matmul"]), 3),
         dispatch_overhead_us=round(tick_s * 1e6, 3),
         d2h_gbps=round(PROBE_ELEMS * 4 / d2h_s / 1e9, 3),
-        ici_gbps=None,
+        ici_gbps=round(ici_gbps, 3) if ici_gbps else None,
         decode_rows_per_sec=_probe_decode_rate(),
         probe_ms=round((time.perf_counter() - t_start) * 1000.0, 1),
     )

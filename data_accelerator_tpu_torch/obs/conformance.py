@@ -21,6 +21,8 @@ counts — against those predictions and exports:
   | DX501 | d2h-bytes-drift | windowed observed D2H bytes exceed the modeled per-batch transfer by more than the tolerance band |
   | DX502 | occupancy-vs-modeled-cardinality | an output's observed row occupancy exceeds the modeled group/join cardinality — the capacity planning input was wrong |
   | DX503 | unmodeled-retrace | the step was rebuilt after warmup; steady state is modeled as rebuild-free |
+  | DX510 | ici-bytes-drift | windowed observed mesh collective bytes (``Mesh_ICI_Bytes``) exceed the DX7xx sharding model's wire prediction by more than the tolerance band |
+  | DX511 | mesh-collective-count-drift | the executed mesh step's collective-op census (``Mesh_Reshard_Count``) changed from its post-warmup baseline — a rebuilt step repartitioned the flow |
   | DX520 | stage-time-drift | a stage's observed latency p50 exceeds the calibrated roofline prediction (``max(bytes/BW, flops/F) + dispatch overhead`` over the measured machine profile, obs/calibrate.py) by more than the band |
   | DX521 | dispatch-overhead-dominated | DX520's condition on a stage whose *model* is all fixed dispatch overhead — the slowdown is per-dispatch cost, not data movement |
   | DX522 | hbm-footprint-drift | live HBM peak (``Hbm_PeakBytes``, the per-window ``memory_stats`` sample) drifted above the DX2xx modeled footprint band |
@@ -31,13 +33,20 @@ by ``latency_predictions`` from the host's calibrated machine profile,
 or an operator pin) are judged against the same windowed
 ``Latency-<Stage>-p50`` histogram series the dashboards read.
 
+The DX51x pair is the runtime half of the mesh tier
+(``analysis/meshcheck.py``): config generation embeds the sharding
+plan's collective model into mesh jobs' confs
+(``datax.job.process.mesh.model``, the S660 stage), the mesh step
+records its own collectives per batch (``dist/mesh.py
+MeshCollectives`` -> ``Mesh_ICI_Bytes`` / ``Mesh_Reshard_Count``), and
+this monitor judges one against the other. The band of DX510 is the
+reference's (8x): it catches the model *missing* traffic wholesale.
+
 Events fire on the *transition* into drift (and re-arm on recovery), so
 a sustained drift is one event, not one per batch; the cumulative
 ``Conformance_Drift_Count`` gauge keeps the total visible.
 
-Copy of the JAX package's ``obs/conformance.py``. Trimmed: DX510/DX511
-and the ``process.mesh.model`` half of the model: the port runs on one
-card and its host refuses ``process.mesh.model``.
+Copy of the JAX package's ``obs/conformance.py``.
 
 In the port ``Retrace_Count`` counts rebuilds of the step after init
 (a UDF ``on_interval`` refresh): eager PyTorch has no trace, and a
@@ -66,6 +75,8 @@ DRIFT_CODES: Dict[str, str] = {
     "DX501": "d2h-bytes-drift",
     "DX502": "occupancy-vs-modeled-cardinality",
     "DX503": "unmodeled-retrace",
+    "DX510": "ici-bytes-drift",
+    "DX511": "mesh-collective-count-drift",
     "DX520": "stage-time-drift",
     "DX521": "dispatch-overhead-dominated",
     "DX522": "hbm-footprint-drift",
@@ -77,6 +88,14 @@ DRIFT_CODES: Dict[str, str] = {
 DEFAULT_D2H_RATIO_HIGH = 1.5
 # observed rows / modeled cardinality above which DX502 fires
 DEFAULT_OCCUPANCY_FACTOR = 2.0
+# observed/predicted ratio above which DX510 fires. The DX7xx model
+# prices the planned-layout gathers, which the port's mesh step makes
+# exactly (its census adds one all-reduce of the counts vector); the
+# band stays the reference's, much wider than DX501's — it catches
+# wholesale model misses (an unmodeled reshard storm, a rebuilt step
+# multiplying the collective census), not a few bytes. DX511's
+# count-drift check is the sharp instrument for repartitioning.
+DEFAULT_ICI_RATIO_HIGH = 8.0
 # observed p50 / predicted roofline ms above which DX520 fires. The
 # latency closed forms are LOWER bounds (peak bandwidth, peak dense
 # FLOP/s — analysis/costmodel.py stage_time_ms); achieved efficiency
@@ -146,8 +165,16 @@ class ConformanceModel:
     # per-stage hbmBytes/d2hBytes/flops (the DX520 latency inputs; the
     # CLI/SPA also render it)
     stages: List[dict] = field(default_factory=list)
+    # mesh sharding-plan predictions (datax.job.process.mesh.model, the
+    # DX7xx analyzer's runtime artifact): modeled collective wire bytes
+    # per batch and the planned reshard count — the DX510/DX511 inputs
+    ici_wire_bytes_per_batch: Optional[float] = None
+    reshard_count: Optional[float] = None
+
     @classmethod
-    def from_json(cls, text: str) -> Optional["ConformanceModel"]:
+    def from_json(
+        cls, text: str, mesh_text: Optional[str] = None,
+    ) -> Optional["ConformanceModel"]:
         obj: Optional[dict] = None
         if text:
             try:
@@ -156,8 +183,17 @@ class ConformanceModel:
             except ValueError:
                 logger.warning("unparseable conformance model; monitor off")
                 obj = None
-        if obj is None:
+        mesh_totals: dict = {}
+        if mesh_text:
+            try:
+                mesh_obj = json.loads(mesh_text)
+                if isinstance(mesh_obj, dict):
+                    mesh_totals = mesh_obj.get("totals") or {}
+            except ValueError:
+                logger.warning("unparseable mesh model; DX51x checks off")
+        if obj is None and not mesh_totals:
             return None
+        obj = obj or {}
         totals = obj.get("totals") or {}
         return cls(
             d2h_bytes_per_batch=totals.get("d2hBytesPerBatch"),
@@ -168,6 +204,8 @@ class ConformanceModel:
                 if isinstance(v, dict)
             },
             stages=list(obj.get("stages") or []),
+            ici_wire_bytes_per_batch=mesh_totals.get("iciWireBytesPerBatch"),
+            reshard_count=mesh_totals.get("reshardCount"),
         )
 
     @classmethod
@@ -175,9 +213,12 @@ class ConformanceModel:
         raw = dict_.get_sub_dictionary(
             "datax.job.process.conformance."
         ).get("model")
-        if not raw:
+        mesh_raw = dict_.get_sub_dictionary(
+            "datax.job.process.mesh."
+        ).get("model")
+        if not raw and not mesh_raw:
             return None
-        return cls.from_json(raw)
+        return cls.from_json(raw or "", mesh_raw)
 
     def latency_predictions(self, profile: dict, launches: int = 1) -> tuple:
         """The DX520 comparison baseline: roofline per-stage latency
@@ -230,6 +271,7 @@ class ConformanceMonitor:
         stage_time_ratio_high: float = DEFAULT_STAGE_TIME_RATIO_HIGH,
         stage_time_floor_ms: float = DEFAULT_STAGE_TIME_FLOOR_MS,
         hbm_ratio_high: float = DEFAULT_HBM_RATIO_HIGH,
+        ici_ratio_high: float = DEFAULT_ICI_RATIO_HIGH,
     ):
         self.model = model
         self.flow = flow
@@ -240,6 +282,7 @@ class ConformanceMonitor:
         self.stage_time_ratio_high = float(stage_time_ratio_high)
         self.stage_time_floor_ms = float(stage_time_floor_ms)
         self.hbm_ratio_high = float(hbm_ratio_high)
+        self.ici_ratio_high = float(ici_ratio_high)
         # DX520/DX521 state: runtime-stage -> predicted roofline ms,
         # set by set_latency() once the host has a calibrated profile
         # (or pinned from the conf's conformance.latency override);
@@ -253,7 +296,12 @@ class ConformanceMonitor:
         self.drift_count = 0
         self._d2h: deque = deque(maxlen=self.window)
         self._hbm: deque = deque(maxlen=self.window)
+        self._ici: deque = deque(maxlen=self.window)
         self._occupancy: Dict[str, deque] = {}
+        # the executed mesh step's first post-warmup collective-op
+        # count — DX511's self-baseline (a change means a rebuilt step
+        # repartitioned the flow)
+        self._collective_baseline: Optional[float] = None
         # codes (keyed per metric) currently in drift — events fire on
         # the transition in, re-arm on recovery
         self._active: set = set()
@@ -292,6 +340,7 @@ class ConformanceMonitor:
         stage_t = sub.get_double_option("stagetimeratiohigh")
         stage_floor = sub.get_double_option("stagetimefloorms")
         hbm = sub.get_double_option("hbmratiohigh")
+        ici = sub.get_double_option("iciratiohigh")
         mon = cls(
             model,
             flow=flow,
@@ -313,6 +362,9 @@ class ConformanceMonitor:
             ),
             hbm_ratio_high=(
                 hbm if hbm is not None else DEFAULT_HBM_RATIO_HIGH
+            ),
+            ici_ratio_high=(
+                ici if ici is not None else DEFAULT_ICI_RATIO_HIGH
             ),
         )
         if pin:
@@ -411,6 +463,56 @@ class ConformanceMonitor:
                     f"modeled cardinality {rp:.0f} "
                     f"({r:.2f}x > {self.occupancy_factor}x) — re-check "
                     "declared key cardinality (DX200/DX202 inputs)",
+                ),
+            )
+            if ev:
+                events.append(ev)
+
+        # DX510: observed mesh collective bytes vs the sharding model's
+        # wire prediction (the DX7xx runtime counterpart)
+        ici = metrics.get("Mesh_ICI_Bytes")
+        predicted_ici = self.model.ici_wire_bytes_per_batch
+        if ici is not None and predicted_ici:
+            self._ici.append(float(ici))
+            mean = sum(self._ici) / len(self._ici)
+            ratio = mean / float(predicted_ici)
+            gauges["Conformance_MeshIci_Ratio"] = ratio
+            ev = self._transition(
+                "DX510", warmed and ratio > self.ici_ratio_high,
+                lambda: DriftEvent(
+                    "DX510", "Mesh_ICI_Bytes", mean,
+                    float(predicted_ici), ratio, batch_time_ms,
+                    f"windowed mesh collective bytes {mean:.0f} exceed "
+                    f"the sharding model's {float(predicted_ici):.0f}"
+                    f"/batch by {ratio:.2f}x (> {self.ici_ratio_high}x) "
+                    f"— the DX7xx partition plan missed traffic "
+                    f"(re-validate with --mesh)",
+                ),
+            )
+            if ev:
+                events.append(ev)
+
+        # DX511: the executed mesh step's collective-op census vs its
+        # own post-warmup baseline (a change = a rebuilt step
+        # repartitioned the flow — the plan no longer describes it)
+        n_coll = metrics.get("Mesh_Reshard_Count")
+        if n_coll is not None:
+            if warmed and self._collective_baseline is None:
+                self._collective_baseline = float(n_coll)
+            base = self._collective_baseline
+            drifted = base is not None and float(n_coll) != base
+            ev = self._transition(
+                "DX511", drifted,
+                lambda: DriftEvent(
+                    "DX511", "Mesh_Reshard_Count", float(n_coll),
+                    base or 0.0,
+                    (float(n_coll) / base) if base else 0.0,
+                    batch_time_ms,
+                    f"mesh collective-op count changed "
+                    f"{base:.0f} -> {n_coll:.0f} after warmup — the "
+                    f"step was rebuilt into a different partition "
+                    f"(dictionary growth or UDF refresh under the "
+                    f"mesh; see DX204/DX600)",
                 ),
             )
             if ev:

@@ -37,8 +37,8 @@ plane"; FRAME_VERSION gates forward-compat decoding.
 
 Copy of the JAX package's ``obs/publisher.py``, whole: a port host and a
 JAX host publish the same frames for the same batches, so one
-``FleetView`` merges replicas of either package. The chaos drills that
-call ``kill()`` (``serve/scenarios.py``) are not ported yet.
+``FleetView`` merges replicas of either package. The chaos drills of
+``serve/scenarios.py`` call ``kill()``.
 """
 
 from __future__ import annotations

@@ -41,8 +41,8 @@ taken. ``Pilot_Actuations_Count`` / ``Pilot_Depth`` /
 ``Pilot_Backpressure_Tokens`` export the loop's state as registry
 metric series.
 
-Copy of the JAX package's ``pilot/controller.py``. Trimmed: the
-replay CLI (``pilot/__main__.py``) is not ported yet.
+Copy of the JAX package's ``pilot/controller.py``; its replay CLI is
+``pilot/__main__.py``.
 """
 
 from __future__ import annotations

@@ -33,11 +33,13 @@ sanitizer's DX805 events (``sanitizer/poison``) and checks every window
 checkpoint for aliasing and sentinel residue before it is saved.
 
 A conf's ``process.numchips`` runs the flow over a mesh
-(``dist/mesh.py``), clamped to the visible cards; under a mesh the
-landing runs inline (background transfer off), as in the JAX package.
-Not ported yet, and refused by conf with an ``EngineException`` that
-names it (``_refuse_unported``): the mesh sharding model
-(``process.mesh.model``, the DX7xx tier of slice 8b).
+(``dist/mesh.py``), clamped to the visible cards; ``mesh=`` hands the
+host a mesh of its own (virtual shards of one card or of the CPU, the
+counterpart of the JAX package's virtual devices). Under a mesh the
+landing runs inline (background transfer off), as in the JAX package,
+and each batch's collective census (``Mesh_ICI_Bytes``,
+``Mesh_Reshard_Count``) reaches the conformance monitor, which holds it
+against the conf's sharding model (``process.mesh.model``, DX510/511).
 
 CUDA state is per thread in PyTorch: the current device and stream.
 The decode-ahead worker (which copies ``LocalSource`` columns to the
@@ -66,8 +68,9 @@ from typing import Dict, List, Optional
 import torch
 
 from ..constants import MetricName
-from ..core.config import EngineException, SettingDictionary, SettingNamespace
+from ..core.config import SettingDictionary, SettingNamespace
 from ..core.confmanager import ConfigManager
+from ..dist.mesh import Mesh
 from ..obs import telemetry, tracing
 from ..obs.alerts import AlertEngine
 from ..obs.calibrate import get_profile
@@ -98,17 +101,6 @@ def _enter_stream(stream: Optional["torch.cuda.Stream"]) -> None:
         torch.cuda.set_stream(stream)
 
 
-def _refuse_unported(dict_: SettingDictionary) -> None:
-    """Raise for conf that asks for a host feature this port lacks,
-    naming it, rather than run the flow without it."""
-    if dict_.get(SettingNamespace.JobProcessPrefix + "mesh.model"):
-        raise EngineException(
-            "the mesh sharding model (process.mesh.model, the DX7xx tier "
-            "of slice 8b that models the dist/ census) is not ported to "
-            "data_accelerator_tpu_torch yet"
-        )
-
-
 class StreamingHost:
     def __init__(
         self,
@@ -117,10 +109,10 @@ class StreamingHost:
         udfs: Optional[dict] = None,
         table_sink_map: Optional[Dict[str, list]] = None,
         device: "torch.device | str" = "cuda",
+        mesh: Optional[Mesh] = None,
     ):
-        _refuse_unported(dict_)
         self.dict = dict_
-        self.processor = FlowProcessor(dict_, udfs=udfs, device=device)
+        self.processor = FlowProcessor(dict_, udfs=udfs, device=device, mesh=mesh)
         self.device = self.processor.device
         # the stream every step of this host runs on; the workers enter
         # it too (see _on_card)

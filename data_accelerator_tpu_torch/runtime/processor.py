@@ -107,6 +107,7 @@ from ..constants import ColumnName, DatasetName
 from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.schema import ColType, Schema, StringDictionary
 from ..dist.mesh import (
+    COUNTS_TABLE,
     Mesh,
     MeshCollectives,
     is_collective_view,
@@ -651,7 +652,7 @@ class _MeshEnv(dict):
         v = self._env[name]
         if isinstance(v, _Sharded):
             t = (v.shards[self._shard] if self._shard is not None
-                 else self._gather(v, self._device))
+                 else self._gather(v, self._device, name))
         else:
             t = v.on(self._device)
         self[name] = t
@@ -710,19 +711,21 @@ def build_mesh_step_fn(
     collective stage (``dist/mesh.py::is_collective_view``); its output
     keeps its input's layout — or replicated, once per distinct device,
     over its inputs gathered there (each sharded table gathered at most
-    once a device, recorded once as an ``all-gather`` of its logical
-    bytes). Outputs and new state are taken whole on the first device:
-    a sharded one gathers there. The counts vector is the sum of one
-    partial vector a shard (a sharded table's count on each shard, any
-    other value on shard 0 alone), recorded as an ``all-reduce``. On a
-    one-device mesh a sharded table's one shard is the whole table, so
-    the step copies nothing and records no collective.
+    once a device and shared by every stage that reads it, recorded once
+    as an ``all-gather`` of its logical bytes under the table's name).
+    Outputs and new state are taken whole on the first device: a sharded
+    one gathers there, or reuses a stage's gather. The counts vector
+    is the sum of one partial vector a shard (a sharded table's count on
+    each shard, any other value on shard 0 alone), recorded as an
+    ``all-reduce``. On a one-device mesh a sharded table's one shard is
+    the whole table, so the step copies nothing and records no
+    collective.
     """
     d0 = mesh.devices[0]
 
     def step(raw, rings, state, refdata, base_s, now_rel_ms, counter,
              delta_ms, aux, census: MeshCollectives):
-        def gather(sh: _Sharded, device: torch.device) -> TableData:
+        def gather(sh: _Sharded, device: torch.device, name: str) -> TableData:
             t = sh.gathered.get(device)
             if t is None and len(sh.shards) == 1:
                 # a one-device mesh: the shard is the whole table, so
@@ -731,11 +734,11 @@ def build_mesh_step_fn(
             elif t is None:
                 t = sh.gathered[device] = _gather_table(sh, device)
                 if len(sh.gathered) == 1:
-                    census.record("all-gather", _table_logical_nbytes(t))
+                    census.record("all-gather", _table_logical_nbytes(t), name)
             return t
 
-        def whole(v) -> TableData:
-            return gather(v, d0) if isinstance(v, _Sharded) else v.on(d0)
+        def whole(name: str, v) -> TableData:
+            return gather(v, d0, name) if isinstance(v, _Sharded) else v.on(d0)
 
         base_r, now_r = _Replicated({d0: base_s}), _Replicated({d0: now_rel_ms})
 
@@ -790,7 +793,7 @@ def build_mesh_step_fn(
 
         run_views(pipeline.views, env)
 
-        new_state = {n: whole(env[n]) for n in state_names}
+        new_state = {n: whole(n, env[n]) for n in state_names}
 
         # partial counts vectors, one a shard, summed across the mesh
         n_shards = mesh.size
@@ -811,7 +814,7 @@ def build_mesh_step_fn(
                 partials[i].append(zeros[mesh.devices[i]])
 
         outs = [env[n] for n in output_datasets]
-        whole_outs = [whole(v) for v in outs]
+        whole_outs = [whole(n, v) for n, v in zip(output_datasets, outs)]
         datasets = {n: _compact_table(t)
                     for n, t in zip(output_datasets, whole_outs)}
         for is_count, x in _counts_layout(
@@ -826,7 +829,7 @@ def build_mesh_step_fn(
         for v in vecs[1:]:
             counts_vec = counts_vec + v.to(d0)
         if n_shards > 1:
-            census.record("all-reduce", logical_nbytes(counts_vec))
+            census.record("all-reduce", logical_nbytes(counts_vec), COUNTS_TABLE)
         return datasets, counts_vec, new_state
 
     return step

@@ -30,8 +30,8 @@ mode: the cost is a few appends + one list scan per batch).
 
 Copy of the JAX package's ``runtime/protocolmonitor.py``, whole; the
 port's host records the same events at the same points of its batch
-tail. The static half (``analysis/protocheck.py``) and the chaos drills
-that arm the monitor (``serve/scenarios.py``) are not ported yet.
+tail. The static half is ``analysis/protocheck.py``; the chaos drills
+of ``serve/scenarios.py`` arm the monitor.
 """
 
 from __future__ import annotations

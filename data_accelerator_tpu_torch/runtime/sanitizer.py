@@ -1,6 +1,5 @@
 """Buffer sanitizer: the DYNAMIC half of the DX8xx buffer-lifetime
-story (the JAX package's ``analysis/racecheck.py`` is the static half,
-not ported yet).
+story (``analysis/racecheck.py`` is the static half).
 
 Copy of the JAX package's ``runtime/sanitizer.py`` with the same
 sentinel, run threshold, events and metrics. What differs is what a

@@ -11,9 +11,7 @@ DeleteHelper cascade (DataX.Flow.DeleteHelper) is ``delete_flow``.
 Copy of the JAX package's ``serve/flowservice.py`` over the port's
 tiers. ``FlowOperation`` takes ``device`` (default ``"cuda"``): the
 default fleet spec is that device's machine, and the default
-``LocalJobClient`` spawns hosts on it. The mesh tier
-(``validate_flow_mesh``) raises ``EngineException`` naming multi-GPU
-slice 8.
+``LocalJobClient`` spawns hosts on it.
 """
 
 from __future__ import annotations
@@ -21,7 +19,6 @@ from __future__ import annotations
 import logging
 from typing import List, Optional
 
-from ..core.config import EngineException
 from .flowbuilder import FlowConfigBuilder
 from .generation import GenerationResult, RuntimeConfigGeneration
 from .jobs import (
@@ -56,7 +53,8 @@ class FlowOperation:
         self.device = device
         self.builder = FlowConfigBuilder()
         self.generation = RuntimeConfigGeneration(
-            design_storage, runtime_storage, env_tokens=env_tokens
+            design_storage, runtime_storage, env_tokens=env_tokens,
+            device=device,
         )
         self.registry: JobRegistry = self.generation.jobs
         # fleet placement as an admission gate: every job submit is
@@ -134,12 +132,21 @@ class FlowOperation:
 
         return analyze_flow_compile(flow, manifest=manifest)
 
-    def validate_flow_mesh(self, flow: dict, chips=None):
-        """The mesh tier of ``flow/validate`` (``mesh: true``) is
-        multi-GPU slice 8: it raises, naming it."""
-        raise EngineException(
-            "the mesh tier (analysis/meshcheck.py, multi-GPU slice 8) is "
-            "not ported to data_accelerator_tpu_torch yet"
+    def validate_flow_mesh(self, flow: dict, chips=None,
+                           spec: Optional[dict] = None):
+        """The mesh tier of ``flow/validate`` (``mesh: true``): the
+        flow's partition plan over a 1-D data mesh (per-stage shard
+        axis, reshard edges, closed-form collective bytes) with the
+        DX7xx lints, cross-checked against the census of the flow's mesh
+        step run on ``meta`` virtual shards. The per-chip budget is the
+        fleet spec's (body ``fleetSpec``; unset keys from this
+        service's device), as the fleet tier's. Same implementation as
+        the CLI's ``--mesh``; no device executes."""
+        from ..analysis import FleetSpec, analyze_flow_mesh
+
+        return analyze_flow_mesh(
+            flow, chips=chips,
+            spec=FleetSpec.from_dict(spec or {}, device=self.device),
         )
 
     def validate_flow_race(self, flow: dict):

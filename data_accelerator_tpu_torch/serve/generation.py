@@ -23,13 +23,10 @@ modules. The generated conf equals the JAX package's key by key, the job
 names (``DataXTpu-<flow>``) included, but for: the conformance model
 (S620), which is the port's ``analyze_flow_device`` plan; the compile
 manifest (S630), which is the port's ``analyze_flow_compile`` manifest,
-its entries the JAX manifest's and its digests the port's; and a multi-
-card job (``jobNumChips`` > 1), which ``generate`` refuses with an
-``EngineException`` naming multi-GPU slice 8 before any stage runs, so
-that the stages' fail-open cannot turn the missing mesh tier into a
-silent 'no mesh model'. The reference's S660 mesh stage is therefore
-absent. The generator writes no module path of its own: UDF class paths
-come from the designer's document.
+its entries the JAX manifest's and its digests the port's; and the
+mesh model (S660), which is the port's ``analyze_flow_mesh`` plan. The
+generator writes no module path of its own: UDF class paths come from
+the designer's document.
 """
 
 from __future__ import annotations
@@ -45,36 +42,11 @@ from typing import Any, Dict, List, Optional
 from ..compile.codegen import CodegenEngine, RulesCode
 from ..compile.flattener import ConfigFlattener
 from ..compile.flattener_schema import DEFAULT_FLATTENER_SCHEMA
-from ..core.config import EngineException
 from .flowbuilder import FlowConfigBuilder, RuleDefinitionGenerator, _deep_merge
 from .storage import DesignTimeStorage, JobRegistry, LocalRuntimeStorage
 from .templating import TokenDictionary, unresolved_tokens
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_multi_card(doc: dict) -> None:
-    """Raise for a flow that asks for more than one card: the mesh tier
-    and mesh execution (``analysis/meshcheck.py``, ``dist/mesh.py``)
-    are multi-GPU slice 8, not ported yet. Runs before the stages, whose
-    fail-open would otherwise generate a multi-card conf without its
-    mesh model."""
-    gui = doc.get("gui") if isinstance(doc.get("gui"), dict) else doc
-    jobconf = (gui.get("process") or {}).get("jobconfig") or {}
-    chips_s = str(
-        jobconf.get("jobNumChips") or jobconf.get("jobNumExecutors") or "1"
-    )
-    try:
-        chips = int(chips_s)
-    except ValueError:
-        chips = 1
-    if chips > 1:
-        raise EngineException(
-            f"flow '{doc.get('name')}' asks for {chips} cards "
-            "(jobNumChips); a multi-card job needs the mesh tier and mesh "
-            "execution (analysis/meshcheck.py, dist/mesh.py, multi-GPU "
-            "slice 8), which are not ported to data_accelerator_tpu_torch yet"
-        )
 
 
 @dataclass
@@ -100,8 +72,12 @@ class RuntimeConfigGeneration:
         runtime_storage: LocalRuntimeStorage,
         codegen: Optional[CodegenEngine] = None,
         env_tokens: Optional[Dict[str, str]] = None,
+        device: str = "cuda",
     ):
         self.design = design_storage
+        # where the generated jobs run: the S660 mesh model's fleet spec
+        # is that device's machine
+        self.device = device
         self.runtime = runtime_storage
         self.codegen = codegen or CodegenEngine()
         self.jobs = JobRegistry(runtime_storage)
@@ -116,7 +92,6 @@ class RuntimeConfigGeneration:
         doc = self.design.get_by_name(flow_name)
         if doc is None:
             return GenerationResult(flow_name, errors=[f"flow '{flow_name}' not found"])
-        _refuse_multi_card(doc)
         result = GenerationResult(flow_name)
         ctx: Dict[str, Any] = {"doc": doc, "result": result}
         for stage in (
@@ -131,6 +106,7 @@ class RuntimeConfigGeneration:
             self._s620_conformance,
             self._s630_compile,
             self._s640_pilot,
+            self._s660_mesh,
             self._s650_flatten,
             self._s700_write_files,
             self._s800_jobs,
@@ -677,6 +653,54 @@ class RuntimeConfigGeneration:
                 keys[f"datax.job.process.{conf_key}"] = str(v)
         ctx["pilot_keys"] = keys
 
+    def _s660_mesh(self, ctx) -> None:
+        """Embed the flow's **sharding-plan artifact** into mesh jobs'
+        confs (``datax.job.process.mesh.model``): the DX7xx
+        mesh-sharding analyzer's per-stage collective byte model
+        (``analysis/meshcheck.py``), the prediction the host's
+        ``ConformanceMonitor`` compares against the observed
+        ``Mesh_ICI_Bytes`` / ``Mesh_Reshard_Count`` series at runtime
+        (DX510/DX511 ICI drift, beside S620's DX501-503 model).
+
+        Single-chip jobs skip it (no mesh, no collectives to model).
+        The analyzer runs model-only here (``lower=False``: no step runs
+        on the deploy path; the tests prove the model equals the mesh
+        step's census). Fail-open like S620/S630: an analyzer error must
+        not block deployment, the mesh job simply runs without ICI
+        conformance. Opt out with designer jobconfig ``jobMeshModel:
+        "false"``."""
+        doc = ctx["doc"]
+        jobconf = (doc["gui"].get("process") or {}).get("jobconfig") or {}
+        ctx["mesh_json"] = None
+        chips_s = str(
+            jobconf.get("jobNumChips")
+            or jobconf.get("jobNumExecutors") or "1"
+        )
+        try:
+            chips = int(chips_s)
+        except ValueError:
+            chips = 1
+        if (
+            chips > 1
+            and str(jobconf.get("jobMeshModel", "")).lower() != "false"
+        ):
+            try:
+                from ..analysis import FleetSpec, analyze_flow_mesh
+
+                report = analyze_flow_mesh(
+                    doc, chips=chips, lower=False,
+                    spec=FleetSpec(chips=chips, device=self.device),
+                )
+                if report.stages:
+                    ctx["mesh_json"] = json.dumps(
+                        report.runtime_model(), separators=(",", ":")
+                    )
+            except Exception as e:  # noqa: BLE001 — monitoring is optional
+                logger.warning(
+                    "mesh model generation failed for %s: %s",
+                    doc.get("name"), e,
+                )
+
     def _s650_flatten(self, ctx) -> None:
         """Flatten each resolved job config JSON to flat conf text
         (S650 ConfigFlattener.Flatten)."""
@@ -719,6 +743,8 @@ class RuntimeConfigGeneration:
             if ctx.get("alert_rules_json"):
                 extra["datax.job.process.alerts.rules"] = (
                     ctx["alert_rules_json"])
+            if ctx.get("mesh_json"):
+                extra["datax.job.process.mesh.model"] = ctx["mesh_json"]
             if ctx.get("compile_manifest_path"):
                 extra["datax.job.process.compile.manifest"] = (
                     ctx["compile_manifest_path"])
@@ -770,7 +796,13 @@ class RuntimeConfigGeneration:
             result.job_names.append(job_name)
 
     def _s800_jobs(self, ctx) -> None:
-        """Upsert job records (S800_DeploySparkJob.cs:23-60)."""
+        """Upsert job records (S800_DeploySparkJob.cs:23-60). Each
+        record carries the cards its conf runs on (``numChips``, the
+        conf's ``process.numchips``), which a k8s Job asks for."""
+        chips = {
+            name: int(jt.get("jobNumChips") or 1)
+            for name, _resolved, jt in ctx["job_configs"]
+        }
         for job_name, conf_path in zip(
             ctx["result"].job_names, ctx["result"].conf_paths
         ):
@@ -779,6 +811,7 @@ class RuntimeConfigGeneration:
                 "name": job_name,
                 "flow": ctx["doc"]["name"],
                 "confPath": conf_path,
+                "numChips": chips[job_name],
                 "state": (existing or {}).get("state") or "idle",
             })
 

@@ -24,9 +24,12 @@ only when the control plane runs on the CPU. ``FleetAdmissionGate``'s
 default spec is the port's fleet default, the machine's cards and a
 card's memory (or one CPU device when asked), not a TPU fleet.
 ``K8sJobClient`` renders the port's own GPU Job manifest
-(``serve/k8s/gpu-job.yaml``, one ``nvidia.com/gpu``), its accelerator
-override is the GPU pool's node label, and a topology selector, which
-has no single-card meaning, is refused until multi-GPU slice 8.
+(``serve/k8s/gpu-job.yaml``): it asks for as many ``nvidia.com/gpu`` as
+the job's conf has ``process.numchips`` (one by default), its
+accelerator override is the GPU pool's node label, and its topology
+selector is GPU Feature Discovery's ``nvidia.com/gpu.count`` node label
+(the cards one node holds, NVLink-joined on an HGX board), where the
+reference selects a TPU slice's topology.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ import sys
 import time
 from typing import Dict, List, Optional
 
-from ..core.config import EngineException
 from ..obs import tracing
 from .storage import JobRegistry
 
@@ -458,6 +460,10 @@ class LocalJobClient(TpuJobClient):
 
 # the node label GKE puts on a GPU pool's nodes
 GPU_ACCELERATOR_LABEL = "cloud.google.com/gke-accelerator"
+# the node label NVIDIA GPU Feature Discovery puts on a GPU node: the
+# number of cards it holds (a topology selector places a multi-card job
+# on a node of that many NVLink-joined cards)
+GPU_TOPOLOGY_LABEL = "nvidia.com/gpu.count"
 
 
 class K8sJobClient(TpuJobClient):
@@ -493,18 +499,13 @@ class K8sJobClient(TpuJobClient):
         accelerator: Optional[str] = None,
         topology: Optional[str] = None,
     ):
-        if topology:
-            raise EngineException(
-                f"k8s topology {topology!r}: a topology selector places a "
-                "multi-card slice, and multi-card jobs (multi-GPU slice 8) "
-                "are not ported to data_accelerator_tpu_torch yet"
-            )
         self.api_server = api_server.rstrip("/")
         self.namespace = namespace
         self.image = image
-        # the GPU pool's accelerator label for the rendered Job (the
-        # template's nodeSelector value is the H100 default)
+        # GPU placement overrides for the rendered Job (the template's
+        # nodeSelector value is the H100 default)
         self.accelerator = accelerator
+        self.topology = topology
         self.manifest_path = manifest_path or os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "k8s", "gpu-job.yaml",
         )
@@ -566,7 +567,9 @@ class K8sJobClient(TpuJobClient):
     def render_manifest(self, job: dict) -> dict:
         """serve/k8s/gpu-job.yaml with FLOWNAME/JOBNAME substituted —
         the manifest IS the submission payload (no drift between the
-        documented shape and what the client sends)."""
+        documented shape and what the client sends). The container asks
+        for the cards the job's conf runs on (the record's ``numChips``,
+        written by generation's S800; 1 for a record without one)."""
         import yaml
 
         with open(self.manifest_path, encoding="utf-8") as f:
@@ -581,12 +584,16 @@ class K8sJobClient(TpuJobClient):
             self._label_safe(job["name"])
         )
         pod = manifest["spec"]["template"]["spec"]
-        if self.accelerator:
-            pod.setdefault("nodeSelector", {})[GPU_ACCELERATOR_LABEL] = (
-                self.accelerator
-            )
+        if self.accelerator or self.topology:
+            sel = pod.setdefault("nodeSelector", {})
+            if self.accelerator:
+                sel[GPU_ACCELERATOR_LABEL] = self.accelerator
+            if self.topology:
+                sel[GPU_TOPOLOGY_LABEL] = self.topology
         container = pod["containers"][0]
         container["image"] = self.image
+        container.setdefault("resources", {}).setdefault("limits", {})[
+            "nvidia.com/gpu"] = str(job.get("numChips") or 1)
         if job.get("confPath"):
             container["args"] = [f"conf={job['confPath']}"]
         # append unconditionally (the template always carries an

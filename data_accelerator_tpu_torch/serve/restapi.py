@@ -25,8 +25,7 @@ Copy of the JAX package's ``serve/restapi.py`` over the port's
 ``KernelService``, ``LiveQueryService``, ``SchemaInferenceManager``,
 ``SqlAnalyzer`` and ``CodegenEngine``, with the same route table.
 ``DataXApi`` takes ``device`` (default ``"cuda"``) for the kernel pool
-and the serving plane it builds. ``flow/validate``'s ``mesh`` tier
-raises (multi-GPU slice 8), and ``all`` runs the ported tiers. A kernel
+and the serving plane it builds. A kernel
 or LiveQuery session of a saved flow carries the flow's declared UDFs
 and UDAFs, loaded as its job loads them; the reference's carry none.
 """
@@ -299,8 +298,12 @@ class DataXApi:
         the diagnostics plus a ``compile`` section carrying the AOT
         compile manifest; optional ``"compileManifest": {...}`` checks
         a previously emitted manifest for drift (DX602/DX603).
-        ``"mesh": true`` asks for the mesh-sharding tier, multi-GPU
-        slice 8, and fails naming it. ``"race": true adds the
+        ``"mesh": true`` adds the mesh-sharding tier (the CLI's
+        ``--mesh``): DX7xx partition lints merged into the diagnostics
+        plus a ``mesh`` section carrying the sharding plan (stage ->
+        axis -> per-chip bytes -> ICI bytes); the same ``"chips": N``
+        body field sets the mesh size, and ``"fleetSpec"`` the per-chip
+        budget DX702 holds it to. ``"race": true`` adds the
         buffer-lifetime/concurrency tier (the CLI's ``--race``): the
         DX8xx lints over the ENGINE modules the flow deploys onto,
         merged into the diagnostics plus a ``race`` section (modules
@@ -317,8 +320,8 @@ class DataXApi:
         THIS flow's effective conf — merged into the diagnostics plus
         a ``conf`` section (modules scanned, read sites/keys, produced
         keys, registry rows).
-        ``"all": true`` runs every ported tier in one call — one merged
-        report, one ``schemaVersion``, the CI single-invocation path."""
+        ``"all": true`` runs every tier in one call — one merged report, one
+        ``schemaVersion``, the CI single-invocation path."""
         flow = body.get("flow") or body.get("gui")
         if flow is None and (body.get("flowName") or body.get("name")) \
                 and not body.get("process") and not body.get("input"):
@@ -333,13 +336,12 @@ class DataXApi:
         want_udfs = all_tiers or body.get("udfs")
         want_fleet = all_tiers or body.get("fleet")
         want_compile = all_tiers or body.get("compile")
-        if body.get("mesh"):
-            self.flow_ops.validate_flow_mesh(flow)
+        want_mesh = all_tiers or body.get("mesh")
         want_race = all_tiers or body.get("race")
         want_protocol = all_tiers or body.get("protocol")
         want_conf = all_tiers or body.get("conf")
         if not (want_device or want_udfs or want_fleet or want_compile
-                or want_race or want_protocol
+                or want_mesh or want_race or want_protocol
                 or want_conf):
             return report.to_dict()
         from ..analysis import (
@@ -373,6 +375,12 @@ class DataXApi:
             )
             if want_compile else None
         )
+        mesh = (
+            self.flow_ops.validate_flow_mesh(
+                flow, chips=chips, spec=body.get("fleetSpec")
+            )
+            if want_mesh else None
+        )
         race = (
             self.flow_ops.validate_flow_race(flow) if want_race else None
         )
@@ -384,7 +392,7 @@ class DataXApi:
             self.flow_ops.validate_flow_conf(flow) if want_conf else None
         )
         return combined_report_dict(
-            report, device, udfs, fleet, compile_surface=comp,
+            report, device, udfs, fleet, compile_surface=comp, mesh=mesh,
             race=race, protocol=protocol, conf=conf,
         )
 

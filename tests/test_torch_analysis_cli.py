@@ -22,10 +22,11 @@ diagnostic lines for the semantic tier.
 
 The compile, race, protocol, conf and fleet tiers give the reference's
 exit codes and diagnostics on the same flows (their blocks are each
-package's own engine and backend; the tier tests hold them). The mesh
-tier, not ported yet, exits 2 naming slice 8; ``--chips`` above 1 exits
-2 naming slice 8; an unknown flag and a missing file exit 2 as in the
-reference.
+package's own engine and backend; the tier tests hold them). ``--mesh``
+prints a validated plan whose codes and totals are the reference's, and
+``--chips`` above 1 prices the device plan's ICI bytes as the reference
+does (``tests/test_torch_meshcheck.py`` holds the mesh tier flow by
+flow); an unknown flag and a missing file exit 2 as in the reference.
 """
 
 import json
@@ -34,7 +35,6 @@ from pathlib import Path
 import pytest
 
 from data_accelerator_tpu.analysis.__main__ import main as jax_main
-from data_accelerator_tpu_torch.analysis.__main__ import UNPORTED_FLAGS
 from data_accelerator_tpu_torch.analysis.__main__ import main as port_main
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -115,6 +115,22 @@ def _comparable(report: dict, transients: bool = True) -> dict:
     return r
 
 
+def _without_mesh(report: dict) -> dict:
+    """The port's ``--all`` report less its mesh tier (the JAX side of
+    this comparison runs without ``--mesh``; tests/test_torch_meshcheck.py
+    holds the mesh tier against the reference)."""
+    r = json.loads(json.dumps(report))
+    mesh = r.pop("mesh")
+    assert mesh["validated"] == bool(mesh["stages"])
+    kept = [d for d in r["diagnostics"] if not d["code"].startswith("DX7")]
+    dropped = [d for d in r["diagnostics"] if d["code"].startswith("DX7")]
+    r["diagnostics"] = kept
+    r["errorCount"] -= sum(d["severity"] == "error" for d in dropped)
+    r["warningCount"] -= sum(d["severity"] != "error" for d in dropped)
+    r["ok"] = r["errorCount"] == 0
+    return r
+
+
 @pytest.mark.parametrize("tier", sorted(TIERS))
 @pytest.mark.parametrize("name", CLEAN + BAD)
 def test_json_report_and_exit_code_equal_reference(tmp_path, capsys, name, tier):
@@ -126,16 +142,16 @@ def test_json_report_and_exit_code_equal_reference(tmp_path, capsys, name, tier)
     if name in CLEAN:
         assert trc == 0
     got, want = json.loads(tout), json.loads(jout)
-    if tier == "all":  # the port's --all runs the fleet tier too
+    if tier == "all":  # the port's --all runs the fleet and mesh tiers too
         assert got["fleet"]["placement"]["feasible"]
-        got = got["files"][0]
+        got = _without_mesh(got["files"][0])
     transients = name not in TRANSIENT_DIFFERS or "device" not in got
     if not transients:
         assert (got["device"]["totals"]["transientBytes"]
                 != want["device"]["totals"]["transientBytes"])
     assert _comparable(got, transients) == _comparable(want, transients)
     if tier == "all":
-        assert "not ported yet" in terr
+        assert "not ported" not in terr
 
 
 @pytest.mark.parametrize("name", ["dx001_unbound_table", "dx007_duplicate_alias",
@@ -156,14 +172,22 @@ def test_device_text_mode_prints_the_plan(tmp_path, capsys):
     assert "roofline latency: uncalibrated" in out
 
 
-@pytest.mark.parametrize("flag", sorted(UNPORTED_FLAGS))
+@pytest.mark.parametrize("flag", ["--mesh"])
 def test_unported_tier_flags_exit_2_naming_their_slice(tmp_path, capsys, flag):
-    _jpath, tpath = _files(tmp_path, "clean_config2_window_agg")
-    rc, out, err = _run(port_main, [flag, tpath], capsys)
-    assert rc == 2 and out == ""
-    assert "not ported" in err
-    assert UNPORTED_FLAGS == {"--mesh": "multi-GPU slice 8 (analysis/meshcheck.py)"}
-    assert "slice 8" in err
+    """Every tier is ported: ``--mesh`` prints the validated plan, and
+    its ``--json`` report carries the reference's codes and totals."""
+    jpath, tpath = _files(tmp_path, "clean_config2_window_agg")
+    rc, out, err = _run(port_main, [flag, "--chips=8", "--fleet-device=cpu", tpath], capsys)
+    assert rc == 0, err
+    assert "mesh plan (8 chips, validated)" in out
+    jrc, jout, _ = _run(jax_main, ["--json", flag, "--chips=8", jpath], capsys)
+    trc, tout, _ = _run(port_main, ["--json", flag, "--chips=8", "--fleet-device=cpu", tpath],
+                        capsys)
+    got, want = json.loads(tout), json.loads(jout)
+    assert trc == jrc == 0
+    assert [d["code"] for d in got["diagnostics"]] == [d["code"] for d in want["diagnostics"]]
+    assert got["mesh"]["totals"] == want["mesh"]["totals"]
+    assert got["mesh"]["validated"] is True
 
 
 # the tiers this port gained from slice 7b: the port's flags against the
@@ -203,9 +227,18 @@ def test_gate_tiers_run_with_the_reference_diagnostics(tmp_path, capsys, name, t
 
 
 def test_chips_above_one_exit_2_naming_slice_8(tmp_path, capsys):
-    _jpath, tpath = _files(tmp_path, "clean_config2_window_agg")
-    rc, _out, err = _run(port_main, ["--device", "--chips=4", tpath], capsys)
-    assert rc == 2 and "slice 8" in err
+    """``--chips=4`` prices the device plan at four chips, its ICI bytes
+    the reference's; a non-positive count still exits 2."""
+    jpath, tpath = _files(tmp_path, "clean_config2_window_agg")
+    rc, out, err = _run(port_main, ["--device", "--chips=4", tpath], capsys)
+    assert rc == 0, err
+    assert "device plan (4 cards)" in out
+    trc, tout, _ = _run(port_main, ["--json", "--device", "--chips=4", tpath], capsys)
+    jrc, jout, _ = _run(jax_main, ["--json", "--device", "--chips=4", jpath], capsys)
+    assert trc == jrc == 0
+    ici = lambda r: {s["name"]: s["iciBytes"] for s in r["device"]["stages"]}  # noqa: E731
+    assert ici(json.loads(tout)) == ici(json.loads(jout))
+    assert json.loads(tout)["device"]["totals"]["iciBytesPerBatch"] > 0
     rc, _out, err = _run(port_main, ["--device", "--chips=0", tpath], capsys)
     assert rc == 2 and "chip count" in err
 

@@ -86,6 +86,19 @@ def test_calibration_deterministic_within_band():
     assert set(a.metrics()) == set(jcal.calibrate().metrics()) - {"Calib_IciGBps"}
 
 
+def test_ici_probe_needs_two_distinct_cards(monkeypatch):
+    """The ICI probe prices an all-reduce across distinct cards: on the
+    CPU, and with one card visible (virtual shards share it), it gives
+    None and says why, without touching a device."""
+    gbps, how = tcal.ici_probe("cpu")
+    assert gbps is None and "no interconnect" in how
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    gbps, how = tcal.ici_probe("cuda:0")
+    assert gbps is None and "1 card(s) visible" in how
+    # the reference's probe gives None on a one-device host too
+    assert tcal.calibrate("cpu").ici_gbps is None
+
+
 def test_calibration_leaves_the_intra_op_threads_as_they_were():
     torch.set_num_threads(3)
     try:

@@ -10,8 +10,9 @@ registry of engine-emitted metric names, against the JAX package's
 - The standing gate: the port's full tree gives no DX10xx, with its
   inventory pinned.
 - The registry: every row's type, default and bounds equal the
-  reference's; the five rows nothing in the port reads are
-  ``read=False`` (pinned by name), and the boot audit's ``Conf_*``
+  reference's; the three rows nothing in the port reads are
+  ``read=False`` (pinned by name; ``conformance.iciratiohigh`` is read
+  since the mesh tier came), and the boot audit's ``Conf_*``
   gauges stay the JAX host's.
 - ``MetricName.RUNTIME_METRIC_PATTERNS``/``is_runtime_metric`` equal the
   reference's and cover the port's families.
@@ -42,8 +43,7 @@ GENERATION = os.path.join(os.path.dirname(HERE), "data_accelerator_tpu", "serve"
 TWINS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(CONF_DIR, "dx*")))
 # rows the reference reads and the port does not (compile cache, jit
 # cache, the mesh's ICI conformance): read=False in the port
-PORT_UNREAD = {"compile.cachedir", "compile.cacheurl", "compile.jitcachecap",
-               "conformance.iciratiohigh"}
+PORT_UNREAD = {"compile.cachedir", "compile.cacheurl", "compile.jitcachecap"}
 
 
 def _diags(report):
@@ -87,13 +87,14 @@ def test_port_tree_is_conf_clean_with_pinned_inventory():
     assert report.diagnostics == [], [d.render() for d in report.diagnostics]
     cd = report.conf_dict()
     assert cd["analyzedFiles"] == len(paths) == 94
-    assert cd["readSites"] == 99
-    assert cd["readKeys"] == 93
+    # obs/conformance.py reads conformance.iciratiohigh (DX510)
+    assert cd["readSites"] == 100
+    assert cd["readKeys"] == 94
     # the flattener template's keys, the control plane's generation scan
     # (serve/generation.py; its S400 knob tokens too), the REST API's
     # UDF class keys for a flow's kernels (serve/restapi.py) and the
-    # chaos drills' host confs (serve/scenarios.py)
-    assert cd["producedKeys"] == 53
+    # chaos drills' host confs (serve/scenarios.py); S660 adds mesh.model
+    assert cd["producedKeys"] == 54
     assert cd["knobTokens"] == 6
     assert cd["registryKeys"] == len(tspec.CONF_REGISTRY) == 109
 
@@ -129,7 +130,7 @@ def test_registry_rows_equal_the_reference_but_for_the_unread_five():
         else:
             assert t == j
     parity = [e for e in tspec.CONF_REGISTRY if not e.read]
-    assert len(parity) == 9
+    assert len(parity) == 8
     assert {e.key for e in parity} - PORT_UNREAD == {
         e.key for e in jspec.CONF_REGISTRY if not e.read}
 

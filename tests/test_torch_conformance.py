@@ -1,13 +1,14 @@
 """The conformance monitor of the PyTorch port (``obs/conformance.py``, a
-trimmed copy of the JAX package's) against the JAX package's: the monitor
-tests of ``tests/test_conformance.py`` (DX501-503, the missing-prediction
-posture, the model parsed from the conf) run on each package's classes,
+copy of the JAX package's) against the JAX package's: the monitor tests
+of ``tests/test_conformance.py`` (DX501-503, the DX510/511 mesh pair,
+the missing-prediction posture, the model parsed from the conf) run on
+each package's classes,
 and a stream of batches gives both the same gauges and events. Then the
 port's host on confs from the reference's control plane: the generated
 model stays silent, a mis-modeled one fires DX501 once, the generation
 opt-out arms no monitor, an operator latency pin arms DX520, and a live
-HBM peak above the modeled footprint fires DX522. The mesh cases wait for
-the port's mesh (``process.mesh.model`` stays refused)."""
+HBM peak above the modeled footprint fires DX522. A host over virtual
+shards with a generated sharding model is in tests/test_torch_meshcheck.py."""
 
 import json
 import types
@@ -209,10 +210,121 @@ def test_monitors_agree_on_one_stream():
 
 
 def test_mesh_drift_codes_are_not_ported():
-    assert set(tconf.DRIFT_CODES) == set(jconf.DRIFT_CODES) - {"DX510", "DX511"}
+    """The mesh pair is ported: the port's drift codes and model fields
+    are the reference's."""
+    assert set(tconf.DRIFT_CODES) == set(jconf.DRIFT_CODES)
+    assert {"DX510", "DX511"} <= set(tconf.DRIFT_CODES)
     fields = set(tconf.ConformanceModel.__dataclass_fields__)
-    assert fields == set(jconf.ConformanceModel.__dataclass_fields__) - {
-        "ici_wire_bytes_per_batch", "reshard_count"}
+    assert fields == set(jconf.ConformanceModel.__dataclass_fields__)
+    assert tconf.DEFAULT_ICI_RATIO_HIGH == jconf.DEFAULT_ICI_RATIO_HIGH == 8.0
+
+
+# -- DX510/DX511: the mesh ICI drift pair (clean / drifting / missing
+#    model), on each package's classes ------------------------------------------
+def _mesh_model(m, wire=100_000.0, reshards=3.0):
+    return m.ConformanceModel(ici_wire_bytes_per_batch=wire, reshard_count=reshards)
+
+
+def test_clean_mesh_run_stays_silent(m):
+    mon = m.ConformanceMonitor(_mesh_model(m, wire=100_000.0), warmup=2, window=4)
+    all_events = []
+    for i in range(10):
+        gauges, events = mon.observe(
+            {"Mesh_ICI_Bytes": 120_000.0, "Mesh_Reshard_Count": 51.0}, i)
+        all_events += events
+    assert all_events == []
+    assert gauges["Conformance_MeshIci_Ratio"] == pytest.approx(1.2)
+    assert "Conformance_Drift_Count" not in gauges
+
+
+def test_ici_drift_fires_dx510_once_and_rearms(m):
+    mon = m.ConformanceMonitor(_mesh_model(m, wire=1_000.0), warmup=2, window=2,
+                               ici_ratio_high=8.0)
+    fired = []
+    for i in range(6):
+        _, events = mon.observe({"Mesh_ICI_Bytes": 50_000.0}, i)
+        fired += events
+    assert [e.code for e in fired] == ["DX510"]
+    ev = fired[0]
+    assert ev.metric == "Mesh_ICI_Bytes"
+    assert ev.ratio == pytest.approx(50.0)
+    assert ev.to_props()["name"] == "ici-bytes-drift"
+    assert "DX510" in m.DRIFT_CODES
+    for i in range(6):
+        _, events = mon.observe({"Mesh_ICI_Bytes": 900.0}, 10 + i)
+        assert not events
+    _, evs = _run(mon, {"Mesh_ICI_Bytes": 90_000.0}, 6)
+    assert [e.code for e in evs] == ["DX510"]
+    assert mon.drift_count == 2
+
+
+def test_missing_mesh_model_disables_dx510_silently(m):
+    mon = m.ConformanceMonitor(_model(m, d2h=1000.0), warmup=1, window=4)
+    gauges, events = _run(
+        mon, {"Transfer_D2HBytes": 950.0, "Mesh_ICI_Bytes": 1e12}, 8)
+    assert events == []
+    assert "Conformance_MeshIci_Ratio" not in gauges
+
+
+def test_collective_count_drift_fires_dx511(m):
+    mon = m.ConformanceMonitor(_mesh_model(m), warmup=2, window=4)
+    for i in range(5):
+        _, events = mon.observe({"Mesh_Reshard_Count": 51.0}, i)
+        assert not events
+    _, events = mon.observe({"Mesh_Reshard_Count": 80.0}, 6)
+    assert [e.code for e in events] == ["DX511"]
+    ev = events[0]
+    assert ev.to_props()["name"] == "mesh-collective-count-drift"
+    assert ev.observed == 80.0 and ev.predicted == 51.0
+    mon.observe({"Mesh_Reshard_Count": 51.0}, 7)
+    _, events = mon.observe({"Mesh_Reshard_Count": 80.0}, 8)
+    assert [e.code for e in events] == ["DX511"]
+
+
+def test_mesh_model_parses_from_conf_beside_conformance_model(m):
+    mesh_json = json.dumps({
+        "totals": {"iciWireBytesPerBatch": 129024.0, "reshardCount": 3, "chips": 8},
+        "stages": [],
+    })
+    d = m.SettingDictionary({"datax.job.process.mesh.model": mesh_json})
+    model = m.ConformanceModel.from_conf(d)
+    assert model is not None
+    assert model.ici_wire_bytes_per_batch == 129024.0
+    assert model.reshard_count == 3
+    assert model.d2h_bytes_per_batch is None
+    assert m.ConformanceMonitor.from_conf(d) is not None
+    both = m.SettingDictionary({
+        "datax.job.process.mesh.model": mesh_json,
+        "datax.job.process.conformance.model": json.dumps(
+            {"totals": {"d2hBytesPerBatch": 4096}}),
+    })
+    model = m.ConformanceModel.from_conf(both)
+    assert model.d2h_bytes_per_batch == 4096
+    assert model.ici_wire_bytes_per_batch == 129024.0
+
+
+def test_mesh_stream_gives_both_packages_the_same_gauges_and_events():
+    """A census that drifts past the band and a reshard count that
+    changes: both packages' monitors, fed the same batches, agree."""
+    mesh_json = json.dumps({"totals": {"iciWireBytesPerBatch": 1000.0,
+                                       "reshardCount": 4, "chips": 4}})
+    mons = {
+        pkg: mod.ConformanceMonitor.from_conf(mod.SettingDictionary({
+            "datax.job.process.mesh.model": mesh_json,
+            "datax.job.process.conformance.warmup": "2",
+            "datax.job.process.conformance.window": "3",
+        }), flow="F")
+        for pkg, mod in PACKAGES.items()
+    }
+    for b in range(12):
+        metrics = {"Mesh_ICI_Bytes": 1000.0 * (1 + 15 * (b in (5, 6, 7))),
+                   "Mesh_Reshard_Count": 4.0 + (b == 9)}
+        out = {pkg: mon.observe(dict(metrics), b) for pkg, mon in mons.items()}
+        (jg, jev), (tg, tev) = out["jax"], out["torch"]
+        assert tg == jg, b
+        assert [(e.code, e.metric, e.ratio) for e in tev] == [
+            (e.code, e.metric, e.ratio) for e in jev], b
+    assert mons["torch"].drift_count == mons["jax"].drift_count >= 2
 
 
 # -- the port's host on confs from the control plane ---------------------------

@@ -3,7 +3,7 @@ model's byte and FLOP forms (``analysis/costmodel.py``), against the
 JAX package's ``tests/test_deviceplan.py``.
 
 - The closed forms against hand-computed shapes (the reference's
-  cases, less the ICI ones: the port prices one card).
+  cases).
 - The drift gate: for every baseline transform, and for the main flow's
   processor (chip_smoke's alerting flow plus the anomaly query) at
   capacity 64, the port's per-stage model bytes, its meta evaluation
@@ -12,7 +12,8 @@ JAX package's ``tests/test_deviceplan.py``.
   chip.
 - The meta evaluation allocates nothing: every tensor an op makes
   during it lies on ``meta``.
-- ``chips`` above 1 is refused, naming slice 8.
+- ``chips`` above 1 prices every stage's ICI bytes as the JAX package
+  does; a processor over a mesh is priced at its mesh's size.
 - The slots a processor holds: none with its output slots off.
 - Sampled cardinality feeds the DX200/DX202 lints, as in the reference.
 - An armed processor (``process.debug.*``) analyzes like an unarmed one.
@@ -44,7 +45,7 @@ from data_accelerator_tpu_torch.analysis.deviceplan import (
     materialized_stage_bytes,
 )
 from data_accelerator_tpu_torch.compile.planner import JoinSite, StagePlan
-from data_accelerator_tpu_torch.core.config import EngineException, SettingDictionary
+from data_accelerator_tpu_torch.core.config import SettingDictionary
 from data_accelerator_tpu_torch.ops.join import RESIDUAL_BLOCK_PAIRS
 from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
 
@@ -367,14 +368,29 @@ def test_flow_analysis_produces_no_arrays():
 
 @pytest.mark.parametrize("chips", [2, 4])
 def test_chips_above_one_are_refused(tmp_path, chips):
+    """Nothing is refused: at ``chips`` every stage's ICI bytes equal the
+    JAX package's, by the processor and by the flow path; one chip
+    prices none, and a processor over a mesh is priced at its size."""
+    from data_accelerator_tpu_torch.dist import make_mesh
+
     transform, extra = BASELINE_TRANSFORMS["window_agg"]
-    proc = FlowProcessor(SettingDictionary(_conf(tmp_path, transform, extra)),
-                         device="cpu")
-    with pytest.raises(EngineException, match="slice 8"):
-        analyze_processor(proc, chips=chips)
-    with pytest.raises(EngineException, match="slice 8"):
-        analyze_flow_device(_sampled_gui(None), chips=chips)
+    conf = _conf(tmp_path, transform, extra)
+    proc = FlowProcessor(SettingDictionary(conf), device="cpu")
+    jproc = JFlowProcessor(JSettingDictionary(conf))
+    ici = lambda r: {s.name: s.ici_bytes for s in r.stages}  # noqa: E731
+    got = analyze_processor(proc, chips=chips)
+    want = jax_deviceplan.analyze_processor(jproc, chips=chips)
+    assert got.chips == chips and ici(got) == ici(want)
+    assert got.totals()["iciBytesPerBatch"] > 0
+    gui = _sampled_gui(None)
+    got = analyze_flow_device(gui, chips=chips)
+    assert ici(got) == ici(jax_deviceplan.analyze_flow_device(gui, chips=chips))
+    assert got.totals()["iciBytesPerBatch"] > 0
     assert analyze_processor(proc, chips=1).chips == 1
+    assert analyze_processor(proc, chips=1).totals()["iciBytesPerBatch"] == 0
+    mesh = make_mesh(chips, devices=("cpu",) * chips)
+    mproc = FlowProcessor(SettingDictionary(conf), mesh=mesh)
+    assert analyze_processor(mproc).chips == chips
 
 
 def _sampled_events():

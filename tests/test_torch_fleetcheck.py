@@ -131,14 +131,23 @@ def test_the_default_spec_is_the_machines_not_a_tpus():
             tfleet.FleetSpec()
 
 
-def test_multi_card_flow_waits_for_the_mesh():
-    doc = _load("dx401_flow_exceeds_chip")
-    flow = json.loads(json.dumps(doc["flows"][0]))
-    flow.setdefault("process", {}).setdefault("jobconfig", {})["jobNumChips"] = "2"
+@pytest.mark.parametrize("chips", [2, 8])
+def test_multi_card_flow_waits_for_the_mesh(chips):
+    """A flow that declares more than one card is placed at its chip
+    count, as in the JAX package: its footprint is the port's plan at
+    ``chips`` (no DX291), and its ICI bytes equal the reference's."""
+    from data_accelerator_tpu_torch.analysis import analyze_flow_device
+
+    with open(os.path.join(FLOWS_DIR, "clean_config2_window_agg.json")) as f:
+        flow = json.load(f)
+    flow.setdefault("process", {}).setdefault("jobconfig", {})["jobNumChips"] = str(chips)
     fp = tfleet.flow_footprint(flow)
-    assert fp.hbm_bytes is None and fp.chips_required == 2
-    assert [d.code for d in fp.diagnostics] == ["DX291"]
-    assert "slice 8" in fp.diagnostics[0].message
+    jfp = jfleet.flow_footprint(flow)
+    assert fp.chips_required == jfp.chips_required == chips
+    assert fp.diagnostics == [] and jfp.diagnostics == []
+    totals = analyze_flow_device(flow, chips=chips).totals()
+    assert fp.hbm_bytes == totals["hbmBytes"]
+    assert fp.ici_bytes_per_batch == jfp.ici_bytes_per_batch > 0
 
 
 def test_cli_fleet_with_a_spec_file(tmp_path, capsys):

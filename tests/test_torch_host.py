@@ -76,7 +76,8 @@ TIMING_METRICS = (
     "Transfer_Overflow_Count",
 )
 # the JAX package measures a link between the tests' 8 virtual CPU
-# devices; the port has no ICI probe until multi-GPU (slice 8)
+# devices; the port's probe needs two distinct cards and is None on the
+# CPU (obs/calibrate.py)
 ICI_GAUGE = "Calib_IciGBps"
 # names that appear only when the landing thread's timing allows
 OPTIONAL_METRICS = ("Decode_BufferReuse_Count", "Transfer_SlotContended_Count",
@@ -476,9 +477,30 @@ def test_snapshots_stay_consistent_under_concurrent_dispatch():
     ("datax.job.process.mesh.model", '{"totals": {}}', "dist/"),
 ])
 def test_unported_host_features_are_refused(key, value, feature):
-    conf = _host_conf("HostRefuse", "torch", {key: value})
-    with pytest.raises(EngineException, match=feature.replace(".", r"\.")):
-        thost_mod.StreamingHost(SettingDictionary(conf), device="cpu")
+    """Nothing is refused any more: a conf with a sharding model builds
+    a host in both packages, and their conformance monitors read the
+    model alike (an empty one arms nothing; its totals arm DX510/511).
+    The census it is held against comes from ``dist/mesh.py``."""
+    assert feature + "mesh.py" in thost_mod.__doc__
+    full = json.dumps({"totals": {"iciWireBytesPerBatch": 1000.0,
+                                  "reshardCount": 2, "chips": 4}})
+    for text, armed in ((value, False), (full, True)):
+        monitors = []
+        for pkg, mod, SD, kw in (("jax", jhost_mod, JSettingDictionary, {}),
+                                 ("torch", thost_mod, SettingDictionary,
+                                  {"device": "cpu"})):
+            conf = _host_conf("HostMeshModel", pkg, {key: text})
+            host = mod.StreamingHost(SD(conf), **kw)
+            try:
+                monitors.append(host.conformance)
+            finally:
+                host.stop()
+        jmon, tmon = monitors
+        assert (tmon is not None) == (jmon is not None) == armed
+        if armed:
+            assert tmon.model.ici_wire_bytes_per_batch == 1000.0
+            assert tmon.model.reshard_count == 2
+            assert tmon.ici_ratio_high == jmon.ici_ratio_high == 8.0
 
 
 def _profile_request(base, method, seconds=None):

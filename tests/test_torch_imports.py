@@ -233,16 +233,51 @@ def test_slice_9b_8a_modules_load_without_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
-def test_only_meshcheck_lacks_a_counterpart():
-    """Of the JAX package's modules, only the DX7xx mesh analyzer
-    (``analysis/meshcheck.py``, slice 8b) has no counterpart in the
-    port."""
+def test_every_module_has_a_counterpart():
+    """Every module of the JAX package has a counterpart in the port at
+    the same relative path (the DX7xx mesh analyzer,
+    ``analysis/meshcheck.py``, was the last)."""
     ref = ROOT / "data_accelerator_tpu"
     missing = sorted(
         str(p.relative_to(ref)) for p in ref.rglob("*.py")
         if not (PORT_DIR / p.relative_to(ref)).exists()
     )
-    assert missing == ["analysis/meshcheck.py"]
+    assert missing == []
+
+
+# a refusal naming the multi-GPU slice, or a claim that something is not
+# ported: the port now has every module of the JAX package
+SLICE_8_REFUSAL = re.compile(r"multi-GPU slice 8|not ported")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_slice_8_refusal_is_left(path):
+    text = " ".join(path.read_text(encoding="utf-8").split())
+    assert not SLICE_8_REFUSAL.findall(text)
+
+
+def test_slice_8b_modules_load_without_jax():
+    """The mesh analyzer and its consumers import in a fresh interpreter
+    and leave neither JAX nor the JAX package loaded."""
+    import subprocess
+    import sys
+
+    mods = ("data_accelerator_tpu_torch.analysis.meshcheck",
+            "data_accelerator_tpu_torch.analysis.__main__",
+            "data_accelerator_tpu_torch.obs.conformance",
+            "data_accelerator_tpu_torch.obs.calibrate",
+            "data_accelerator_tpu_torch.serve.generation")
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 # -- strings that name modules ----------------------------------------------------

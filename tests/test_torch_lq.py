@@ -815,17 +815,12 @@ def test_one_execute_on_the_card_equals_the_cpu(card):
         out[dev] = lq.execute(sid, QUERY)
         entry = next(iter(lq.cache._entries.values()))
         if dev == "cuda":
-            # the card holds each tensor in 512-byte allocator blocks; at
-            # this 64-row bucket every tensor is under one block, so the
-            # model (unrounded bytes) falls below the band and the
-            # measurement prices the entry
+            # the card holds each tensor in 512-byte allocator blocks,
+            # and the card plan rounds each resident stage to whole
+            # blocks too, so the model equals the measurement there
             assert entry.measured_bytes % 512 == 0
-            assert entry.model_bytes < torch_warmcache.MODEL_BAND[0] * entry.measured_bytes
-            assert entry.sized_by == "measured"
-            assert entry.hbm_bytes == entry.measured_bytes
-        else:
-            assert entry.sized_by == "model" and entry.hbm_bytes > 0
-            assert entry.hbm_bytes == entry.model_bytes == entry.measured_bytes
+        assert entry.sized_by == "model" and entry.hbm_bytes > 0
+        assert entry.hbm_bytes == entry.model_bytes == entry.measured_bytes
         del entry
         lq.stop()
     same_result(out["cuda"], out["cpu"], rtol=1e-4)

@@ -14,9 +14,9 @@ key (the storage roots aside) with these exceptions, each asserted:
 (c) the generator writes no module path of its own: a UDF's class path
     is the document's, so a document naming the port's UDF yields the
     port's path where the JAX document names the JAX one;
-(d) a multi-card job (``jobNumChips`` > 1) raises ``EngineException``
-    naming multi-GPU slice 8 before any stage runs, where the JAX
-    package generates it with its mesh model.
+(d) a multi-card job (``jobNumChips`` > 1) embeds the sharding model
+    (S660, ``process.mesh.model``): the port's ``analyze_flow_mesh``
+    runtime model, equal to the JAX package's.
 
 Job names stay the reference's (``DataXTpu-<flow>``). Strings and ints
 compare exactly; the plans' numbers too (they are integer byte counts
@@ -33,7 +33,6 @@ from data_accelerator_tpu.serve import flowbuilder as jfb
 from data_accelerator_tpu.serve import generation as jgen
 from data_accelerator_tpu.serve import storage as jst
 from data_accelerator_tpu_torch.analysis import analyze_flow_device
-from data_accelerator_tpu_torch.core.config import EngineException
 from data_accelerator_tpu_torch.serve import flowbuilder as tfb
 from data_accelerator_tpu_torch.serve import generation as tgen
 from data_accelerator_tpu_torch.serve import storage as tst
@@ -105,7 +104,8 @@ def _generate(pkg, root, gui):
     design = st.LocalDesignTimeStorage(os.path.join(root, "design"))
     runtime = st.LocalRuntimeStorage(os.path.join(root, "runtime"))
     design.save(fb.FlowConfigBuilder().build(_for(pkg, gui)))
-    res = gen.RuntimeConfigGeneration(design, runtime).generate(gui["name"])
+    dev = {"device": "cpu"} if pkg == "torch" else {}
+    res = gen.RuntimeConfigGeneration(design, runtime, **dev).generate(gui["name"])
     assert res.ok, res.errors
     assert len(res.conf_paths) == 1
     with open(res.conf_paths[0], encoding="utf-8") as f:
@@ -201,23 +201,32 @@ def test_config1_plan_at_full_capacity_equals_the_references():
 
 @pytest.mark.parametrize("chips", ["2", "8"])
 def test_multi_card_job_raises_naming_slice_8(tmp_path, chips):
-    """(d)"""
+    """(d) A multi-card job generates in both packages, key by key, its
+    sharding model and conformance model equal to the reference's."""
     gui = make_gui("MultiCard")
     gui["process"]["jobconfig"]["jobNumChips"] = chips
-    jres, jconf, _f, _d = _generate("jax", str(tmp_path / "jax"), gui)
-    assert jconf[PROC + "numchips"] == chips
-    with pytest.raises(EngineException, match="slice 8"):
-        _generate("torch", str(tmp_path / "torch"), gui)
-    # before any stage: nothing was written, no job was recorded
-    runtime = tst.LocalRuntimeStorage(str(tmp_path / "torch" / "runtime"))
-    assert runtime.list_files("MultiCard") == [] and runtime.list_files("jobs") == []
+    _jres, jconf, _jf, _jd = _generate("jax", str(tmp_path / "jax"), gui)
+    _tres, tconf, _tf, _td = _generate("torch", str(tmp_path / "torch"), gui)
+    assert jconf[PROC + "numchips"] == tconf[PROC + "numchips"] == chips
+    assert sorted(tconf) == sorted(jconf)
+    for key in sorted(jconf):
+        if key in (PROC + "mesh.model", PROC + "conformance.model"):
+            assert json.loads(tconf[key]) == json.loads(jconf[key]), key
+        else:
+            assert tconf[key] == jconf[key], key
+    model = json.loads(tconf[PROC + "mesh.model"])
+    assert model["totals"]["chips"] == int(chips)
+    assert model["totals"]["reshardCount"] >= 1
 
 
 def test_legacy_executor_field_is_refused_too(tmp_path):
+    """The legacy ``jobNumExecutors`` counts cards as ``jobNumChips``
+    does: the job carries a 4-chip sharding model, the reference's."""
     gui = make_gui("Legacy")
     gui["process"]["jobconfig"] = {"jobNumExecutors": "4", "jobBatchCapacity": "512"}
-    with pytest.raises(EngineException, match="4 cards"):
-        _generate("torch", str(tmp_path), gui)
+    models = [json.loads(_generate(pkg, str(tmp_path / pkg), gui)[1][PROC + "mesh.model"])
+              for pkg in ("jax", "torch")]
+    assert models[0] == models[1] and models[1]["totals"]["chips"] == 4
 
 
 @pytest.mark.parametrize("pkg", sorted(PACKAGES))

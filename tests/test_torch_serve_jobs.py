@@ -36,7 +36,6 @@ from data_accelerator_tpu.serve import flowservice as jflowservice
 from data_accelerator_tpu.serve import jobs as jjobs
 from data_accelerator_tpu.serve import storage as jstorage
 from data_accelerator_tpu_torch.analysis import FleetSpec
-from data_accelerator_tpu_torch.core.config import EngineException
 from data_accelerator_tpu_torch.runtime import host as thost_mod
 from data_accelerator_tpu_torch.serve import flowservice as tflowservice
 from data_accelerator_tpu_torch.serve import jobs as tjobs
@@ -239,11 +238,55 @@ def test_k8s_manifest_asks_for_a_gpu_and_names_no_tpu(tmp_path):
         assert "data_accelerator_tpu." not in f.read()
 
 
-def test_k8s_topology_is_refused_until_multi_gpu():
-    with pytest.raises(EngineException, match="slice 8"):
-        tjobs.K8sJobClient("https://k8s.example:6443", topology="4x4")
-    with pytest.raises(EngineException, match="slice 8"):
-        tjobs.make_job_client({"type": "k8s", "topology": "2x2"})
+def test_k8s_topology_is_refused_until_multi_gpu(tmp_path):
+    """A multi-card job asks for the GPUs its record names (``numChips``,
+    which generation writes beside the conf's ``process.numchips``), and
+    a topology selects GPU Feature Discovery's card-count label of the
+    GPU pool, never a TPU topology label."""
+    for client in (
+        tjobs.K8sJobClient("https://k8s.example:6443", topology="8",
+                           http=lambda *a: (200, {})),
+        tjobs.make_job_client({"type": "k8s", "topology": "8"}),
+    ):
+        m = client.render_manifest({"name": "DataXTpu-Mesh", "flowName": "Mesh",
+                                    "confPath": "/c/DataXTpu-Mesh.conf", "numChips": 4})
+        pod = m["spec"]["template"]["spec"]
+        assert pod["containers"][0]["resources"]["limits"] == {"nvidia.com/gpu": "4"}
+        assert pod["nodeSelector"] == {
+            "cloud.google.com/gke-accelerator": "nvidia-h100-80gb",
+            tjobs.GPU_TOPOLOGY_LABEL: "8",
+        }
+        assert "gke-tpu" not in json.dumps(m)
+        # a record without a chip count runs on one card
+        one = client.render_manifest({"name": "j", "confPath": None})
+        assert one["spec"]["template"]["spec"]["containers"][0][
+            "resources"]["limits"] == {"nvidia.com/gpu": "1"}
+
+    # end to end: a 4-card flow's generated job record reaches the Job
+    posted = []
+
+    def http(method, url, body):
+        if method == "POST":
+            posted.append(body)
+            return 201, {}
+        return (200, {"status": {"active": 1}}) if posted else (404, {})
+
+    client = tjobs.K8sJobClient("https://k8s.example:6443", http=http)
+    ops = make_ops("torch", str(tmp_path / "ops"), client=client, fleet_admission=False)
+    gui = make_gui("MeshJob")
+    gui.setdefault("process", {}).setdefault("jobconfig", {})["jobNumChips"] = "4"
+    ops.save_flow(gui)
+    res = ops.generate_configs("MeshJob")
+    assert res.ok, res.errors
+    assert "datax.job.process.numchips=4" in open(res.conf_paths[0]).read()
+    [job] = ops.start_jobs("MeshJob")
+    assert job["numChips"] == 4
+    [manifest] = posted
+    assert manifest["spec"]["template"]["spec"]["containers"][0]["resources"][
+        "limits"] == {"nvidia.com/gpu": "4"}
+    assert not hasattr(tjobs, "conf_chips")
+    assert tjobs.GPU_TOPOLOGY_LABEL == "nvidia.com/gpu.count"
+    assert "gke-tpu-topology" not in tjobs.__doc__
     assert isinstance(tjobs.make_job_client({}, device="cpu"), tjobs.LocalJobClient)
     assert tjobs.make_job_client({}, device="cpu").device == "cpu"
 

@@ -81,6 +81,20 @@ def test_route_tables_are_equal(apis):
         {k: v[1] for k, v in apis["jax"].routes.items()}
 
 
+def _pop_num_chips(payload, found: list):
+    """Take the port's ``numChips`` out of every job record in
+    ``payload`` (the reference's records have no such field; the port's
+    k8s Job reads it), collecting the values."""
+    if isinstance(payload, dict):
+        if "numChips" in payload and "confPath" in payload:
+            found.append(payload.pop("numChips"))
+        for v in payload.values():
+            _pop_num_chips(v, found)
+    elif isinstance(payload, list):
+        for v in payload:
+            _pop_num_chips(v, found)
+
+
 def test_flow_crud_and_jobs_equal_the_reference(apis, tmp_path):
     calls = [
         ("GET", "api/nope", None, None),
@@ -107,6 +121,11 @@ def test_flow_crud_and_jobs_equal_the_reference(apis, tmp_path):
             assert payload["result"]["jobNames"] == got["jax"][1]["result"]["jobNames"]
             assert payload["result"]["gui"] == got["jax"][1]["result"]["gui"]
             continue
+        chips: list = []
+        _pop_num_chips(payload, chips)
+        if path in ("api/flow/startjobs", "api/job/get", "api/job/getbynames"):
+            assert chips == [1], (method, path)  # a one-card flow's record
+        assert set(chips) <= {1}, (method, path)
         assert got["torch"] == got["jax"], (method, path)
 
 
@@ -231,21 +250,35 @@ def test_a_flow_naming_the_jax_udf_is_refused_by_the_port(apis, pinned_time):
 
 
 def test_validate_runs_the_ported_tiers_and_refuses_the_mesh(apis):
-    api = apis["torch"]
+    """Nothing is refused: ``all`` includes the mesh tier, ``mesh`` with
+    ``chips`` gives the reference's codes and totals, the device tier
+    prices ``chips`` > 1, and a multi-card flow generates its conf with
+    the sharding model."""
+    api, japi = apis["torch"], apis["jax"]
     gui = make_gui("Val")
     status, out = api.dispatch("POST", "api/flow/validate", body={"flow": gui, "all": True})
     assert status == 200 and out["result"]["ok"], out
-    assert {"device", "udfs", "fleet", "compile", "race", "protocol", "conf"} <= set(out["result"])
-    assert "mesh" not in out["result"]
-    status, out = api.dispatch("POST", "api/flow/validate", body={"flow": gui, "mesh": True})
-    assert status == 500 and "slice 8" in out["error"]["message"]
+    assert {"device", "udfs", "fleet", "compile", "mesh", "race", "protocol",
+            "conf"} <= set(out["result"])
+    assert out["result"]["mesh"]["validated"]
+    body = {"flow": gui, "mesh": True, "chips": 4}
+    (status, out), (jstatus, jout) = (a.dispatch("POST", "api/flow/validate", body=body)
+                                      for a in (api, japi))
+    assert status == jstatus == 200
+    assert ([d["code"] for d in out["result"]["diagnostics"]]
+            == [d["code"] for d in jout["result"]["diagnostics"]])
+    assert out["result"]["mesh"]["totals"] == jout["result"]["mesh"]["totals"]
     status, out = api.dispatch("POST", "api/flow/validate",
                                body={"flow": gui, "device": True, "chips": 2})
-    assert status == 500 and "slice 8" in out["error"]["message"]
+    assert status == 200 and out["result"]["device"]["chips"] == 2
     gui["process"]["jobconfig"]["jobNumChips"] = "2"
     api.dispatch("POST", "api/flow/save", body=gui)
     status, out = api.dispatch("POST", "api/flow/generateconfigs", body={"flowName": "Val"})
-    assert status == 500 and "slice 8" in out["error"]["message"]
+    assert status == 200, out
+    with open(out["result"]["confPaths"][0], encoding="utf-8") as f:
+        conf = f.read()
+    assert "datax.job.process.mesh.model=" in conf
+    assert "datax.job.process.numchips=2" in conf
 
 
 def test_the_default_services_are_on_the_card(tmp_path):
