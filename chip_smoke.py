@@ -16,6 +16,18 @@ Phases, each printing JSON lines:
    blocks), then timed with CUDA events at the main
    path's shape and, for device time alone, at ``N_LARGE`` rows, beyond
    the L2 cache; host_split: the host's time for the parts of one call;
+   compile_cache: the kernel build cache behind ``process.compile.cachedir``
+   and ``cacheurl``. The main flow (config 1 plus the anomaly query) and
+   the ``pdouble`` flow, each with a compile manifest, started three
+   times, each start a process of its own (``--cache-start``) with the
+   package's prebuilt directory pointed at an empty one: A cold on an
+   empty directory with a URL on an in-process object store, B restarted
+   on the same conf, C a replica on another empty directory. A misses
+   (and ``nvcc`` builds) each library its steps load and pushes them; B
+   and C run no compiler and miss nothing, B hits at least what A missed,
+   C pulls at least what A pushed, and both warm faster than A; every
+   start's counts and rows, 2 batches of ``CAPACITY`` rows a flow, equal
+   the port's CPU run;
 4. ingest: the main path from JSON bytes (``bench.py::make_json_payload``'s
    distribution, from the seed): the single-source alerting flow plus
    the anomaly-score query (BASELINE configs 1 and 4) through the port's
@@ -1245,6 +1257,276 @@ def phase_udf_flow(seed: int, anomaly_udf) -> int:
     emit(flow_line("udf_flow", seed, init_s, run, rows_out,
                    {"dx305_double": launches}))
     return launches
+
+
+# the compile-cache phase: three starts, each a process of its own, of
+# the main flow and the user-UDF flow with a compile manifest
+CACHE_BATCHES = 2
+CACHE_FLOWS = ("main", "pdouble")
+CACHE_OUTPUTS = {"main": OUTPUTS, "pdouble": ["S"]}
+CACHE_PREFIX = "flows/ChipSmoke/compilecache"
+CACHE_START_TIMEOUT_S = 300
+
+
+def cache_flow_conf(name: str) -> dict:
+    return flow_conf() if name == "main" else udf_flow_conf()
+
+
+def cache_udfs(name: str):
+    """The main flow's ``anomalyscore`` (passed in, as ``phase_flow``
+    does); the user-UDF flow names its UDF in the conf."""
+    from data_accelerator_tpu_torch.udf.samples import anomalyscore
+
+    return {"anomalyscore": anomalyscore()} if name == "main" else None
+
+
+def rows_to_columns(rows) -> dict:
+    """A dataset's rows as one numpy array a column, in row order."""
+    if not rows:
+        return {}
+    return {k: np.asarray([r[k] for r in rows]) for k in rows[0]}
+
+
+def same_columns(got: dict, want: dict, what: str, rtol=1e-4) -> None:
+    """Ints, booleans and strings exact, floats finite and within
+    ``rtol`` of ``want``'s."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: columns {sorted(got)} vs {sorted(want)}")
+    for k, g in got.items():
+        w = want[k]
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}.{k}: {g.shape} rows vs {w.shape}")
+        if np.issubdtype(w.dtype, np.floating):
+            bad = ~(np.isfinite(g) & (np.abs(g - w) <= rtol * np.abs(w)))
+            if bad.any():
+                i = int(np.argmax(bad))
+                raise AssertionError(f"{what}.{k}[{i}]: {g[i]} vs {w[i]}")
+        elif not np.array_equal(g, w):
+            raise AssertionError(f"{what}.{k}: values differ")
+
+
+def cache_batches(seed: int, type_ids):
+    rs = np.random.RandomState(seed)
+    return [make_columns(rs, type_ids, CAPACITY) for _ in range(CACHE_BATCHES)]
+
+
+def cache_start(spec_path: str) -> int:
+    """One start of the compile-cache phase, in a process of its own
+    (a loaded library is process-wide): both flows' card processors with
+    the spec's manifest, ``compile.cachedir`` and ``compile.cacheurl``,
+    then ``CACHE_BATCHES`` batches each. Writes its numbers to the spec's
+    ``out`` (JSON) and every count vector and dataset to its ``rows``
+    (npz). The package's own build directory, where an image prebuilds
+    the kernels, is pointed at an empty one first, so that a cold cache
+    means a cold start whatever this checkout has built."""
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.kernels import build, launch
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    spec = json.loads(Path(spec_path).read_text())
+    build.BUILD_DIR = Path(spec["prebuilt"])
+    out = {"flows": {}, "launches": {}}
+    arrays = {}
+    procs, udfs = {}, {name: cache_udfs(name) for name in CACHE_FLOWS}
+    with build.loads_recorded() as loads:
+        for name in CACHE_FLOWS:
+            conf = dict(cache_flow_conf(name), **{
+                "datax.job.process.compile.manifest": spec["manifests"][name],
+                "datax.job.process.compile.cachedir": spec["dir"],
+            })
+            if spec.get("url"):
+                conf["datax.job.process.compile.cacheurl"] = spec["url"]
+            t0 = time.perf_counter()
+            procs[name] = proc = FlowProcessor(
+                SettingDictionary(conf), batch_capacity=CAPACITY,
+                output_datasets=CACHE_OUTPUTS[name], udfs=udfs[name], device="cuda",
+            )
+            torch.cuda.synchronize()
+            out["flows"][name] = {"init_s": time.perf_counter() - t0,
+                                  "warmed": proc._aot_warmed,
+                                  "pulled": proc._compile_cache.pulled}
+        # the path's runs: every count at 0 just before, read just after
+        launch.reset_launches()
+        main_udf = udfs["main"]["anomalyscore"]
+        main_udf.kernel.launches = 0
+        for name, proc in procs.items():
+            type_ids = np.array([proc.dictionary.encode(t) for t in DEVICE_TYPES], np.int32)
+            metrics0, batch_ms = None, []
+            for b, cols in enumerate(cache_batches(spec["seed"], type_ids)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                handle = proc.dispatch_batch(proc.encode_columns(cols, CAPACITY),
+                                             BASE_MS + 1000 * b)
+                counts = handle.collect_counts().counts
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+                datasets, metrics = handle.collect()
+                metrics0 = metrics0 or metrics
+                arrays[f"{name}/{b}/counts"] = np.asarray(counts)
+                for o in CACHE_OUTPUTS[name]:
+                    for col, values in rows_to_columns(datasets[o]).items():
+                        arrays[f"{name}/{b}/{o}/{col}"] = values
+            out["flows"][name].update({
+                "type_ids": type_ids.tolist(), "batch_ms": batch_ms,
+                **{k: metrics0[k] for k in ("Compile_Cache_Hit_Count",
+                                            "Compile_Cache_Miss_Count",
+                                            "Compile_ColdStart_Ms") if k in metrics0},
+                "compile_warm_miss_count": metrics0.get("Compile_WarmMiss_Count", 0.0),
+            })
+        out["launches"] = {"anomaly_score": main_udf.launches,
+                           "dx305_double": launch.launches("dx305_double")}
+    out["loaded"] = sorted(Path(k).name for k in loads)
+    out["compiler_runs"] = build.compiler_runs()
+    out["libraries"] = sorted(f.name for f in Path(spec["dir"]).glob("*.so"))
+    np.savez(spec["rows"], **arrays)
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def run_cache_start(spec: dict, tmp: Path, label: str) -> tuple:
+    """``cache_start`` in a child process; its numbers and its arrays."""
+    spec = dict(spec, out=str(tmp / f"{label}.json"), rows=str(tmp / f"{label}.npz"))
+    path = tmp / f"{label}.spec.json"
+    path.write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--cache-start", str(path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=CACHE_START_TIMEOUT_S,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"compile_cache start {label}: exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    out = json.loads(Path(spec["out"]).read_text())
+    out["process_s"] = time.perf_counter() - t0
+    with np.load(spec["rows"]) as z:
+        arrays = {k: z[k] for k in z.files}
+    return out, arrays
+
+
+def cache_cpu_reference(seed: int, tmp: Path) -> tuple:
+    """Both flows on the CPU over the same batches (the reference the
+    starts are held to), and the manifest each flow's compile tier gives
+    for its processor (written under ``tmp``)."""
+    from data_accelerator_tpu_torch.analysis.compilecheck import analyze_processor_compile
+    from data_accelerator_tpu_torch.core.config import SettingDictionary
+    from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+
+    manifests, arrays, type_ids = {}, {}, {}
+    for name in CACHE_FLOWS:
+        cpu = FlowProcessor(SettingDictionary(cache_flow_conf(name)), batch_capacity=CAPACITY,
+                            output_datasets=CACHE_OUTPUTS[name],
+                            udfs=cache_udfs(name), device="cpu")
+        path = tmp / f"{name}.manifest.json"
+        path.write_text(json.dumps(analyze_processor_compile(cpu, digests=False).manifest))
+        manifests[name] = str(path)
+        ids = np.array([cpu.dictionary.encode(t) for t in DEVICE_TYPES], np.int32)
+        type_ids[name] = ids.tolist()
+        for b, cols in enumerate(cache_batches(seed, ids)):
+            handle = cpu.dispatch_batch(cpu.encode_columns(cols, CAPACITY), BASE_MS + 1000 * b)
+            arrays[f"{name}/{b}/counts"] = np.asarray(handle.collect_counts().counts)
+            datasets, _metrics = handle.collect()
+            for o in CACHE_OUTPUTS[name]:
+                for col, values in rows_to_columns(datasets[o]).items():
+                    arrays[f"{name}/{b}/{o}/{col}"] = values
+        del cpu
+    return manifests, arrays, type_ids
+
+
+def same_arrays(got: dict, want: dict, what: str) -> None:
+    """Counts exact; each dataset's columns by ``same_columns``."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: {sorted(set(got) ^ set(want))} differ")
+    datasets = {}
+    for key, values in got.items():
+        if key.endswith("/counts"):
+            if not np.array_equal(values, want[key]):
+                raise AssertionError(f"{what} {key}: {values} vs {want[key]}")
+            continue
+        table, col = key.rsplit("/", 1)
+        datasets.setdefault(table, {})[col] = (values, want[key])
+    for table, cols in datasets.items():
+        same_columns({c: g for c, (g, _w) in cols.items()},
+                     {c: w for c, (_g, w) in cols.items()}, f"{what} {table}")
+
+
+def phase_compile_cache(seed: int, nvidia_smi: str) -> dict:
+    """The kernel build cache behind ``process.compile.cachedir`` and
+    ``cacheurl``: three starts of the main flow and the user-UDF flow,
+    each a process of its own. A, cold: an empty ``cachedir`` and a
+    ``cacheurl`` on an in-process object store; B, a restart: the same
+    conf; C, a replica: another empty directory and the same URL. A
+    misses every library its steps loaded and pushes them; B and C run
+    no compiler and miss nothing, B hitting at least what A missed and
+    C pulling at least what A pushed, and both start faster than A.
+    Every start's counts and rows equal the port's CPU run of the same
+    batches. Returns each kernel's launches in the starts' runs."""
+    import tempfile
+
+    from data_accelerator_tpu_torch.serve.objectstore import (
+        ObjectStoreClient,
+        ObjectStoreServer,
+    )
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        (tmp / "prebuilt").mkdir()
+        manifests, cpu_arrays, cpu_type_ids = cache_cpu_reference(seed, tmp)
+        store = ObjectStoreServer(port=0, root=str(tmp / "store")).start()
+        try:
+            client = ObjectStoreClient(store.endpoint)
+            url = client.url_for(CACHE_PREFIX)
+            spec = {"seed": seed, "manifests": manifests, "prebuilt": str(tmp / "prebuilt")}
+            starts, arrays = {}, {}
+            starts["A"], arrays["A"] = run_cache_start(
+                dict(spec, dir=str(tmp / "a"), url=url), tmp, "A")
+            pushed = sorted(k.rsplit("/", 1)[-1] for k in client.list(CACHE_PREFIX)
+                            if k.endswith(".so"))
+            starts["B"], arrays["B"] = run_cache_start(
+                dict(spec, dir=str(tmp / "a"), url=url), tmp, "B")
+            starts["C"], arrays["C"] = run_cache_start(
+                dict(spec, dir=str(tmp / "c"), url=url), tmp, "C")
+        finally:
+            store.stop()
+    for label, start in starts.items():
+        same_arrays(arrays[label], cpu_arrays, f"compile_cache {label} vs CPU")
+        if label != "A":
+            same_arrays(arrays[label], arrays["A"], f"compile_cache {label} vs A")
+        for name in CACHE_FLOWS:
+            if start["flows"][name]["type_ids"] != cpu_type_ids[name]:
+                raise AssertionError(f"compile_cache {label} {name}: dictionary ids differ")
+    total = {label: {key: sum(f[key] for f in start["flows"].values())
+                     for key in ("Compile_Cache_Hit_Count", "Compile_Cache_Miss_Count",
+                                 "Compile_ColdStart_Ms", "pulled")}
+             for label, start in starts.items()}
+    a, b, c = (starts[k] for k in "ABC")
+    line = {"phase": "compile_cache", "card": nvidia_smi, "capacity": CAPACITY,
+            "batches": CACHE_BATCHES, "pushed": pushed, "totals": total,
+            "starts": starts, "match_cpu": True, "seconds": time.perf_counter() - t0}
+    emit(line)
+    checks = {
+        "A misses each library its steps loaded": (
+            total["A"]["Compile_Cache_Miss_Count"] == len(a["loaded"])
+            and {"anomaly_score", "dx305_double"} <= {n.split("-")[0][3:] for n in a["libraries"]}
+            and len(a["loaded"]) >= 2 and a["compiler_runs"].get("nvcc", 0) == len(a["loaded"])),
+        "A pushed what it built": len(pushed) == len(a["libraries"]) >= 2,
+        "B and C run no compiler": b["compiler_runs"] == {} and c["compiler_runs"] == {},
+        "B and C miss nothing": (total["B"]["Compile_Cache_Miss_Count"] == 0
+                                 == total["C"]["Compile_Cache_Miss_Count"]),
+        "B hits at least what A missed": (total["B"]["Compile_Cache_Hit_Count"]
+                                          >= total["A"]["Compile_Cache_Miss_Count"]),
+        "C pulled at least what A pushed": total["C"]["pulled"] >= len(pushed),
+        "B and C start faster than A": (
+            max(total["B"]["Compile_ColdStart_Ms"], total["C"]["Compile_ColdStart_Ms"])
+            < total["A"]["Compile_ColdStart_Ms"]),
+        "every start warmed and launched each kernel once a batch": all(
+            all(f["warmed"] and not f["compile_warm_miss_count"] for f in s["flows"].values())
+            and s["launches"] == {"anomaly_score": CACHE_BATCHES, "dx305_double": CACHE_BATCHES}
+            for s in starts.values()),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"compile_cache: {failed}")
+    return {name: sum(s["launches"][name] for s in starts.values()) for name in KERNEL_NAMES}
 
 
 # the host phase's stream: one more batch than the run, for the restart
@@ -5118,12 +5400,16 @@ def phase_control(seed: int, nvidia_smi: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # one start of the compile_cache phase, which runs it in a child process
+    ap.add_argument("--cache-start", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
     bind_repo_tests()
+    if args.cache_start:
+        return cache_start(args.cache_start)
     from data_accelerator_tpu_torch.kernels.anomaly_score import SOURCE
     from data_accelerator_tpu_torch.udf.samples import anomalyscore
     from tests.data.udfs_torch.dx305_cuda import SOURCE as DX305_SOURCE
@@ -5138,6 +5424,8 @@ def main(argv=None) -> int:
     for name, m in checks.items():
         emit({"phase": "kernel_check", "name": name, "n": CAPACITY, **m})
     phase_host_split()
+    # the kernel build cache: three starts, each a process of its own
+    cache_launches = phase_compile_cache(args.seed, nvidia_smi)
     udf = anomalyscore()
     # ingest first: its profiled step must be the process's first
     # profiler session, since after the flow's profile the profiler
@@ -5184,6 +5472,8 @@ def main(argv=None) -> int:
                           "observe": observe_launches},
         "dx305_double": {"udf_flow": launches["dx305_double"]},
     }
+    for name, n in cache_launches.items():
+        by_path[name]["compile_cache"] = n
     for path, counts in slice_launches.items():
         for name, n in counts.items():
             by_path[name][path] = n

@@ -38,13 +38,14 @@ Trimmed: the ``CONF.md`` renderer and its ``__main__``. The rows
 describe the keys by their JAX-package meaning; where the port reads a
 key differently (``compile.*``, ``debug.*``), its reader says so.
 
-Three rows the reference reads are ``read=False`` here, because nothing
-in the port reads them: ``compile.cachedir`` and ``compile.cacheurl``
-(the JAX package's persistent compilation cache) and
-``compile.jitcachecap`` (its transfer-helper jit cache; the port has
-neither, and ``analysis/compilecheck.py`` retires DX601). Every type,
-default and bound is the reference's, so the boot audit's ``Conf_*``
-gauges are unchanged.
+One row the reference reads is ``read=False`` here, because nothing in
+the port reads it: ``compile.jitcachecap`` (the JAX package's
+transfer-helper jit cache; the port has none, and
+``analysis/compilecheck.py`` retires DX601). ``compile.cachedir`` and
+``compile.cacheurl`` are read: they arm the port's kernel build cache
+(``compile/aotcache.py``), where the reference arms its persistent
+compilation cache. Every type, default and bound is the reference's, so
+the boot audit's ``Conf_*`` gauges are unchanged.
 """
 
 from __future__ import annotations
@@ -429,10 +430,8 @@ CONF_REGISTRY: Tuple[ConfKey, ...] = (
     _K("compile.aot", "bool", "true", "compile", source="manual",
        description="ahead-of-time compile the flow step at host start"),
     _K("compile.cachedir", "path", None, "compile", source="generation",
-       read=False,
        description="AOT executable cache directory (S650 embed)"),
     _K("compile.cacheurl", "url", None, "compile", source="generation",
-       read=False,
        description="shared AOT cache object-store URL (S650 embed)"),
     _K("compile.manifest", "path", None, "compile", source="generation",
        description="compile manifest path (DX601 surface pin)"),

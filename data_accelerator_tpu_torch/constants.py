@@ -380,3 +380,9 @@ class ProcessingPropertyName:
     CPTime = "CPTime"
     CPExecutor = "CPExecutor"
 
+
+
+class FeatureName:
+    """reference: FeatureName.scala:8-10"""
+
+    FunctionDisableCommonCaching = "disableCommonCaching"

@@ -59,6 +59,20 @@ class Batch:
         return self.with_columns({n: self.columns[n] for n in names})
 
 
+def empty_batch(schema: Schema, capacity: int, base_ms: float = 0.0,
+                device: "torch.device | str" = "cpu") -> Batch:
+    """A batch of ``capacity`` zero rows, none of them live, on ``device``."""
+    cols = {
+        c.name: torch.from_numpy(np.zeros((capacity,), dtype=c.ctype.np_dtype)).to(device)
+        for c in schema.columns
+    }
+    return Batch(
+        cols,
+        torch.zeros((capacity,), dtype=torch.bool, device=device),
+        torch.full((), base_ms / 1000.0, dtype=torch.float32, device=device),
+    )
+
+
 def batch_from_rows(
     rows: List[dict],
     schema: Schema,
@@ -137,6 +151,41 @@ def batch_from_rows(
         torch.from_numpy(valid).to(device),
         torch.full((), base_ms / 1000.0, dtype=torch.float32, device=device),
     )
+
+
+def batch_to_rows(
+    batch: Batch,
+    dictionary: StringDictionary,
+    schema_types: Optional[Dict[str, ColType]] = None,
+    max_rows: Optional[int] = None,
+) -> List[dict]:
+    """Device -> host rows (only valid rows), decoding dictionary ids and
+    restoring absolute timestamps. Used by sinks and LiveQuery display."""
+    host_cols = {k: v.detach().cpu().numpy() for k, v in batch.columns.items()}
+    valid = batch.valid.detach().cpu().numpy()
+    base_ms = int(round(float(batch.base_ms) * 1000.0))
+    idx = np.nonzero(valid)[0]
+    if max_rows is not None:
+        idx = idx[:max_rows]
+    types = schema_types or {}
+    out = []
+    for i in idx:
+        row = {}
+        for name, arr in host_cols.items():
+            v = arr[i]
+            ctype = types.get(name)
+            if ctype == ColType.STRING:
+                row[name] = dictionary.decode(int(v))
+            elif ctype == ColType.TIMESTAMP:
+                row[name] = int(v) + base_ms
+            elif arr.dtype == np.bool_:
+                row[name] = bool(v)
+            elif np.issubdtype(arr.dtype, np.integer):
+                row[name] = int(v)
+            else:
+                row[name] = float(v)
+        out.append(row)
+    return out
 
 
 def _dig(obj: dict, dotted: str):

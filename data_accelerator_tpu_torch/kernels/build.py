@@ -6,13 +6,27 @@ A source is named either by a bare name, for the package's own sources
 path to any such file, such as a ``.cu`` that sits beside a user's UDF
 module. A ``.cu`` compiles with ``nvcc`` for ``sm_90a``, a ``.cpp`` (the
 JSON ingest decoder) with ``g++``, each into a shared library with a
-plain C interface, which ``ctypes`` loads. The library lands in
-``data_accelerator_tpu_torch/_build/`` under a name that carries a hash
-of the source's path, its contents and the flags, so an edited source
-rebuilds and an unchanged one is loaded as it is. nvcc's output is kept
-beside the library (``.log``): ``-Xptxas -v`` makes it list each
-kernel's registers, shared memory and spill bytes, which ``ptxas_usage``
-reads. Nothing here runs at import.
+plain C interface, which ``ctypes`` loads.
+
+A library is named by its content key: a hash of the source's bytes,
+the flags and the compiler's own ``--version`` text (read once a
+process), never of the source's path. So an edited source, another flag
+or another compiler builds anew, and the same source in another
+checkout or container names the same library, which is what lets the
+kernel build cache (``compile/aotcache.py``) share libraries between
+processes and machines. A library of another key is never loaded: its
+name differs.
+
+Libraries build into the build directory: ``data_accelerator_tpu_torch/
+_build/`` (``BUILD_DIR``) unless a compile cache points it elsewhere,
+for the whole process (``set_build_dir``) or for one thread's block
+(``build_dir_scope``). A library is looked up there and then in
+``BUILD_DIR``, where an image prebuilds the package's own sources. A
+build writes a temporary file and renames it, so a half-written library
+is never loaded. nvcc's output is kept beside the library (``.log``):
+``-Xptxas -v`` makes it list each kernel's registers, shared memory and
+spill bytes, which ``ptxas_usage`` reads. ``compiler_runs`` counts the
+compiles of the process. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -20,11 +34,13 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import hashlib
+import json
 import os
 import re
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Union
 
@@ -45,6 +61,14 @@ _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 # the list of first loads that ``loads_recorded`` keeps for this thread
 _RECORD = threading.local()
+# the build directory: this thread's ``build_dir_scope``, else the
+# process's ``set_build_dir``, else BUILD_DIR
+_SCOPE = threading.local()
+_PROCESS_DIR: Optional[Path] = None
+# each compiler's --version text, and the compiles run, in this process
+_STATE_LOCK = threading.Lock()
+_VERSIONS: Dict[str, str] = {}
+_COMPILES: Counter = Counter()
 
 Source = Union[str, os.PathLike]
 
@@ -67,6 +91,72 @@ def nvcc_path() -> str:
     )
 
 
+def _nvcc_or_none() -> Optional[str]:
+    try:
+        return nvcc_path()
+    except KernelBuildError:
+        return None
+
+
+def _compiler_version(compiler: Optional[str]) -> str:
+    """``compiler --version``'s output, read once a process: a part of
+    every library's key. No compiler (``None``) gives the empty text, so
+    a library's name can still be worked out where nothing can build it,
+    and it matches no library a compiler built."""
+    if compiler is None:
+        return ""
+    with _STATE_LOCK:
+        text = _VERSIONS.get(compiler)
+        if text is None:
+            try:
+                proc = subprocess.run([compiler, "--version"], capture_output=True,
+                                      text=True, timeout=120)
+            except (OSError, subprocess.TimeoutExpired) as e:
+                raise KernelBuildError(f"cannot run {compiler} --version: {e}") from e
+            text = _VERSIONS[compiler] = proc.stdout + proc.stderr
+        return text
+
+
+def compiler_runs() -> Dict[str, int]:
+    """The compiles this process has run, by compiler (``nvcc``,
+    ``g++``); a ``--version`` query is not one."""
+    with _STATE_LOCK:
+        return dict(_COMPILES)
+
+
+def _count_compile(compiler: str) -> None:
+    with _STATE_LOCK:
+        _COMPILES[compiler] += 1
+
+
+def build_dir() -> Path:
+    """The directory libraries build into: this thread's innermost
+    ``build_dir_scope``, else the process's ``set_build_dir``, else
+    ``BUILD_DIR``."""
+    return getattr(_SCOPE, "dir", None) or _PROCESS_DIR or BUILD_DIR
+
+
+def set_build_dir(path: Optional[Source]) -> Optional[Path]:
+    """Point every later build of the process at ``path`` (``None``:
+    back to ``BUILD_DIR``); returns the setting it replaced, for the
+    caller to restore."""
+    global _PROCESS_DIR
+    with _STATE_LOCK:
+        prev, _PROCESS_DIR = _PROCESS_DIR, (Path(path) if path is not None else None)
+    return prev
+
+
+@contextlib.contextmanager
+def build_dir_scope(path: Source):
+    """Within the block, this thread's builds use ``path``."""
+    outer = getattr(_SCOPE, "dir", None)
+    _SCOPE.dir = Path(path)
+    try:
+        yield
+    finally:
+        _SCOPE.dir = outer
+
+
 def source_path(source: Source, suffix: str = ".cu") -> Path:
     """``csrc/<name><suffix>`` for a bare name; the file itself for a path."""
     text = os.fspath(source)
@@ -78,20 +168,26 @@ def source_path(source: Source, suffix: str = ".cu") -> Path:
     return CSRC_DIR / f"{text}{suffix}"
 
 
-def _library_path(src: Path, flags) -> Path:
+def _library_path(src: Path, flags, compiler: Optional[str]) -> Path:
+    """Where the library of ``src`` built with ``compiler`` and ``flags``
+    lies: the build directory or ``BUILD_DIR``, else where it builds to."""
     try:
         text = src.read_bytes()
     except OSError as e:
         raise KernelBuildError(f"cannot read kernel source {src}: {e}") from e
-    h = hashlib.sha256(str(src).encode())
-    h.update(text)
-    h.update(" ".join(flags).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    key = json.dumps([hashlib.sha256(text).hexdigest(), list(flags),
+                      _compiler_version(compiler)])
+    name = f"lib{src.stem}-{hashlib.sha256(key.encode()).hexdigest()[:16]}.so"
+    for d in dict.fromkeys((build_dir(), BUILD_DIR)):
+        if (d / name).exists():
+            return d / name
+    return build_dir() / name
 
 
 def library_path(source: Source) -> Path:
-    """Where a source builds to, keyed on its path, contents and flags."""
-    return _library_path(source_path(source), NVCC_FLAGS)
+    """The library of a kernel source, keyed on its contents, the flags
+    and nvcc's version: where it lies, or where it builds to."""
+    return _library_path(source_path(source), NVCC_FLAGS, _nvcc_or_none())
 
 
 def build(sources: Iterable[Source]) -> List[Path]:
@@ -102,10 +198,11 @@ def build(sources: Iterable[Source]) -> List[Path]:
     todo = [(src, out) for src, out in zip(srcs, outs) if not out.exists()]
     if todo:
         nvcc = nvcc_path()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir().mkdir(parents=True, exist_ok=True)
     pending = []
     for src, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        _count_compile("nvcc")
         proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -115,6 +212,7 @@ def build(sources: Iterable[Source]) -> List[Path]:
     for src, out, tmp, proc in pending:
         log, _ = proc.communicate()
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             errors.append(f"{src} (nvcc exit {proc.returncode}):\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
@@ -161,17 +259,18 @@ def build_host(source: Source) -> Path:
     current; returns the library's path. A missing ``g++`` or a compile
     error raises ``KernelBuildError`` with the compiler's output."""
     src = source_path(source, ".cpp")
-    out = _library_path(src, HOST_FLAGS)
+    gxx = shutil.which("g++")
+    out = _library_path(src, HOST_FLAGS, gxx)
     if out.exists():
         return out
-    gxx = shutil.which("g++")
     if gxx is None:
         raise KernelBuildError(
             f"g++ not found on PATH: {src.name} is host C++ that builds "
             "with g++ at first use"
         )
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    _count_compile("g++")
     proc = subprocess.run(
         [gxx, *HOST_FLAGS, "-o", str(tmp), str(src)],
         capture_output=True, text=True,

@@ -37,8 +37,14 @@ that builds and launches every kernel UDF the step calls), runs one
 zero-filled sized transfer per output, capacity bucket and A/B slot, and
 then resets every adaptive state the warm touched. A failure in the warm
 raises, where the JAX package logs it and compiles at the first batch.
-``compile.cachedir`` and ``compile.cacheurl`` are read by nothing: there
-is no compile cache to route.
+``compile.cachedir`` and ``compile.cacheurl`` arm the kernel build cache
+(``compile/aotcache.py``) for the processor's own builds: the kernel
+libraries its steps load build into, or load from, the cache's
+directory, and the warm reports the libraries present before it as
+``Compile_Cache_Hit_Count`` and those it built as
+``Compile_Cache_Miss_Count``, pushing them to the shared store. On the
+CPU a step loads no kernel library, so both count what the directory
+holds and 0.
 
 State tables (``process.statetable.*``, the ``--DataXStates--``
 accumulators) and partitioned state (``process.state.*``) run as in the
@@ -99,6 +105,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..compile.aotcache import PersistentCompileCache
 from ..compile.pipeline import Pipeline, PipelineCompiler, parse_state_table_schema
 from ..compile.planner import PlannerConfig, SelectCompiler, TableData, ViewSchema
 from ..compile.sqlparser import parse_select
@@ -1203,7 +1210,7 @@ class FlowProcessor:
         # the compile manifest (process.compile.manifest: inline JSON or
         # a file path, as generation embeds it); with compile.aot
         # (default on when a manifest is present) the processor warms at
-        # init. compile.cachedir/cacheurl are read by nothing here.
+        # init
         comp_conf = process_conf.get_sub_dictionary("compile.")
         self.compile_manifest: Optional[dict] = None
         manifest_raw = _read_maybe_file(comp_conf.get("manifest"))
@@ -1215,8 +1222,26 @@ class FlowProcessor:
         aot = (
             (comp_conf.get_or_else("aot", "true") or "").lower() != "false"
         ) and self.compile_manifest is not None
+        cache_dir, cache_url = comp_conf.get("cachedir"), comp_conf.get("cacheurl")
+        # the kernel build cache arms for ANY processor that configures
+        # it — AOT or not (a LiveQuery kernel has no manifest, but the
+        # kernels its first query builds still land in the cache for the
+        # next create/restart). It arms for this processor's own builds
+        # (its steps), not the whole process: one process holds many
+        # processors, each with its own cache. The AOT warm reuses this
+        # instance for its hit/miss accounting and objstore push.
+        self._compile_cache: Optional[PersistentCompileCache] = None
+        if cache_dir or cache_url:
+            try:
+                cache = PersistentCompileCache(cache_dir, cache_url)
+                cache.open()
+                self._compile_cache = cache
+            except (OSError, ValueError) as e:
+                # the cache saves compiles; without it the kernels build
+                # into the package's own directory, on the same device
+                logger.warning("persistent compile cache unavailable: %s", e)
         # Compile_* metric deltas drained at collect (ColdStart_Ms,
-        # WarmMiss_Count)
+        # Cache_Hit_Count, Cache_Miss_Count, WarmMiss_Count)
         self.compile_stats: Dict[str, float] = {}
         self._aot_warmed = False
 
@@ -2354,7 +2379,11 @@ class FlowProcessor:
             # active; a no-op without one
             census = MeshCollectives() if self.mesh is not None else None
             mesh_arg = {} if census is None else {"census": census}
-            with tracing.span("device-enqueue"), kernel_build.loads_recorded() as loads:
+            # the kernels the step loads build into its compile cache
+            cache = self._compile_cache
+            with tracing.span("device-enqueue"), \
+                    cache.scope() if cache is not None else contextlib.nullcontext(), \
+                    kernel_build.loads_recorded() as loads:
                 out_datasets, counts_vec, new_state = self._step(
                     raw, self.window_buffers, self.state_data, refdata, base_s,
                     now_rel_ms, counter, delta_ms, aux, **mesh_arg,
@@ -2531,9 +2560,17 @@ class FlowProcessor:
         slot's device and pinned host buffers. After it, every adaptive
         state the warm touched starts over: the window rings, slot
         counter and time base, the transfer EWMA, boost and counters.
-        ``Compile_ColdStart_Ms`` reports the warm's cost. A failure here
-        raises: there is no compile-at-first-batch to fall back to."""
+        ``Compile_ColdStart_Ms`` reports the warm's cost. With a kernel
+        build cache (``process.compile.cachedir``/``.cacheurl``) the
+        builds inside the warm resolve from the cache — hits and misses
+        counted at library granularity — and newly built libraries are
+        pushed back through ``objstore://`` so the NEXT start (restart,
+        preemption recovery, scale-out replica) loads instead of
+        compiling. A failure here raises: there is no
+        compile-at-first-batch to fall back to."""
         t0 = time.time()
+        cache = self._compile_cache
+        pre_files = cache.file_count() if cache is not None else 0
         handle = self.dispatch_batch(None, batch_time_ms=0)
         handle.collect_counts()
         handle.abandon()
@@ -2545,6 +2582,9 @@ class FlowProcessor:
         with self._stats_lock:
             self.transfer_stats.clear()
         self._aot_warmed = True
+        if cache is not None:
+            self._count_compile("Cache_Hit_Count", pre_files)
+            self._count_compile("Cache_Miss_Count", cache.push())
         self._count_compile("ColdStart_Ms", (time.time() - t0) * 1000.0)
 
     def _warm_transfers(self, out_datasets: Dict[str, TableData]) -> None:

@@ -555,11 +555,11 @@ class RuntimeConfigGeneration:
         AOT-warms every entry at init instead of first dispatch.
 
         The cache conf rides along: ``compile.cachedir`` under the
-        flow's runtime folder (restarts deserialize instead of
-        recompiling), and — when runtime storage is the shared object
-        store — ``compile.cacheurl`` (an ``objstore://`` prefix) so
-        preemption-recovered and scaled-out replicas pull compiles
-        their peers already paid for.
+        flow's runtime folder (restarts load the kernel libraries
+        instead of recompiling them), and — when runtime storage is the
+        shared object store — ``compile.cacheurl`` (an ``objstore://``
+        prefix) so preemption-recovered and scaled-out replicas pull
+        compiles their peers already paid for.
 
         Fail-open like S620: an analyzer error must not block
         deployment — the job simply cold-starts like every job did

@@ -95,7 +95,7 @@ class Kernel:
     # flags ({"nans": "true"})
     debug: object = None
     # compile conf keys (datax.job.process.compile.*) merged into every
-    # query processor's conf; read by nothing in the port
+    # query processor's conf: the kernel build cache its kernels share
     compile_conf: Dict[str, str] = field(default_factory=dict)
     device: str = "cuda"
     created_at: float = field(default_factory=time.time)

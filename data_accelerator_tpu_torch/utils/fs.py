@@ -1,10 +1,12 @@
-"""Filesystem reads of conf-referenced content (gzip-aware).
+"""File I/O layer: atomic writes, retries, gzip awareness, listing.
 
-A trimmed copy of the JAX package's ``utils/fs.py``: the port needs
-``read_text``, ``read_lines``, ``write_text`` (atomic temp + rename),
-``ensure_parent_dir`` and ``list_files``. ``objstore://`` and
-``objstore+https://`` URLs read through the port's object-store client
-(``serve/objectstore.py``).
+The port's copy of the JAX package's ``utils/fs.py`` (reference:
+datax-host fs/HadoopClient.scala:33-815 — the engine routes *all* file
+access through one client that adds: gzip-aware reads (:201+),
+atomic-ish writes via temp file + rename (:391-441), writes with timeout
+and bounded retries (:333-362), and directory listing/copying).
+``objstore://`` and ``objstore+https://`` URLs read through the port's
+object-store client (``serve/objectstore.py``).
 """
 
 from __future__ import annotations
@@ -12,9 +14,14 @@ from __future__ import annotations
 import glob
 import gzip
 import itertools
+import logging
 import os
+import shutil
 import threading
-from typing import List, Optional
+import time
+from typing import Iterable, List, Optional
+
+logger = logging.getLogger(__name__)
 
 _TMP_COUNTER = itertools.count()
 
@@ -89,6 +96,65 @@ def write_text(
                 pass
 
 
+def write_with_timeout_and_retries(
+    path: str,
+    content: str,
+    timeout_s: float = 10.0,
+    retries: int = 3,
+) -> bool:
+    """Bounded-time write with retries (HadoopClient.scala:333-362:
+    each attempt runs under a timeout; failures retry up to the limit).
+
+    Returns True on success; raises the last error after exhausting
+    retries (the caller's batch try/except owns the retry-batch policy).
+    """
+    last_err: Optional[BaseException] = None
+    orphans: List[threading.Thread] = []
+    for attempt in range(1, retries + 1):
+        done = threading.Event()
+        abort = threading.Event()
+        err: List[BaseException] = []
+
+        def attempt_write():
+            try:
+                write_text(path, content, abort=abort)
+            except Exception as e:  # noqa: BLE001 — captured for the caller
+                err.append(e)
+            finally:
+                done.set()
+
+        t = threading.Thread(target=attempt_write, daemon=True)
+        t.start()
+        if not done.wait(timeout_s):
+            # the orphan writes a unique temp and checks `abort` before
+            # its rename. An orphan that passes the check just before
+            # abort.set() can still rename afterwards — the window is
+            # narrowed, not closed. Within this call that is harmless
+            # (every attempt writes identical bytes); writers of
+            # *different* content to the same path must serialize
+            # externally (the sink dispatcher does).
+            abort.set()
+            orphans.append(t)
+            last_err = TimeoutError(
+                f"write of {path} exceeded {timeout_s}s (attempt {attempt})"
+            )
+            logger.warning("%s", last_err)
+            continue
+        if err:
+            last_err = err[0]
+            logger.warning(
+                "write of %s failed (attempt %d): %s", path, attempt, last_err
+            )
+            continue
+        # best-effort: drain straggler attempts so none outlives success
+        for o in orphans:
+            o.join(timeout=0.1)
+        return True
+    if last_err is None:
+        raise ValueError(f"retries must be >= 1, got {retries}")
+    raise last_err
+
+
 def list_files(pattern_or_dir: str) -> List[str]:
     """List files by glob pattern or directory prefix, sorted."""
     if os.path.isdir(pattern_or_dir):
@@ -97,3 +163,40 @@ def list_files(pattern_or_dir: str) -> List[str]:
             out.extend(os.path.join(root, f) for f in files)
         return sorted(out)
     return sorted(f for f in glob.glob(pattern_or_dir) if os.path.isfile(f))
+
+
+def copy_file(src: str, dst: str) -> None:
+    ensure_parent_dir(dst)
+    shutil.copyfile(src, dst)
+
+
+def delete_path(path: str) -> bool:
+    """Remove a file or directory tree; True if anything was removed."""
+    if os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)
+        return True
+    if os.path.exists(path):
+        os.remove(path)
+        return True
+    return False
+
+
+def append_lines(path: str, lines: Iterable[str]) -> None:
+    ensure_parent_dir(path)
+    with open(path, "a", encoding="utf-8") as f:
+        for line in lines:
+            f.write(line.rstrip("\n") + "\n")
+
+
+def file_modified_ms(path: str) -> int:
+    return int(os.path.getmtime(path) * 1000)
+
+
+def wait_for_file(path: str, timeout_s: float, poll_s: float = 0.05) -> bool:
+    """Poll until a file exists (used by tests and job-handoff paths)."""
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if os.path.exists(path):
+            return True
+        time.sleep(poll_s)
+    return os.path.exists(path)

@@ -41,9 +41,9 @@ FLOWS_DIR = os.path.join(HERE, "data", "flows")
 GENERATION = os.path.join(os.path.dirname(HERE), "data_accelerator_tpu", "serve",
                           "generation.py")
 TWINS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(CONF_DIR, "dx*")))
-# rows the reference reads and the port does not (compile cache, jit
-# cache, the mesh's ICI conformance): read=False in the port
-PORT_UNREAD = {"compile.cachedir", "compile.cacheurl", "compile.jitcachecap"}
+# the row the reference reads and the port does not (the JAX package's
+# transfer-helper jit cache): read=False in the port
+PORT_UNREAD = {"compile.jitcachecap"}
 
 
 def _diags(report):
@@ -87,9 +87,10 @@ def test_port_tree_is_conf_clean_with_pinned_inventory():
     assert report.diagnostics == [], [d.render() for d in report.diagnostics]
     cd = report.conf_dict()
     assert cd["analyzedFiles"] == len(paths) == 94
-    # obs/conformance.py reads conformance.iciratiohigh (DX510)
-    assert cd["readSites"] == 100
-    assert cd["readKeys"] == 94
+    # obs/conformance.py reads conformance.iciratiohigh (DX510), and
+    # runtime/processor.py compile.cachedir and compile.cacheurl
+    assert cd["readSites"] == 102
+    assert cd["readKeys"] == 96
     # the flattener template's keys, the control plane's generation scan
     # (serve/generation.py; its S400 knob tokens too), the REST API's
     # UDF class keys for a flow's kernels (serve/restapi.py) and the
@@ -99,10 +100,11 @@ def test_port_tree_is_conf_clean_with_pinned_inventory():
     assert cd["registryKeys"] == len(tspec.CONF_REGISTRY) == 109
 
 
-def test_reference_tier_flags_only_the_rows_the_port_does_not_read():
+def test_reference_tier_flags_only_the_row_the_port_does_not_read():
     """The reference's full-tree registry check over the port's tree
-    with the reference's rows: only the five rows the port deliberately
-    leaves unread are dead; the two debug reads are seen."""
+    with the reference's rows: only the row the port deliberately
+    leaves unread is dead; the two debug reads and the compile cache's
+    two keys are seen."""
     scans = []
     paths = tconf.conf_module_paths()
     for p in paths:
@@ -120,7 +122,7 @@ def test_reference_tier_flags_only_the_rows_the_port_does_not_read():
     assert {d.code for d in diags} == {"DX1001"}
 
 
-def test_registry_rows_equal_the_reference_but_for_the_unread_five():
+def test_registry_rows_equal_the_reference_but_for_the_unread_jit_cache_cap():
     assert [e.key for e in tspec.CONF_REGISTRY] == [e.key for e in jspec.CONF_REGISTRY]
     for t, j in zip(tspec.CONF_REGISTRY, jspec.CONF_REGISTRY):
         t, j = dataclasses.asdict(t), dataclasses.asdict(j)
@@ -130,7 +132,7 @@ def test_registry_rows_equal_the_reference_but_for_the_unread_five():
         else:
             assert t == j
     parity = [e for e in tspec.CONF_REGISTRY if not e.read]
-    assert len(parity) == 8
+    assert len(parity) == 6
     assert {e.key for e in parity} - PORT_UNREAD == {
         e.key for e in jspec.CONF_REGISTRY if not e.read}
 

@@ -15,9 +15,10 @@ carries ``process.alerts.rules``, and unless the designer opts out
   ``JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_genconf.py``.
 - The same designer flow generated at 256 rows a batch runs on both
   packages' ``StreamingHost`` batch for batch: rows and metrics equal,
-  less what the port does not emit (``Compile_Cache_*``: the port reads
-  ``compile.cachedir`` nowhere; ``Calib_IciGBps``: no ICI probe on one
-  card). The machine profiles' ``Calib_*`` gauges and the
+  less what the port does not emit (``Calib_IciGBps``: no ICI probe on
+  one card) and the compile cache's counts, which both emit but count
+  different things (XLA executables; kernel libraries, none of which a
+  CPU step loads). The machine profiles' ``Calib_*`` gauges and the
   ``Conformance_StageTime_*`` ratios priced from them appear on both,
   their values measured by each package's own probes.
 - The manifest's eager meaning in the port: a warm at init that leaves
@@ -169,13 +170,16 @@ def test_fixture_holds_the_three_keys_and_the_config1_queries(tmp_path):
 
 # -- both hosts, batch for batch ---------------------------------------------------
 # metrics of wall clock (the calibration gauges and the stage-time
-# ratios priced from them among them), and what only the JAX host emits:
-# the compile cache's counts (the port has no compile cache) and the ICI
-# gauge (the JAX package measures a link between the tests' 8 virtual
-# CPU devices; the port has no ICI probe until multi-GPU)
+# ratios priced from them among them), the compile cache's counts (both
+# hosts report them, but the JAX package counts its XLA executables and
+# the port its kernel libraries, of which a CPU step loads none), and
+# what only the JAX host emits: the ICI gauge (the JAX package measures a
+# link between the tests' 8 virtual CPU devices; the port has no ICI
+# probe until multi-GPU)
 UNCOMPARED = ("Latency-", "Pipeline_Stall_Ms", "Decode_RowsPerSec",
-              "Compile_ColdStart_Ms", "Calib_", "Conformance_StageTime_")
-JAX_ONLY = ("Compile_Cache_", "Calib_IciGBps")
+              "Compile_ColdStart_Ms", "Calib_", "Conformance_StageTime_",
+              "Compile_Cache_")
+JAX_ONLY = ("Calib_IciGBps",)
 BATCHES = 8
 CAP = 256
 
@@ -255,6 +259,10 @@ def test_generated_conf_runs_on_both_hosts_batch_for_batch(tmp_path, monkeypatch
     assert thost.alerts is not None and thost.conformance is not None
     assert thost.processor._aot_warmed
     assert [("Compile_ColdStart_Ms" in m) for _t, m in tm] == [True] + [False] * (BATCHES - 1)
+    # the port's own cache counts: a fresh directory, and no kernel
+    # library loaded by a CPU step
+    assert (tm[0][1]["Compile_Cache_Hit_Count"], tm[0][1]["Compile_Cache_Miss_Count"]) == (0, 0)
+    assert jm[0][1]["Compile_Cache_Miss_Count"] > 0
     assert not any("Compile_WarmMiss_Count" in m for _t, m in tm)
     assert ([e["name"] for e in thost.alerts.evaluate()]
             == [e["name"] for e in jhost.alerts.evaluate()])
@@ -298,8 +306,10 @@ def test_manifest_warm_leaves_no_state_and_matches_a_cold_processor(tmp_path):
         full = CAP if name == "OpenDoors" else warm.pipeline.view_by_name(name).capacity
         for cap in transfer_buckets(full):
             assert [s is not None for s in warm._slots[(name, cap)]] == [True, True]
-    # compile.cachedir is read by nothing: no directory appears
-    assert not Path(conf["datax.job.process.compile.cachedir"]).exists()
+    # compile.cachedir arms the kernel build cache: its directory is made
+    # at init, and a CPU warm builds nothing into it
+    assert Path(conf["datax.job.process.compile.cachedir"]).is_dir()
+    assert warm._compile_cache.file_count() == 0 and cold._compile_cache is None
     rs = np.random.RandomState(2)
     ids = np.array([warm.dictionary.encode(t) for t in TYPES], np.int32)
     assert np.array_equal(ids, [cold.dictionary.encode(t) for t in TYPES])
@@ -311,7 +321,8 @@ def test_manifest_warm_leaves_no_state_and_matches_a_cold_processor(tmp_path):
         for name in OUTPUTS:
             _assert_same_rows(cd[name], wd[name], (b, name))
         compile_keys = {k for k in wm if k.startswith("Compile_")}
-        assert compile_keys == ({"Compile_ColdStart_Ms"} if b == 0 else set())
+        assert compile_keys == ({"Compile_ColdStart_Ms", "Compile_Cache_Hit_Count",
+                                 "Compile_Cache_Miss_Count"} if b == 0 else set())
         assert wm["Compile_ColdStart_Ms" if b == 0 else "Sync_CountsBytes"] > 0
         for k, v in cm.items():
             if k != "Latency-Process":

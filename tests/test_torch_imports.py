@@ -233,16 +233,87 @@ def test_slice_9b_8a_modules_load_without_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
 
 
+REF_DIR = ROOT / "data_accelerator_tpu"
+REF_MODULES = sorted(str(p.relative_to(REF_DIR)) for p in REF_DIR.rglob("*.py"))
+# public top-level functions and classes of a JAX module that its
+# counterpart leaves out on purpose, each JAX's own machinery with the
+# reason; the port has every other one
+JAX_ONLY_NAMES = {
+    "analysis/compilecheck.py": {
+        "lowering_digest": "hashes an entry's lowered StableHLO; the port's "
+                           "digests hash the aten ops an entry runs on meta",
+    },
+    "analysis/confspec.py": {
+        "render_conf_md": "renders the JAX package's CONF.md from its rows",
+    },
+    "dist/mesh.py": {
+        "collective_summary": "parses XLA's compiled HLO text; the port's "
+                              "census records the collectives its step runs",
+        "summarize_compiled": "the census of a jax compiled executable",
+    },
+    "native/decoder.py": {
+        "native_available": "says whether the JAX package falls back to its "
+                            "Python decoder; the port's decoder builds or raises",
+    },
+    "runtime/processor.py": {
+        "source_raw_form": "picks the raw form a jitted step is traced with",
+        "packed_raw_struct": "the packed raw matrix as a jax ShapeDtypeStruct",
+        "aval_signature": "describes a pytree of jax avals (a jit cache key)",
+        "compile_entries_from_avals": "manifest entries from jax avals; the "
+                                      "port's come from analysis/compilecheck.py",
+        "set_jit_cache_cap": "the transfer-helper jit cache, which eager "
+                             "PyTorch has no counterpart for",
+        "drain_jit_evictions": "the transfer-helper jit cache's evictions",
+        "helper_jit_cache_size": "the transfer-helper jit cache's size",
+    },
+    "udf/api.py": {
+        "JaxUdf": "a jax.numpy UDF; the port's is TorchUdf",
+        "JaxUdaf": "a jax.numpy UDAF; the port's is TorchUdaf",
+        "PallasUdf": "a Pallas kernel UDF; the port's is CudaKernelUdf",
+    },
+}
+
+
 def test_every_module_has_a_counterpart():
     """Every module of the JAX package has a counterpart in the port at
     the same relative path (the DX7xx mesh analyzer,
-    ``analysis/meshcheck.py``, was the last)."""
-    ref = ROOT / "data_accelerator_tpu"
-    missing = sorted(
-        str(p.relative_to(ref)) for p in ref.rglob("*.py")
-        if not (PORT_DIR / p.relative_to(ref)).exists()
-    )
+    ``analysis/meshcheck.py``, was the last), and every public top-level
+    function and class of it is in that counterpart, but for the listed
+    JAX-only names (``test_every_public_name_has_a_counterpart``)."""
+    missing = [rel for rel in REF_MODULES if not (PORT_DIR / rel).exists()]
     assert missing == []
+    assert set(JAX_ONLY_NAMES) <= set(REF_MODULES)
+
+
+def _public_defs(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
+def _top_level_names(path: Path):
+    """Every name a module binds at its top level."""
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for t in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                names |= {n.id for n in ast.walk(t) if isinstance(n, ast.Name)}
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return names
+
+
+@pytest.mark.parametrize("rel", REF_MODULES)
+def test_every_public_name_has_a_counterpart(rel):
+    """Function by function: the port's counterpart binds every public
+    top-level function and class of the JAX module, but for the listed
+    JAX-only names, which it must still lack (a stale entry fails)."""
+    missing = _public_defs(REF_DIR / rel) - _top_level_names(PORT_DIR / rel)
+    assert missing == set(JAX_ONLY_NAMES.get(rel, {}))
 
 
 # a refusal naming the multi-GPU slice, or a claim that something is not
@@ -288,8 +359,11 @@ def test_slice_8b_modules_load_without_jax():
 # docstring names its reference) has ``/`` there instead, and the port's
 # own package continues with ``_torch``: neither matches.
 JAX_MODULE_STRING = re.compile(r"\bdata_accelerator_tpu(?=[.:][A-Za-z_])")
-# what the port ships besides Python: its job template and the SPA
-SHIPPED_TEXT = sorted(PORT_DIR.glob("serve/k8s/*.yaml")) + [PORT_DIR / "web" / "static" / "app.js"]
+# what the port ships besides Python: its job template, the SPA and its
+# deployment stack (image, one-box entry, cluster provisioning)
+DEPLOY_FILES = sorted(p for p in (PORT_DIR / "deploy").rglob("*") if p.is_file())
+SHIPPED_TEXT = (sorted(PORT_DIR.glob("serve/k8s/*.yaml")) + [PORT_DIR / "web" / "static" / "app.js"]
+                + DEPLOY_FILES)
 
 
 def _module_strings(path: Path):

@@ -418,14 +418,18 @@ def test_library_is_keyed_on_path_contents_and_flags(tmp_path, monkeypatch):
     assert first == build.library_path(str(a))
     assert first.parent == tmp_path / "_build"
     assert first.name.startswith("libk-")
-    assert build.library_path(b) != first  # same text, another path
+    # same text at another path: one library, since the key holds no path
+    assert build.library_path(b) == first
     a.write_text("// edited\n")
     assert build.library_path(a) != first
 
 
 def _fake_nvcc(tmp_path, script):
+    # a stand-in compiler answers the --version query that keys its
+    # libraries, and runs ``script`` for a compile
     nvcc = tmp_path / "nvcc"
-    nvcc.write_text("#!/bin/sh\n" + script)
+    nvcc.write_text('#!/bin/sh\nif [ "$1" = --version ]; then echo "stand-in nvcc"; '
+                    "exit 0; fi\n" + script)
     nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
     return str(nvcc)
 
