@@ -39,7 +39,10 @@ class TelemetryWriter:
 
 class LogWriter(TelemetryWriter):
     def write(self, record: Dict[str, Any]) -> None:
-        logger.info("%s", json.dumps(record, default=str))
+        # serialise only for a log that keeps INFO: a span is written
+        # on the hot path of every batch
+        if logger.isEnabledFor(logging.INFO):
+            logger.info("%s", json.dumps(record, default=str))
 
 
 class JsonlWriter(TelemetryWriter):
@@ -56,6 +59,10 @@ class JsonlWriter(TelemetryWriter):
     split across segments, so an in-progress batch's spans survive any
     rotation — some may land in ``.1`` while later ones land in the
     fresh active file, and the trace reader stitches them back.
+
+    One append handle stays open, flushed after every record so a crash
+    loses none; it is reopened when the path no longer names its file
+    (rotated here or by another writer of the same path, or removed).
     """
 
     DEFAULT_MAX_BYTES = 64 * 1024 * 1024
@@ -72,6 +79,8 @@ class JsonlWriter(TelemetryWriter):
         self.keep = max(1, int(keep))
         self.compress = bool(compress)
         self._lock = threading.Lock()
+        self._f = None
+        self._ino = None
         parent = os.path.dirname(os.path.abspath(path))
         if parent:
             os.makedirs(parent, exist_ok=True)
@@ -108,16 +117,37 @@ class JsonlWriter(TelemetryWriter):
         except OSError:
             pass  # rotation failure must not lose the record
 
+    def _handle(self):
+        """The open append handle of the file the path names now."""
+        try:
+            ino = os.stat(self.path).st_ino
+        except OSError:
+            ino = None
+        if self._f is None or ino != self._ino:
+            self.close()
+            self._f = open(self.path, "a", encoding="utf-8")
+            self._ino = os.fstat(self._f.fileno()).st_ino
+        return self._f
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+    __del__ = close
+
     def write(self, record: Dict[str, Any]) -> None:
         line = json.dumps(record, default=str) + "\n"
         data = line.encode("utf-8")
         with self._lock:
             if self.max_bytes and self._size + len(data) > self.max_bytes \
                     and self._size > 0:
+                self.close()
                 self._rotate()
                 self._size = 0
-            with open(self.path, "a", encoding="utf-8") as f:
-                f.write(line)
+            f = self._handle()
+            f.write(line)
+            f.flush()
             self._size += len(data)
 
 

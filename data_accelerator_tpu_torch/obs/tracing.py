@@ -119,18 +119,20 @@ def activated(cap) -> Iterator[None]:
 
 
 @contextlib.contextmanager
-def span(name: str, **props) -> Iterator[None]:
+def span(name: str, **props) -> Iterator[Dict]:
     """Child span under the thread's active trace; no-op without one.
 
-    The no-op path costs one attribute lookup — safe to leave in hot
-    host code permanently (sinks, checkpoint, collect)."""
+    Yields the span's props, so a value known only once the work is
+    done (lines polled, bytes encoded) can join them before the span
+    is emitted. The no-op path costs one attribute lookup — safe to
+    leave in hot host code permanently (sinks, checkpoint, collect)."""
     stack = getattr(_local, "stack", None)
     if not stack:
-        yield
+        yield props
         return
     ctx, parent_id = stack[-1]
     with ctx._child(name, parent_id, props):
-        yield
+        yield props
 
 
 class TraceContext:
@@ -242,7 +244,7 @@ class TraceContext:
         )
 
     @contextlib.contextmanager
-    def _child(self, name: str, parent_id: str, props: Dict) -> Iterator[None]:
+    def _child(self, name: str, parent_id: str, props: Dict) -> Iterator[Dict]:
         span_id = str(next(self._span_counter))
         start_ts = time.time()
         t0 = time.perf_counter()
@@ -258,7 +260,7 @@ class TraceContext:
         )
         try:
             with profiled:
-                yield
+                yield props
         finally:
             if pushed:
                 stack.pop()

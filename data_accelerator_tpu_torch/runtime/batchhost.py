@@ -40,7 +40,7 @@ from ..obs.histogram import HISTOGRAMS
 from ..obs.metrics import MetricLogger
 from ..obs.tracing import Tracer
 from ..utils import fs
-from .processor import FlowProcessor
+from .processor import FlowProcessor, record_device_step
 from .sinks import OutputDispatcher, build_output_operators
 from .sources import read_json_file
 
@@ -284,19 +284,39 @@ class BatchHost:
             with trace.activate():
                 with tracing.span("sync"):
                     handle.collect_counts()
-                trace.record_since("device-step", "dispatch-done")
+            record_device_step(handle, trace)
             if land_pool is not None:
                 landings.append(land_pool.submit(land, handle, trace))
             else:
                 land(handle, trace)
                 check_landing_failure()
 
+        # the trace of the chunk the next row read goes to: it begins
+        # when that chunk's first row is read, so each chunk's trace runs
+        # from its reads to its landing
+        next_trace = None
+
+        def chunk_trace():
+            nonlocal next_trace
+            if next_trace is None:
+                next_trace = self.tracer.begin(
+                    "batch/chunk", batchTime=batch_time_ms
+                )
+            return next_trace
+
+        def read(f: str) -> List[dict]:
+            with chunk_trace().activate(), tracing.span("read", file=f) as props:
+                got = read_json_file(f)
+                props["lines"] = len(got)
+            return got
+
         def flush(chunk: List[dict]):
             # dispatch chunk N; once `depth` chunks are in flight,
             # finish the oldest while the newer ones compute — file
             # reads and sink writes hide under the device steps
+            nonlocal next_trace
             check_landing_failure()
-            trace = self.tracer.begin("batch/chunk", batchTime=batch_time_ms)
+            trace, next_trace = chunk_trace(), None
             with trace.activate(), tracing.span("decode", rows=len(chunk)):
                 raw = self.processor.encode_rows(
                     chunk, (batch_time_ms // 1000) * 1000
@@ -320,15 +340,20 @@ class BatchHost:
         pos = 0
         try:
             for f in files:
-                rows.extend(read_json_file(f))
+                rows.extend(read(f))
                 while len(rows) - pos >= cap:
                     flush(rows[pos:pos + cap])
                     pos += cap
                     if pos >= cap and pos * 2 >= len(rows):
                         del rows[:pos]
                         pos = 0
+                if len(rows) > pos:
+                    chunk_trace()  # this read gave the next chunk's first row
             if len(rows) > pos:
                 flush(rows[pos:])
+            if next_trace is not None:
+                # reads that gave no row (empty files after the last chunk)
+                next_trace.end(status="empty")
             while pending:
                 finish(*pending.popleft())
             while landings:
@@ -336,6 +361,8 @@ class BatchHost:
             check_landing_failure()
         except Exception as e:
             self.telemetry.track_exception(e, {"event": "error/batch/process"})
+            if next_trace is not None:
+                next_trace.end(status="error")
             for h, tr in pending:
                 tr.end(status="error")  # idempotent
                 h.abandon()

@@ -84,7 +84,7 @@ from ..obs.tracing import Tracer
 from ..pilot.controller import PilotController
 from . import confaudit, protocolmonitor
 from .checkpoint import OffsetCheckpointer, WindowStateCheckpointer
-from .processor import FlowProcessor
+from .processor import FlowProcessor, record_device_step
 from .sinks import OutputDispatcher, build_output_operators
 from .sources import LocalSource, StreamingSource, make_source
 
@@ -496,7 +496,7 @@ class StreamingHost:
                 # native ingest: raw wire bytes -> C++ decoder into the
                 # pooled host matrix (to_device=False); the dispatch
                 # makes its one host-to-device copy
-                blob, _n, c = src.poll_raw(max_events)
+                blob, _n, c = self._poll_raw_traced(src, max_events)
                 received = _n
                 raw[name] = self.processor.encode_json_bytes(
                     blob, (batch_time_ms // 1000) * 1000, source=name,
@@ -527,6 +527,27 @@ class StreamingHost:
             consumed.update(c)
         return raw, consumed, batch_time_ms, t0
 
+    @staticmethod
+    def _poll_raw_traced(src, max_events: int):
+        """``src.poll_raw`` under a ``poll`` span (the drain and join of
+        the buffered lines), and the wait of the batch's oldest event
+        inside the program as ``source/wait``: from its arrival stamp to
+        the drain, where the source keeps both (``last_poll``)."""
+        with tracing.span("poll") as props:
+            blob, n, offsets = src.poll_raw(max_events)
+            props["lines"] = n
+            last = getattr(src, "last_poll", None)
+            if last is not None:
+                props["buffered"] = last["buffered"]
+                props["reader_cpu_ms"] = round(last["reader_cpu_ms"], 3)
+        trace = tracing.current_trace()
+        if trace is not None and last is not None and last["arrival"] is not None:
+            trace.record(
+                "source/wait", last["arrival"],
+                (last["polled"] - last["arrival"]) * 1000.0,
+            )
+        return blob, n, offsets
+
     def _finish(
         self, handle, consumed, batch_time_ms, t0, trace,
         inflight_depth: int = 1,
@@ -549,7 +570,7 @@ class StreamingHost:
                 # time the dispatch loop stalled waiting for the
                 # window's oldest batch to leave the device
                 stall_ms = (time.time() - sync_t0) * 1000.0
-            trace.record_since("device-step", "dispatch-done")
+            record_device_step(handle, trace)
         except Exception as e:
             self.telemetry.track_exception(
                 e, {"event": "error/streaming/process", "batchTime": batch_time_ms}
@@ -643,8 +664,8 @@ class StreamingHost:
         requeue_on_error: bool = True,
     ) -> Dict[str, float]:
         """The batch tail behind the counts sync: land the streamed
-        tables, run sinks, commit state, ack sources, emit metrics,
-        checkpoint."""
+        tables, run sinks, commit state, ack sources, then (the ``tail``
+        span) emit metrics and checkpoint."""
         pm = self.protocol_monitor
         try:
             with trace.activate():
@@ -681,176 +702,181 @@ class StreamingHost:
             logger.exception("batch processing failed; rethrowing for retry")
             raise
 
-        metrics["Latency-Batch"] = (time.time() - t0) * 1000.0
-        metrics["IngestRateScale"] = self._rate_scale
-        metrics["Pipeline_Depth"] = float(inflight_depth)
-        metrics["Pipeline_Stall_Ms"] = stall_ms
-        if backlog is not None:
-            # background landing accounting: landings still queued when
-            # this one was submitted, and the ms this batch's streamed
-            # tables took to resolve on the landing thread
-            metrics["Transfer_Background_Pending"] = float(backlog)
-            metrics["Transfer_Background_LandMs"] = land_ms
-        self.health.record_stall(stall_ms)
-        # the calibrated machine profile rides every batch as Calib_*
-        # gauges (constant per process and device)
-        metrics.update(self._calib_metrics)
-        # live device-memory watermark: the caching allocator's
-        # in-use/peak bytes, absent on the CPU
-        if self.hbm_sample:
-            hbm = self.processor.device_memory_stats()
-            if hbm is not None:
-                metrics["Hbm_BytesInUse"] = float(hbm["bytes_in_use"])
-                metrics["Hbm_PeakBytes"] = float(hbm["peak_bytes_in_use"])
-        # per-stage latency percentiles from the live histograms — the
-        # DATAX-<flow>:Latency-<Stage>-pNN series
-        for stage in MetricName.STAGES:
-            stem = MetricName.stage_metric(stage)
-            for q in (50, 95, 99):
-                v = HISTOGRAMS.percentile(self.health.flow, stage, q)
-                if v is not None:
-                    metrics[f"{stem}-p{q}"] = v
-        # model-vs-observed conformance: ratio gauges join this batch's
-        # metrics; drift transitions become typed flight-recorder events
-        # and store rows
-        if self.conformance is not None:
-            gauges, drift_events = self.conformance.observe(
-                metrics, batch_time_ms
-            )
-            metrics.update(gauges)
-            for ev in drift_events:
-                props = ev.to_props()
-                self.telemetry.track_event("conformance/drift", props)
-                self.metric_logger.send_metric_events(
-                    "Conformance_Drift", [props], batch_time_ms
+        # the tail after the ack, up to the root's end: metrics, alerts,
+        # the fleet publisher, the log line and the checkpoint
+        with trace.activate(), tracing.span("tail"):
+            metrics["Latency-Batch"] = (time.time() - t0) * 1000.0
+            metrics["IngestRateScale"] = self._rate_scale
+            metrics["Pipeline_Depth"] = float(inflight_depth)
+            metrics["Pipeline_Stall_Ms"] = stall_ms
+            if backlog is not None:
+                # background landing accounting: landings still queued when
+                # this one was submitted, and the ms this batch's streamed
+                # tables took to resolve on the landing thread
+                metrics["Transfer_Background_Pending"] = float(backlog)
+                metrics["Transfer_Background_LandMs"] = land_ms
+            self.health.record_stall(stall_ms)
+            # the calibrated machine profile rides every batch as Calib_*
+            # gauges (constant per process and device)
+            metrics.update(self._calib_metrics)
+            # live device-memory watermark: the caching allocator's
+            # in-use/peak bytes, absent on the CPU
+            if self.hbm_sample:
+                hbm = self.processor.device_memory_stats()
+                if hbm is not None:
+                    metrics["Hbm_BytesInUse"] = float(hbm["bytes_in_use"])
+                    metrics["Hbm_PeakBytes"] = float(hbm["peak_bytes_in_use"])
+            # per-stage latency percentiles from the live histograms — the
+            # DATAX-<flow>:Latency-<Stage>-pNN series
+            for stage in MetricName.STAGES:
+                stem = MetricName.stage_metric(stage)
+                for q in (50, 95, 99):
+                    v = HISTOGRAMS.percentile(self.health.flow, stage, q)
+                    if v is not None:
+                        metrics[f"{stem}-p{q}"] = v
+            # model-vs-observed conformance: ratio gauges join this batch's
+            # metrics; drift transitions become typed flight-recorder events
+            # and store rows
+            if self.conformance is not None:
+                gauges, drift_events = self.conformance.observe(
+                    metrics, batch_time_ms
                 )
-                logger.warning(
-                    "conformance drift %s: %s", ev.code, ev.message
-                )
-        # finished profiler captures stitch into THIS batch's trace as
-        # span events (the capture path is then one `obs trace` away
-        # from the batches it overlapped) and bump the capture counter
-        if self.profiler is not None:
-            for cap in self.profiler.drain_finished():
-                trace.record(
-                    "profiler/capture", cap["startedTs"],
-                    cap.get("durationMs") or 0.0, path=cap["path"],
-                )
-            if self.profiler.captures_count:
-                metrics["Profiler_Captures_Count"] = float(
-                    self.profiler.captures_count
-                )
-        if pm is not None:
-            # Protocol_Events_Count for this batch's recorded prefix
-            # (the post-ack checkpoint trio drains on the next batch)
-            metrics.update(pm.drain_metric_deltas())
-        self.telemetry.batch_end(batch_time_ms, {"latencyMs": metrics["Latency-Batch"]})
-        self.metric_logger.send_batch_metrics(metrics, batch_time_ms)
-        # alert evaluation AFTER the store flush so window aggregates
-        # include this batch; the firing set rides the health payload
-        # (readyz) and the Alerts_Firing series
-        firing: List[dict] = []
-        if self.alerts is not None:
-            firing = self.alerts.evaluate()
-            self.health.record_alerts(firing)
-            self.metric_logger.send_metric(
-                "Alerts_Firing", float(len(firing)), batch_time_ms
-            )
-        # fleet telemetry frame accumulation: the acked batch's metric
-        # deltas + consumed offset ranges fold into the open window;
-        # record_batch is fail-open and thread-safe (this tail may run
-        # on the landing thread)
-        if self.fleet_publisher is not None:
-            self.fleet_publisher.record_batch(
-                metrics, consumed, batch_time_ms,
-                health=self.health.health(), alerts=firing,
-            )
-        logger.info(
-            "batch %d: %s",
-            self.batches_processed + 1,
-            " ".join(f"{k}={v:.1f}" for k, v in sorted(metrics.items())),
-        )
-        # DX53x state events (load fallback / both-sides-bad) land in
-        # the flight recorder like conformance drift — typed, greppable
-        self._drain_state_events()
-        # runtime DX805: buffer-sanitizer poison hits join the recorder
-        # the same way (and the Sanitizer_PoisonHit metric event stream)
-        san = self.processor.buffer_sanitizer
-        if san is not None:
-            for ev in san.drain_events():
-                try:
-                    self.telemetry.track_event("sanitizer/poison", ev)
+                metrics.update(gauges)
+                for ev in drift_events:
+                    props = ev.to_props()
+                    self.telemetry.track_event("conformance/drift", props)
                     self.metric_logger.send_metric_events(
-                        "Sanitizer_PoisonHit", [ev], batch_time_ms
+                        "Conformance_Drift", [props], batch_time_ms
                     )
-                except Exception:  # noqa: BLE001 — telemetry never kills a batch
-                    logger.exception("sanitizer event emit failed")
-                logger.warning("buffer sanitizer %s", ev.get("message"))
-        # runtime DX906: protocol-monitor ordering violations from
-        # previously sealed batches join the recorder the same way
-        if pm is not None:
-            for ev in pm.drain_events():
-                try:
-                    self.telemetry.track_event("protocol/violation", ev)
-                    self.metric_logger.send_metric_events(
-                        "Protocol_Violation", [ev], batch_time_ms
+                    logger.warning(
+                        "conformance drift %s: %s", ev.code, ev.message
                     )
-                except Exception:  # noqa: BLE001 — telemetry never kills a batch
-                    logger.exception("protocol event emit failed")
-                logger.warning("protocol monitor %s", ev.get("message"))
-        # dx-proto: post-commit at-least-once replay cursor: the window snapshot
-        # and the offset commit run AFTER the ack on purpose — a crash
-        # between ack and checkpoint replays from the previous offsets
-        # into rings that already hold the events (duplicates, never
-        # loss)
-        if self.checkpointer and (
-            t0 - self._last_checkpoint >= self.checkpoint_interval_s
-        ):
-            with trace.activate(), tracing.span("checkpoint"):
-                if self.window_checkpointer:
-                    # snapshot BEFORE offsets: a crash between the two
-                    # leaves old offsets + new rings (at-least-once
-                    # duplicates); the reverse order would resume PAST
-                    # events the restored rings never saw
-                    snap = self.processor.snapshot_window_state()
-                    # armed sanitizer: a checkpoint must be REAL copies;
-                    # shared memory with the live rings (or an earlier
-                    # snapshot) or sentinel residue is caught before the
-                    # snapshot is ever persisted
-                    san = self.processor.buffer_sanitizer
-                    if san is not None:
-                        san.check_snapshot(snap, self.processor.window_buffers)
-                    self.window_checkpointer.save(snap)
-                    if pm is not None:
-                        pm.record(
-                            "DURABLE_WRITE",
-                            detail="window_checkpointer.save",
+            # finished profiler captures stitch into THIS batch's trace as
+            # span events (the capture path is then one `obs trace` away
+            # from the batches it overlapped) and bump the capture counter
+            if self.profiler is not None:
+                for cap in self.profiler.drain_finished():
+                    trace.record(
+                        "profiler/capture", cap["startedTs"],
+                        cap.get("durationMs") or 0.0, path=cap["path"],
+                    )
+                if self.profiler.captures_count:
+                    metrics["Profiler_Captures_Count"] = float(
+                        self.profiler.captures_count
+                    )
+            if pm is not None:
+                # Protocol_Events_Count for this batch's recorded prefix
+                # (the post-ack checkpoint trio drains on the next batch)
+                metrics.update(pm.drain_metric_deltas())
+            self.telemetry.batch_end(
+                batch_time_ms, {"latencyMs": metrics["Latency-Batch"]}
+            )
+            self.metric_logger.send_batch_metrics(metrics, batch_time_ms)
+            # alert evaluation AFTER the store flush so window aggregates
+            # include this batch; the firing set rides the health payload
+            # (readyz) and the Alerts_Firing series
+            firing: List[dict] = []
+            if self.alerts is not None:
+                firing = self.alerts.evaluate()
+                self.health.record_alerts(firing)
+                self.metric_logger.send_metric(
+                    "Alerts_Firing", float(len(firing)), batch_time_ms
+                )
+            # fleet telemetry frame accumulation: the acked batch's metric
+            # deltas + consumed offset ranges fold into the open window;
+            # record_batch is fail-open and thread-safe (this tail may run
+            # on the landing thread)
+            if self.fleet_publisher is not None:
+                self.fleet_publisher.record_batch(
+                    metrics, consumed, batch_time_ms,
+                    health=self.health.health(), alerts=firing,
+                )
+            logger.info(
+                "batch %d: %s",
+                self.batches_processed + 1,
+                " ".join(f"{k}={v:.1f}" for k, v in sorted(metrics.items())),
+            )
+            # DX53x state events (load fallback / both-sides-bad) land in
+            # the flight recorder like conformance drift — typed, greppable
+            self._drain_state_events()
+            # runtime DX805: buffer-sanitizer poison hits join the recorder
+            # the same way (and the Sanitizer_PoisonHit metric event stream)
+            san = self.processor.buffer_sanitizer
+            if san is not None:
+                for ev in san.drain_events():
+                    try:
+                        self.telemetry.track_event("sanitizer/poison", ev)
+                        self.metric_logger.send_metric_events(
+                            "Sanitizer_PoisonHit", [ev], batch_time_ms
                         )
-                    if self.processor.state_mirror is not None:
-                        # ship the owned window partitions (A/B + pointer
-                        # per partition) so a rescale successor can pull
-                        # exactly its assigned range — fail-closed: a
-                        # dead store fails the batch, which requeues
-                        self.processor.push_window_partitions(snap)
+                    except Exception:  # noqa: BLE001 — telemetry never kills a batch
+                        logger.exception("sanitizer event emit failed")
+                    logger.warning("buffer sanitizer %s", ev.get("message"))
+            # runtime DX906: protocol-monitor ordering violations from
+            # previously sealed batches join the recorder the same way
+            if pm is not None:
+                for ev in pm.drain_events():
+                    try:
+                        self.telemetry.track_event("protocol/violation", ev)
+                        self.metric_logger.send_metric_events(
+                            "Protocol_Violation", [ev], batch_time_ms
+                        )
+                    except Exception:  # noqa: BLE001 — telemetry never kills a batch
+                        logger.exception("protocol event emit failed")
+                    logger.warning("protocol monitor %s", ev.get("message"))
+            # dx-proto: post-commit at-least-once replay cursor: the window snapshot
+            # and the offset commit run AFTER the ack on purpose — a crash
+            # between ack and checkpoint replays from the previous offsets
+            # into rings that already hold the events (duplicates, never
+            # loss)
+            if self.checkpointer and (
+                t0 - self._last_checkpoint >= self.checkpoint_interval_s
+            ):
+                with tracing.span("checkpoint"):
+                    if self.window_checkpointer:
+                        # snapshot BEFORE offsets: a crash between the two
+                        # leaves old offsets + new rings (at-least-once
+                        # duplicates); the reverse order would resume PAST
+                        # events the restored rings never saw
+                        snap = self.processor.snapshot_window_state()
+                        # armed sanitizer: a checkpoint must be REAL copies;
+                        # shared memory with the live rings (or an earlier
+                        # snapshot) or sentinel residue is caught before the
+                        # snapshot is ever persisted
+                        san = self.processor.buffer_sanitizer
+                        if san is not None:
+                            san.check_snapshot(snap, self.processor.window_buffers)
+                        self.window_checkpointer.save(snap)
                         if pm is not None:
                             pm.record(
-                                "STATE_PUSH",
-                                detail="push_window_partitions",
+                                "DURABLE_WRITE",
+                                detail="window_checkpointer.save",
                             )
-                self.checkpointer.checkpoint_batch(consumed)
-                if pm is not None:
-                    pm.record(
-                        "OFFSET_COMMIT", detail="checkpoint_batch",
-                    )
-            self._last_checkpoint = t0
-            self.health.record_checkpoint()
-        if pm is not None:
-            pm.seal_batch(batch_time_ms)
-        self.batches_processed += 1
-        self.health.record_batch(
-            batch_time_ms, ok=True, latency_ms=metrics["Latency-Batch"]
-        )
-        self.health.record_watermark(batch_time_ms)
+                        if self.processor.state_mirror is not None:
+                            # ship the owned window partitions (A/B + pointer
+                            # per partition) so a rescale successor can pull
+                            # exactly its assigned range — fail-closed: a
+                            # dead store fails the batch, which requeues
+                            self.processor.push_window_partitions(snap)
+                            if pm is not None:
+                                pm.record(
+                                    "STATE_PUSH",
+                                    detail="push_window_partitions",
+                                )
+                    self.checkpointer.checkpoint_batch(consumed)
+                    if pm is not None:
+                        pm.record(
+                            "OFFSET_COMMIT", detail="checkpoint_batch",
+                        )
+                self._last_checkpoint = t0
+                self.health.record_checkpoint()
+            if pm is not None:
+                pm.seal_batch(batch_time_ms)
+            self.batches_processed += 1
+            self.health.record_batch(
+                batch_time_ms, ok=True, latency_ms=metrics["Latency-Batch"]
+            )
+            self.health.record_watermark(batch_time_ms)
         trace.end()
         return metrics
 
@@ -927,7 +953,14 @@ class StreamingHost:
                     break
                 sleep = self.interval_s - (time.time() - start)
                 if sleep > 0:
+                    # a one-span trace of its own, outside every batch's
+                    # root, so Latency-Batch and the batch stage keep
+                    # their meaning
+                    pace = self.tracer.begin(
+                        "streaming/pace", plannedMs=round(sleep * 1000.0, 3)
+                    )
                     time.sleep(sleep)
+                    pace.end()
         finally:
             self._stop_profiler()
 

@@ -2256,6 +2256,14 @@ class FlowProcessor:
                     f"dispatch_batch got unknown source {name!r} "
                     f"(declared: {list(self.specs)})"
                 )
+        # the step's start on the card, recorded on the step's stream
+        # ahead of its first device work (the ingest matrix's copy), and
+        # the host time it was enqueued: ``PendingBatch.device_step``
+        step_start = None
+        if self.device.type == "cuda":
+            started = torch.cuda.Event(enable_timing=True)
+            started.record()
+            step_start = (started, time.time())
         raws: Dict[str, Union[TableData, PackedRaw]] = {}
         # (pool, matrix, h2d event) per pooled ingest matrix the batch
         # rides on, owned by the batch until it lands
@@ -2312,6 +2320,7 @@ class FlowProcessor:
                 for n, st in self.state_tables.items()
             },
             mesh_collectives=census,
+            step_start=step_start,
         )
         # each staged slot is owned by THIS batch until its transfer
         # lands: the dispatch that next rotates onto the slot checks the
@@ -2629,6 +2638,19 @@ def _host_sort(rows: List[dict], order: List[Tuple[str, bool]]) -> None:
         rows.sort(key=kf, reverse=not asc)
 
 
+def record_device_step(handle: "PendingBatch", trace) -> None:
+    """The batch's ``device-step`` span, after its counts sync: on CUDA
+    the card's own time between the step's start and end events, placed
+    at the host time the start was enqueued; on the CPU the host
+    interval from dispatch return (the trace's ``dispatch-done`` mark)
+    to the sync's end."""
+    timed = handle.device_step()
+    if timed is None:
+        trace.record_since("device-step", "dispatch-done")
+    else:
+        trace.record("device-step", *timed)
+
+
 # placeholder for "no transfer in flight" while a freshly staged slot
 # waits for its owning PendingBatch to be constructed
 _SET_EVENT = threading.Event()
@@ -2679,8 +2701,12 @@ class PendingBatch:
         ingest: Optional[List[tuple]] = None,
         state: Optional[Dict[str, TableData]] = None,
         mesh_collectives: Optional[MeshCollectives] = None,
+        step_start: Optional[tuple] = None,
     ):
         self.proc = proc
+        # (timing event before the step's first device work, the host
+        # time it was enqueued); None on the CPU
+        self._step_start = step_start
         # the collective census of THIS batch's step (observed mesh only)
         self.mesh_collectives = mesh_collectives
         # THIS batch's pipeline: a UDF onInterval refresh may rebuild
@@ -2738,7 +2764,7 @@ class PendingBatch:
             self.fetch_hosts = self.fetch_tables
             self.host_state = self.state
             return
-        self._step_done = torch.cuda.Event()
+        self._step_done = torch.cuda.Event(enable_timing=True)
         self._step_done.record()
         self._counts_event = torch.cuda.Event()
         self._tables_event = torch.cuda.Event()
@@ -2761,6 +2787,17 @@ class PendingBatch:
                     host.cols[c].copy_(v, non_blocking=True)
                 host.valid.copy_(t.valid, non_blocking=True)
             self._tables_event.record(self._stream)
+
+    def device_step(self) -> Optional[Tuple[float, float]]:
+        """(host time the step's start event was enqueued, the card's
+        ms from it to the step's end event) once ``collect_counts`` has
+        returned: the counts' copy waited behind the end event, so both
+        events are complete and the read waits for nothing. None on the
+        CPU, or before the counts landed."""
+        if self._step_start is None or self._step_done is None or self._counts is None:
+            return None
+        started, enqueued = self._step_start
+        return enqueued, started.elapsed_time(self._step_done)
 
     def block_until_evaluated(self) -> None:
         """Wait for the device step to COMPLETE (rules evaluated, state

@@ -92,8 +92,13 @@ class FileSink(Sink):
         ext = ".json.gz" if self.compression == "gzip" else ".json"
         name = f"{dataset}_{batch_time_ms}_{self._counter}{ext}"
         path = os.path.join(out_dir, name)
-        payload = "\n".join(json.dumps(r, default=str) for r in rows) + "\n"
-        fs.write_text(path, payload)
+        # children of the operator's sink/file span: the rows to JSON
+        # text, then the gzip (if any) and the atomic write
+        with tracing.span("sink/file/encode", rows=len(rows)) as props:
+            payload = "\n".join(json.dumps(r, default=str) for r in rows) + "\n"
+            props["bytes"] = len(payload)
+        with tracing.span("sink/file/write", rows=len(rows), bytes=len(payload)):
+            fs.write_text(path, payload)
         return len(rows)
 
 

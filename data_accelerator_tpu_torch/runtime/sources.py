@@ -25,8 +25,9 @@ import re
 import socket
 import threading
 import time
+from collections import deque
 from datetime import datetime, timedelta, timezone
-from typing import Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
 
 from ..core.schema import Schema, StringDictionary
 from ..utils import fs
@@ -220,16 +221,30 @@ class FileSource(StreamingSource):
 class SocketSource(StreamingSource):
     """Newline-delimited JSON over TCP — the ingest-over-DCN stand-in for
     the EventHub/Kafka receivers. A background thread accepts connections
-    and buffers events; poll() drains up to max_events."""
+    and buffers events; poll() drains up to max_events.
+
+    The readers stamp the arrival of every ``STAMP_EVERY``-th line, and
+    sample their own CPU time with it; each poll leaves, on
+    ``last_poll``, the stamp of its oldest line (the latest stamp at or
+    before it, so never after its arrival), the drain's time, the lines
+    left buffered and the readers' CPU ms since the previous poll."""
+
+    STAMP_EVERY = 256
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0, name: str = "socket"):
         self.name = name
         self._buf: List[bytes] = []
-        # un-acked delivered batches (from_seq, lines); ack() releases
-        # the oldest — a pipelined host holds several in flight
+        # un-acked delivered batches (from_seq, lines, arrival); ack()
+        # releases the oldest — a pipelined host holds several in flight
         self._fifo = UnackedFifo()
         self._lock = threading.Lock()
         self._seq = 0
+        # (line sequence number, time.time()) of stamped lines not yet
+        # behind the last poll; the readers' CPU seconds so far
+        self._stamps: Deque[Tuple[int, float]] = deque()
+        self._reader_cpu_s = 0.0
+        self._reader_cpu_polled = 0.0
+        self.last_poll: Optional[Dict[str, object]] = None
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._server.bind((host, port))
@@ -250,6 +265,7 @@ class SocketSource(StreamingSource):
             ).start()
 
     def _reader(self, conn):
+        cpu = time.thread_time()
         with conn:
             f = conn.makefile("rb")
             for line in f:
@@ -257,7 +273,22 @@ class SocketSource(StreamingSource):
                 if not line:
                     continue
                 with self._lock:
+                    seq = self._seq + len(self._buf)
+                    if seq % self.STAMP_EVERY == 0:
+                        self._stamps.append((seq, time.time()))
+                        now = time.thread_time()
+                        self._reader_cpu_s += now - cpu
+                        cpu = now
                     self._buf.append(line)
+        with self._lock:
+            self._reader_cpu_s += time.thread_time() - cpu
+
+    def _arrival(self, seq: int) -> float:
+        """The stamp of line ``seq`` (buffered, under the lock): the
+        latest at or before it; older stamps are dropped."""
+        while len(self._stamps) > 1 and self._stamps[1][0] <= seq:
+            self._stamps.popleft()
+        return self._stamps[0][1]
 
     def poll_raw(self, max_events: int) -> Tuple[bytes, int, Offsets]:
         """Drain up to max_events raw JSON lines as one newline-joined
@@ -267,17 +298,26 @@ class SocketSource(StreamingSource):
         after ``requeue_unacked()`` (a failed batch) the next polls
         re-deliver the un-acked batches in order (at-least-once within
         the process; cross-restart replay needs a replayable upstream
-        like the file/blob source)."""
+        like the file/blob source). A redelivery keeps its first
+        arrival."""
         requeued = self._fifo.next_redelivery()
-        if requeued is not None:
-            frm, lines = requeued
-        else:
-            with self._lock:
+        with self._lock:
+            if requeued is not None:
+                frm, lines, arrival = requeued
+            else:
                 lines = self._buf[:max_events]
                 self._buf = self._buf[max_events:]
                 frm = self._seq
                 self._seq += len(lines)
-        self._fifo.deliver((frm, lines))
+                arrival = self._arrival(frm) if lines else None
+            cpu, self._reader_cpu_polled = (
+                self._reader_cpu_s - self._reader_cpu_polled, self._reader_cpu_s
+            )
+            self.last_poll = {
+                "arrival": arrival, "polled": time.time(),
+                "buffered": len(self._buf), "reader_cpu_ms": cpu * 1000.0,
+            }
+        self._fifo.deliver((frm, lines, arrival))
         blob = b"\n".join(lines) + (b"\n" if lines else b"")
         return blob, len(lines), {(self.name, 0): (frm, frm + len(lines))}
 

@@ -1,0 +1,9 @@
+"""The program's ``sink/file/encode`` span a chunk (the blob sinks' rows to JSON text), over the batch window. None where the program records no such span."""
+
+from streambench import readers
+
+
+def read(record):
+    if not any("sink/file/encode" in w.get("spans", ()) for w in record.get("window_passes", [])):
+        return None
+    return readers.batch_spans_ms(record, ("sink/file/encode",))
