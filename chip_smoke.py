@@ -1662,6 +1662,8 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
     got, its metrics, dispatch and checkpoint times, and the last window
     snapshot it saved; count host syncs in poll, encode and dispatch.
     Each wrapper reaches the object it wraps weakly (``weakly``)."""
+    from data_accelerator_tpu_torch.runtime.sinks import Sink
+
     proc = host.processor
     rec = {"encoded": [], "times": [], "dispatch_ms": [], "rows": {},
            "metrics": [], "snapshot_ms": [], "save_ms": [], "last_snap": None}
@@ -1702,7 +1704,7 @@ def record_host(host, sync: "ThreadSyncCount") -> dict:
 
     host.window_checkpointer.save = save_timed
 
-    class Recording:
+    class Recording(Sink):
         kind = "recording"
 
         def write(self, dataset, rows, batch_time_ms):
@@ -2939,6 +2941,7 @@ def phase_state(seed: int, nvidia_smi: str) -> dict:
     from data_accelerator_tpu_torch.core.config import SettingDictionary
     from data_accelerator_tpu_torch.kernels import launch
     from data_accelerator_tpu_torch.runtime import host as host_mod
+    from data_accelerator_tpu_torch.runtime.sinks import Sink
     from data_accelerator_tpu_torch.serve.objectstore import ObjectStoreServer
 
     rs = np.random.RandomState(seed + 4)
@@ -3017,7 +3020,7 @@ def phase_state(seed: int, nvidia_smi: str) -> dict:
             feed_socket(succ.source.port, payloads[STATE_BATCHES:], CAPACITY, succ.source)
             win_rows = {}
 
-            class Recording:
+            class Recording(Sink):
                 kind = "recording"
 
                 def write(self, dataset, rows, batch_time_ms):
@@ -3040,7 +3043,7 @@ def phase_state(seed: int, nvidia_smi: str) -> dict:
                 str(Path(tmp) / "cpu"), capacity=CAPACITY)), device="cpu")
             cpu_rows = {}
 
-            class CpuRecording:
+            class CpuRecording(Sink):
                 kind = "recording"
 
                 def write(self, dataset, rows, batch_time_ms):
@@ -4712,8 +4715,9 @@ def mesh_model_job(tmp: str) -> Path:
 
 def time_batch_tail(host, rec) -> None:
     """Split each batch's tail into ``rec["split"]``: the ms of landing
-    its tables (``collect_tables``: the copy to the host and the rows
-    made in Python), of its sinks in all, and of each sink kind."""
+    its tables (``collect_landed``: the copy to the host and the valid
+    rows compacted), of its sinks in all (rows drawn or rendered there),
+    and of each sink kind."""
     split = rec["split"] = {"collect_ms": [], "sinks_ms": [], "sink_kind_ms": []}
     # busy ms of each sink kind: the dispatcher runs the outputs' sinks
     # on threads of their own, so the kinds may add up past the total
@@ -4721,16 +4725,16 @@ def time_batch_tail(host, rec) -> None:
     lock = threading.Lock()
     for op in host.dispatcher.operators.values():
         for sink in op.sinks:
-            write = sink.write
+            write = sink.write_landed
 
-            def timed(dataset, rows, batch_time_ms, _write=write, _kind=sink.kind):
+            def timed(dataset, table, batch_time_ms, _write=write, _kind=sink.kind):
                 t0 = time.perf_counter()
-                n = _write(dataset, rows, batch_time_ms)
+                written = _write(dataset, table, batch_time_ms)
                 with lock:
                     kinds[_kind] = kinds.get(_kind, 0.0) + (time.perf_counter() - t0) * 1e3
-                return n
+                return written
 
-            sink.write = timed
+            sink.write_landed = timed
     dispatch_sinks = host.dispatcher.dispatch
 
     def sinks_timed(datasets, batch_time_ms, *a, **kw):
@@ -4746,7 +4750,7 @@ def time_batch_tail(host, rec) -> None:
 
     def dispatch_split(raw, batch_time_ms):
         handle = dispatch(raw, batch_time_ms)
-        collect = handle.collect_tables
+        collect = handle.collect_landed
 
         def collect_timed():
             t0 = time.perf_counter()
@@ -4754,7 +4758,7 @@ def time_batch_tail(host, rec) -> None:
             split["collect_ms"].append((time.perf_counter() - t0) * 1e3)
             return out
 
-        handle.collect_tables = collect_timed
+        handle.collect_landed = collect_timed
         return handle
 
     host.processor.dispatch_batch = dispatch_split

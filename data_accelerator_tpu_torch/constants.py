@@ -119,6 +119,8 @@ class MetricName:
     )
 
     MetricSinkPrefix = "Sink_"
+    # the rows the file sink rendered from a landed table's columns
+    SinkFileColumnarRows = "Sink_file_ColumnarRows"
     LatencyPrefix = "Latency-"
 
     # canonical per-batch stage names (span names == histogram stages ==
@@ -343,6 +345,12 @@ class MetricName:
         # (exemplar-bearing like every Latency-* family)
         r"Latency-LQExec-p(50|95|99)",
     )
+    # the port's own names, beyond the JAX package's registry above:
+    # the rows a sink rendered straight from a landed table's columns
+    # (runtime/sinks.py OutputOperator: Sink_file_ColumnarRows beside
+    # Sink_file, the blob sink's native JSON-lines route)
+    PORT_RUNTIME_METRIC_PATTERNS = (SinkFileColumnarRows,)
+    RUNTIME_METRIC_PATTERNS = RUNTIME_METRIC_PATTERNS + PORT_RUNTIME_METRIC_PATTERNS
 
     @classmethod
     def is_runtime_metric(cls, metric: str) -> bool:

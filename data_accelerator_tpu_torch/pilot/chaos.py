@@ -38,6 +38,8 @@ import random
 import time
 from typing import List, Optional
 
+from ..runtime.sinks import Sink
+
 
 class ChaosFault(RuntimeError):
     """Raised by injectors that kill work mid-flight (the preemption
@@ -119,19 +121,26 @@ class SinkOutageInjector(Injector):
         self._restores = []
 
 
-class _WrappedSink:
-    def __init__(self, injector: SinkOutageInjector, inner):
+class _WrappedSink(Sink):
+    def __init__(self, injector: SinkOutageInjector, inner: Sink):
         self._injector = injector
         self._inner = inner
-        self.kind = getattr(inner, "kind", "wrapped")
+        self.kind = inner.kind
 
-    def write(self, dataset, rows, batch_time_ms):
+    def _fault(self) -> None:
         self._injector.writes += 1
         if self._injector.fail:
             raise ChaosFault("sink outage")
         if self._injector.delay_s:
             time.sleep(self._injector.delay_s)
+
+    def write(self, dataset, rows, batch_time_ms):
+        self._fault()
         return self._inner.write(dataset, rows, batch_time_ms)
+
+    def write_landed(self, dataset, table, batch_time_ms):
+        self._fault()
+        return self._inner.write_landed(dataset, table, batch_time_ms)
 
     def __getattr__(self, name):
         return getattr(self._inner, name)
@@ -282,7 +291,7 @@ class PartitionLossInjector(Injector):
 # ---------------------------------------------------------------------------
 # Harness pieces the scenario suite (and tests) assert against
 # ---------------------------------------------------------------------------
-class RecordingSink:
+class RecordingSink(Sink):
     """Sink that records every successful write in arrival order — the
     exactly-once witness: after a chaos run, the recorded event ids
     must be each expected id exactly once, in FIFO batch order."""

@@ -153,6 +153,8 @@ class BatchHost:
             build_output_operators(dict_, self.metric_logger, table_sink_map),
             self.metric_logger,
         )
+        with self.processor.compile_scope():
+            self.dispatcher.prepare()
         self.tracker_path = tracker_path or dict_.get(
             "datax.job.input.batch.blob.trackerfile"
         )
@@ -252,7 +254,7 @@ class BatchHost:
             try:
                 with trace.activate():
                     with tracing.span("collect"):
-                        datasets, metrics = handle.collect_tables()
+                        datasets, metrics = handle.collect_landed()
                     with tracing.span("sinks"):
                         self.dispatcher.dispatch(datasets, batch_time_ms)
                 self.processor.commit()

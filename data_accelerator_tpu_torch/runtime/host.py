@@ -366,13 +366,15 @@ class StreamingHost:
             table_sink_map = {name: [name] for name in conf_outputs}
         operators = build_output_operators(dict_, self.metric_logger, table_sink_map)
         self.dispatcher = OutputDispatcher(operators, self.metric_logger)
+        with self.processor.compile_scope():
+            self.dispatcher.prepare()
 
         self.batches_processed = 0
         self._stop = False
 
         # background result landing: in the pipelined loop the only
         # BLOCKING device read per batch is the counts vector; the
-        # batch tail (collect_tables -> sinks -> commit -> ack ->
+        # batch tail (collect_landed -> sinks -> commit -> ack ->
         # metrics -> checkpoint) runs on this one-thread landing
         # executor, so landings stay strictly FIFO while the dispatch
         # loop keeps feeding the device. Conf
@@ -671,7 +673,7 @@ class StreamingHost:
             with trace.activate():
                 land_t0 = time.time()
                 with tracing.span("collect"):
-                    datasets, metrics = handle.collect_tables()
+                    datasets, metrics = handle.collect_landed()
                 land_ms = (time.time() - land_t0) * 1000.0
                 with tracing.span("sinks"):
                     self.dispatcher.dispatch(datasets, batch_time_ms)

@@ -9,13 +9,15 @@ producing the same row JSON the reference's sinks serialize
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import threading
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..compile.exprs import WS_MARKER
 from ..compile.planner import TableData, ViewSchema
 from ..core.schema import StringDictionary
+from ..native import jsonl
 
 
 def _render_value(v, t: str, dictionary: StringDictionary, base_ms: int):
@@ -138,3 +140,105 @@ def _bury(obj: dict, dotted: str, value) -> None:
     for p in parts[:-1]:
         cur = cur.setdefault(p, {})
     cur[parts[-1]] = value
+
+
+class LandedTable:
+    """One output dataset of a landed batch: its valid rows compacted
+    into numpy columns the table owns, so it outlives the transfer
+    buffers they were copied from. ``rows()`` materializes the row
+    dicts on first call and keeps them; a flat table (``flat``) also
+    renders straight to JSON lines (``jsonl``), with no row dict built.
+
+    Not a list: ``json.dumps`` and C code read a list's internals, and
+    would find a subclass empty."""
+
+    def __init__(
+        self, cols: Dict[str, np.ndarray], n_rows: int, schema: ViewSchema,
+        dictionary: StringDictionary, base_ms: int = 0,
+        host_order: Optional[Sequence[Tuple[str, bool]]] = None,
+        host_limit: Optional[int] = None,
+    ):
+        self.cols = cols
+        self.schema = schema
+        self.dictionary = dictionary
+        self.base_ms = base_ms
+        self.host_order = host_order
+        self.host_limit = host_limit
+        self._n = n_rows if host_limit is None else min(n_rows, host_limit)
+        self._n_landed = n_rows
+        self._rows: Optional[List[dict]] = None
+        self._lock = threading.Lock()
+
+    @classmethod
+    def compact(
+        cls, table: TableData, schema: ViewSchema,
+        dictionary: StringDictionary, base_ms: int = 0,
+        host_order: Optional[Sequence[Tuple[str, bool]]] = None,
+        host_limit: Optional[int] = None,
+    ) -> "LandedTable":
+        """The valid rows of ``table`` (host arrays, which may be views
+        of buffers a later batch reuses) copied into arrays of its own."""
+        valid = np.asarray(table.valid)
+        idx = np.nonzero(valid)[0]
+        cols = {}
+        for c, v in table.cols.items():
+            v = np.asarray(v)
+            cols[c] = v[idx] if v.shape[:1] == valid.shape else v.copy()
+        return cls(cols, int(idx.size), schema, dictionary, base_ms,
+                   host_order, host_limit)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def rows(self) -> List[dict]:
+        """The rows as ``materialize_rows`` makes them, host-ordered and
+        limited where the view says so; built once."""
+        with self._lock:
+            if self._rows is None:
+                rows = materialize_rows(
+                    TableData(self.cols, np.ones(self._n_landed, bool)),
+                    self.schema, self.dictionary, self.base_ms,
+                )
+                if self.host_order:
+                    _host_sort(rows, self.host_order)
+                if self.host_limit is not None:
+                    rows = rows[: self.host_limit]
+                self._rows = rows
+            return self._rows
+
+    @property
+    def flat(self) -> bool:
+        """Whether ``jsonl`` renders this table: undotted columns of
+        scalar types in dtypes that render as the row path does, no
+        deferred templates, no host order or limit."""
+        types = self.schema.types
+        return bool(types) and not self.schema.deferred \
+            and not self.host_order and self.host_limit is None and all(
+                "." not in c
+                and jsonl.column_kind(t, self.cols[c].dtype) is not None
+                for c, t in types.items()
+            )
+
+    def jsonl(self) -> str:
+        """The rows as JSON lines, each ending in a newline, rendered
+        natively from the columns of a ``flat`` table."""
+        names = list(self.schema.types)
+        return jsonl.render(
+            names, [self.schema.types[c] for c in names],
+            [self.cols[c] for c in names], self._n, self.dictionary,
+            self.base_ms,
+        )
+
+
+def _host_sort(rows: List[dict], order: Sequence[Tuple[str, bool]]) -> None:
+    """Stable multi-key in-place sort matching SQL semantics: ascending
+    puts NULLs first, descending puts them last (Spark defaults).
+    Applied least-significant key first so significance composes."""
+    for key, asc in reversed(order):
+        def kf(r, k=key):
+            v = r.get(k)
+            # the second element only compares within equal null-flags,
+            # so the placeholder never meets a real value
+            return (v is not None, v if v is not None else 0)
+
+        rows.sort(key=kf, reverse=not asc)

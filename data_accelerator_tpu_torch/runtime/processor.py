@@ -21,8 +21,9 @@ and the step splits its rows back into columns. After the step, a side
 stream copies the counts vector and each output, sliced to its adaptive
 capacity (sized transfer) and staged in A/B output slots, into pinned
 host memory; ``PendingBatch.collect_counts`` is the batch's one blocking
-read and ``collect_tables`` lands the tables that are already on their
-way.
+read and ``collect_landed`` lands the tables that are already on their
+way, as ``LandedTable``s that a sink renders or draws rows from
+(``collect_tables``: the rows).
 
 Sources: one per ``input.sources.<name>`` (plus ``input.default.*`` as
 the primary), each with its own schema, projection, target table,
@@ -128,7 +129,7 @@ from ..native import NativeDecoder, PackedBufferPool
 from ..obs import tracing
 from ..ops.compact import compact_indices
 from ..udf import UdfRegistry, load_udfs_from_conf
-from .materialize import materialize_rows
+from .materialize import LandedTable
 from .statepartition import (
     DEFAULT_STATE_PARTITIONS,
     ObjstoreSnapshotStore,
@@ -1762,6 +1763,12 @@ class FlowProcessor:
             self._count_state("WindowRows_Dropped_Count", dropped)
         return self.restore_window_state(merged)
 
+    def compile_scope(self) -> contextlib.AbstractContextManager:
+        """Within the block, this thread's library builds go to the
+        processor's compile cache, if it has one."""
+        cache = self._compile_cache
+        return cache.scope() if cache is not None else contextlib.nullcontext()
+
     def commit(self) -> None:
         """Commit state-table pointers after sinks succeed (and push the
         committed partitions to the objstore mirror, fail-closed)."""
@@ -2389,9 +2396,7 @@ class FlowProcessor:
             census = MeshCollectives() if self.mesh is not None else None
             mesh_arg = {} if census is None else {"census": census}
             # the kernels the step loads build into its compile cache
-            cache = self._compile_cache
-            with tracing.span("device-enqueue"), \
-                    cache.scope() if cache is not None else contextlib.nullcontext(), \
+            with tracing.span("device-enqueue"), self.compile_scope(), \
                     kernel_build.loads_recorded() as loads:
                 out_datasets, counts_vec, new_state = self._step(
                     raw, self.window_buffers, self.state_data, refdata, base_s,
@@ -2624,20 +2629,6 @@ class FlowProcessor:
         return ingest, transfer
 
 
-def _host_sort(rows: List[dict], order: List[Tuple[str, bool]]) -> None:
-    """Stable multi-key in-place sort matching SQL semantics: ascending
-    puts NULLs first, descending puts them last (Spark defaults).
-    Applied least-significant key first so significance composes."""
-    for key, asc in reversed(order):
-        def kf(r, k=key):
-            v = r.get(k)
-            # the second element only compares within equal null-flags,
-            # so the placeholder never meets a real value
-            return (v is not None, v if v is not None else 0)
-
-        rows.sort(key=kf, reverse=not asc)
-
-
 def record_device_step(handle: "PendingBatch", trace) -> None:
     """The batch's ``device-step`` span, after its counts sync: on CUDA
     the card's own time between the step's start and end events, placed
@@ -2681,9 +2672,11 @@ class PendingBatch:
     copies the counts vector and the sized, slot-staged output tables
     into pinned host memory on the processor's side stream, after an
     event recorded behind the step. ``collect_counts()`` waits only for
-    the counts' copy, the batch's one blocking read; ``collect_tables()``
+    the counts' copy, the batch's one blocking read; ``collect_landed()``
     waits for the tables' copy, re-fetches an output that overflowed its
-    sized capacity, materializes rows and overwrites each state table's
+    sized capacity, compacts each output's valid rows into arrays of its
+    own (``collect_tables()`` also materializes their rows) and
+    overwrites each state table's
     standby partitions from the batch's new state, which rides the same
     side stream into pinned memory whole (its valid rows are not known
     on the host until then), possibly on a background landing thread.
@@ -2898,17 +2891,20 @@ class PendingBatch:
                 )
         return host_tables
 
-    def collect_tables(self) -> Tuple[Dict[str, List[dict]], Dict[str, float]]:
+    def collect_landed(self) -> Tuple[Dict[str, LandedTable], Dict[str, float]]:
         """Land the output tables the side stream has been copying since
-        dispatch, materialize their rows, and return (datasets,
-        metrics). Every batch fetches its sized tables whole: the JAX
+        dispatch and return (datasets, metrics), each dataset a
+        ``LandedTable``: its valid rows compacted into arrays of its own
+        (the ``materialize`` span), before this batch's transfer slots
+        and ingest matrix go back to later batches. Rows are drawn from
+        it on demand. Every batch fetches its sized tables whole: the JAX
         package does so wherever its arrays copy to the host
         asynchronously, which every PyTorch tensor does. Thread-safe to
         run on a landing thread other than the dispatching one."""
         proc = self.proc
         bc = self.collect_counts()
         names = self.out_names
-        datasets: Dict[str, List[dict]] = {}
+        datasets: Dict[str, LandedTable] = {}
         try:
             with tracing.span("device-fetch"):
                 tables = self._land(bc)
@@ -2922,20 +2918,17 @@ class PendingBatch:
                     proc.buffer_sanitizer.scan_table(name, table)
             with tracing.span("materialize"):
                 for name, table in tables.items():
-                    rows = materialize_rows(
-                        table, self.pipeline.schema_of(name), proc.dictionary,
-                        self.base_ms,
-                    )
                     view = self.pipeline.view_by_name(name)
-                    if view is not None and view.host_order:
-                        # ORDER BY over computed-string columns: the
-                        # device has no id to sort by, so the ordering
-                        # (and limit) applies to the materialized rows
-                        # (planner host-order path)
-                        _host_sort(rows, view.host_order)
-                        if view.host_limit is not None:
-                            rows = rows[: view.host_limit]
-                    datasets[name] = rows
+                    # ORDER BY over computed-string columns: the device
+                    # has no id to sort by, so the ordering (and limit)
+                    # applies to the materialized rows (planner
+                    # host-order path)
+                    order = view.host_order if view is not None else None
+                    datasets[name] = LandedTable.compact(
+                        table, self.pipeline.schema_of(name), proc.dictionary,
+                        self.base_ms, host_order=order or None,
+                        host_limit=view.host_limit if order else None,
+                    )
             # persist state tables (A/B overwrite; persist() is the
             # caller's post-sink commit) — from THIS batch's state, in
             # host memory since _land waited for its copy
@@ -3026,6 +3019,12 @@ class PendingBatch:
         # feed the adaptive capacity for the NEXT batches
         proc.observe_transfer_counts(bc.dataset_counts)
         return datasets, metrics
+
+    def collect_tables(self) -> Tuple[Dict[str, List[dict]], Dict[str, float]]:
+        """``collect_landed`` with every dataset's rows materialized:
+        (datasets, metrics), each dataset a list of row dicts."""
+        landed, metrics = self.collect_landed()
+        return {n: t.rows() for n, t in landed.items()}, metrics
 
     def collect(self) -> Tuple[Dict[str, List[dict]], Dict[str, float]]:
         """Counts and tables in one call, the synchronous path; the same

@@ -11,10 +11,15 @@ reference: datax-host sink/ package —
   stubbed send hook; metric sink -> MetricLogger routing (the reference
   routes alert tables TO Metrics the same way).
 
-Sinks receive already-materialized host rows; device->host transfer
-happens once per batch in the processor, off the jitted path.
+Sinks receive host rows: lists of row dicts, or the hosts'
+``LandedTable``s (``runtime/materialize.py``), whose rows a sink draws
+through ``write_landed``; device->host transfer happens once per batch
+in the processor, off the jitted path. The blob sink renders a flat
+landed table's columns to JSON lines natively (``native/jsonl.py``),
+the same bytes as ``json.dumps`` over its rows, and builds no row dict;
+the dispatcher counts those rows as ``Sink_file_ColumnarRows``.
 
-Copy of the JAX package's ``runtime/sinks.py``, unchanged; its
+Otherwise a copy of the JAX package's ``runtime/sinks.py``; its
 relative imports resolve to the port's modules, so ``KafkaSink`` goes
 through the port's ``kafka_wire``.
 """
@@ -28,13 +33,15 @@ import threading
 import time
 import urllib.request
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from ..core.config import SettingDictionary
 from ..obs import tracing
 from ..obs.metrics import MetricLogger
 from ..constants import MetricName
+from ..native import jsonl
 from ..utils import fs
+from .materialize import LandedTable
 
 logger = logging.getLogger(__name__)
 
@@ -44,6 +51,14 @@ class Sink:
 
     def write(self, dataset: str, rows: List[dict], batch_time_ms: int) -> int:
         raise NotImplementedError
+
+    def write_landed(
+        self, dataset: str, table: LandedTable, batch_time_ms: int
+    ) -> Tuple[int, int]:
+        """Write a landed table; (rows written, of them rendered straight
+        from the columns). By default its rows, built once however many
+        sinks the dataset goes to."""
+        return self.write(dataset, table.rows(), batch_time_ms), 0
 
 
 class ConsoleSink(Sink):
@@ -85,7 +100,21 @@ class FileSink(Sink):
         self._counter = 0
 
     def write(self, dataset, rows, batch_time_ms) -> int:
-        if not rows:
+        return self._write(
+            dataset, len(rows), batch_time_ms, False,
+            lambda: "\n".join(json.dumps(r, default=str) for r in rows) + "\n",
+        )
+
+    def write_landed(self, dataset, table, batch_time_ms) -> Tuple[int, int]:
+        """A flat table's JSON lines rendered from its columns; any other
+        table through ``write`` over its rows. The bytes are the same."""
+        if not table.flat:
+            return self.write(dataset, table.rows(), batch_time_ms), 0
+        n = self._write(dataset, len(table), batch_time_ms, True, table.jsonl)
+        return n, n
+
+    def _write(self, dataset, n_rows, batch_time_ms, columnar, encode) -> int:
+        if not n_rows:
             return 0
         out_dir = partition_folder(self.folder, batch_time_ms)
         self._counter += 1
@@ -94,12 +123,14 @@ class FileSink(Sink):
         path = os.path.join(out_dir, name)
         # children of the operator's sink/file span: the rows to JSON
         # text, then the gzip (if any) and the atomic write
-        with tracing.span("sink/file/encode", rows=len(rows)) as props:
-            payload = "\n".join(json.dumps(r, default=str) for r in rows) + "\n"
+        with tracing.span(
+            "sink/file/encode", rows=n_rows, columnar=columnar
+        ) as props:
+            payload = encode()
             props["bytes"] = len(payload)
-        with tracing.span("sink/file/write", rows=len(rows), bytes=len(payload)):
+        with tracing.span("sink/file/write", rows=n_rows, bytes=len(payload)):
             fs.write_text(path, payload)
-        return len(rows)
+        return n_rows
 
 
 class HttpPostSink(Sink):
@@ -424,6 +455,10 @@ class MetricSink(Sink):
         return len(rows)
 
 
+# Sink_file_ColumnarRows, once the dispatcher prefixes it
+FILE_COLUMNAR_ROWS = MetricName.SinkFileColumnarRows[len(MetricName.MetricSinkPrefix):]
+
+
 @dataclass
 class OutputOperator:
     """One named output dataset -> its sinks (OutputManager.scala:96-126)."""
@@ -431,7 +466,13 @@ class OutputOperator:
     dataset: str
     sinks: List[Sink] = field(default_factory=list)
 
-    def write(self, rows: List[dict], batch_time_ms: int) -> Dict[str, int]:
+    def write(
+        self, rows: Union[List[dict], LandedTable], batch_time_ms: int
+    ) -> Dict[str, int]:
+        """Each sink's rows written, by kind, and of those the rows the
+        file sink reports it rendered from a landed table's columns
+        (``file_ColumnarRows``)."""
+        landed = isinstance(rows, LandedTable)
         counts = {}
         for s in self.sinks:
             # one span per sink write under the batch trace (no-op when
@@ -440,7 +481,13 @@ class OutputOperator:
             with tracing.span(
                 f"sink/{s.kind}", dataset=self.dataset, rows=len(rows)
             ):
-                counts[s.kind] = s.write(self.dataset, rows, batch_time_ms)
+                if landed:
+                    n, from_cols = s.write_landed(self.dataset, rows, batch_time_ms)
+                else:
+                    n, from_cols = s.write(self.dataset, rows, batch_time_ms), 0
+            counts[s.kind] = n
+            if s.kind == FileSink.kind:
+                counts[FILE_COLUMNAR_ROWS] = from_cols
         return counts
 
 
@@ -573,9 +620,19 @@ class OutputDispatcher:
             thread_name_prefix="sink",
         )
 
+    def prepare(self) -> None:
+        """Build the blob sink's renderer before the first batch, so
+        that no batch pays for it."""
+        if any(isinstance(s, FileSink)
+               for op in self.operators.values() for s in op.sinks):
+            jsonl.load()
+
     def dispatch(
-        self, datasets: Dict[str, List[dict]], batch_time_ms: int
+        self, datasets: Dict[str, Union[List[dict], LandedTable]],
+        batch_time_ms: int,
     ) -> Dict[str, int]:
+        """Each dataset (a list of rows, or a ``LandedTable``) to its
+        operator's sinks, in parallel; emits ``Sink_<kind>`` counts."""
         results: Dict[str, int] = {}
         lock = threading.Lock()
         errors: List[BaseException] = []
@@ -583,7 +640,7 @@ class OutputDispatcher:
         # per-sink spans parent under the host's "sinks" span
         trace_pos = tracing.capture()
 
-        def run_op(name: str, op: OutputOperator, rows: List[dict]):
+        def run_op(name: str, op: OutputOperator, rows):
             try:
                 with tracing.activated(trace_pos):
                     counts = op.write(rows, batch_time_ms)

@@ -86,7 +86,8 @@ def test_port_tree_is_conf_clean_with_pinned_inventory():
     report = tconf.analyze_conf_modules(paths)
     assert report.diagnostics == [], [d.render() for d in report.diagnostics]
     cd = report.conf_dict()
-    assert cd["analyzedFiles"] == len(paths) == 94
+    # native/jsonl.py, the blob sink's renderer, reads no conf key
+    assert cd["analyzedFiles"] == len(paths) == 95
     # obs/conformance.py reads conformance.iciratiohigh (DX510), and
     # runtime/processor.py compile.cachedir and compile.cacheurl
     assert cd["readSites"] == 102
@@ -153,7 +154,13 @@ def test_conf_audit_gauges_equal_the_reference(conf):
 
 
 def test_runtime_metric_registry_equals_the_reference():
-    assert MetricName.RUNTIME_METRIC_PATTERNS == JMetricName.RUNTIME_METRIC_PATTERNS
+    # the reference's registry, then the port's own names
+    assert MetricName.RUNTIME_METRIC_PATTERNS == \
+        JMetricName.RUNTIME_METRIC_PATTERNS + MetricName.PORT_RUNTIME_METRIC_PATTERNS
+    assert MetricName.PORT_RUNTIME_METRIC_PATTERNS == ("Sink_file_ColumnarRows",)
+    assert MetricName.is_runtime_metric("Sink_file_ColumnarRows")
+    assert not MetricName.is_runtime_metric("Sink_kafka_ColumnarRows")
+    assert not JMetricName.is_runtime_metric("Sink_file_ColumnarRows")
     for name in (MetricName.CONF_AUDITED, MetricName.CONF_UNKNOWN,
                  MetricName.CONF_OUT_OF_BOUNDS, *MetricName.STATE_METRICS,
                  MetricName.FLEET_FRAMES, "Sanitizer_PoisonHit_Count",

@@ -174,7 +174,7 @@ def _local_source(pkg_sources, batches, clock):
     return Fixed()
 
 
-class _RecordingSink:
+class _RecordingSink(tsinks.Sink):
     kind = "recording"
 
     def __init__(self):

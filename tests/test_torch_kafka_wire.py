@@ -339,6 +339,7 @@ class TestKafkaSourceOverWire:
         from data_accelerator_tpu_torch.runtime.sinks import (
             OutputDispatcher,
             OutputOperator,
+            Sink,
         )
 
         schema = json.dumps({"type": "struct", "fields": [
@@ -371,7 +372,7 @@ class TestKafkaSourceOverWire:
             assert src._flavor == "wire"
             assert hasattr(src, "poll_raw")
 
-            class Rec:
+            class Rec(Sink):
                 kind = "rec"
 
                 def __init__(self):

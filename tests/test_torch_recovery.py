@@ -35,6 +35,7 @@ import torch
 from data_accelerator_tpu_torch.core.config import SettingDictionary
 from data_accelerator_tpu_torch.runtime import host as host_mod
 from data_accelerator_tpu_torch.runtime import processor as processor_mod
+from data_accelerator_tpu_torch.runtime.sinks import Sink
 from data_accelerator_tpu_torch.runtime.sources import SocketSource
 
 # the tests ask for the CPU; the entry points default to the card
@@ -88,7 +89,7 @@ def _conf(tmp_path, extra=None):
     return SettingDictionary(d)
 
 
-class _Rows:
+class _Rows(Sink):
     kind = "rows"
 
     def __init__(self):
@@ -217,7 +218,7 @@ def test_backpressure_halves_rate_on_overrun(tmp_path):
 # ---------------------------------------------------------------------------
 # depth-N in-flight window: failure injection at depths 1/2/4
 # ---------------------------------------------------------------------------
-class _RecordingSink:
+class _RecordingSink(Sink):
     """Records successful writes in arrival order; raises (BEFORE
     recording) on any batch containing a poisoned k value while armed.
     Also records which thread each write ran on, and optionally sleeps

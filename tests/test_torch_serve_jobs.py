@@ -428,6 +428,9 @@ def _whole(pkg, root, events_path, monkeypatch):
 UNCOMPARED = ("Latency-", "Pipeline_Stall_Ms", "Decode_RowsPerSec", "Compile_ColdStart_Ms",
               "Calib_", "Conformance_StageTime_", "Compile_Cache_")
 JAX_ONLY = ("Calib_IciGBps", "Compile_WarmMiss_Count")
+# and what only the port emits: the rows its blob sink rendered from the
+# landed columns, beside Sink_file
+PORT_ONLY = ("Sink_file_ColumnarRows",)
 
 
 def test_the_slice_generates_and_runs_equal_on_both_packages(tmp_path, monkeypatch):
@@ -443,9 +446,12 @@ def test_the_slice_generates_and_runs_equal_on_both_packages(tmp_path, monkeypat
     assert {d for d, _t in trows} >= {"OpenDoors", "AnomalyAlerts", "HeatAvg"}
     for key in sorted(jrows):
         _assert_same_rows(jrows[key], trows[key], key)
-    assert set(tm) == {k for k in jm if not k.startswith(JAX_ONLY)}
+    assert {k for k in tm if not k.startswith(PORT_ONLY)} == \
+        {k for k in jm if not k.startswith(JAX_ONLY)}
+    # every row the port's blob sinks wrote was rendered from columns
+    assert tm["Sink_file_ColumnarRows"] == tm["Sink_file"]
     for k, points in tm.items():
-        if not k.startswith(UNCOMPARED):
+        if not k.startswith(UNCOMPARED + PORT_ONLY):
             # values in order; init-time gauges carry the wall clock
             assert len(points) == len(jm[k]), k
             assert [v for _t, v in points] == pytest.approx(
