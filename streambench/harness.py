@@ -8,17 +8,29 @@ metric or reference is a file of its own, found by the name that
 - ``workloads/<cell>.json``: the configuration, the traffic mix, the
   loop's parameters (rate, fill batches);
 - ``configs/<config>/config.json``: the deployment, its conf and files;
+  a streaming conf may declare more socket sources
+  (``datax.job.input.sources.<name>.*``) beside its primary;
 - ``traffic/<mix>.json``: the mix's parameters, which the one generator
-  (``traffic/generator.py``) reads;
-- ``loops/<loop>.py``: ``start_traffic(cell)`` and ``run(cell, traffic,
-  device)``, which drive the program and return the run's record;
+  (``traffic/generator.py``) reads; its side streams (``streams``) feed
+  the sources of the same names;
+- ``loops/<loop>.py``: ``start_traffic(cell)``, ``stop_traffic``,
+  ``run(cell, traffic, device)``, which drive the program and return
+  the run's record, and ``shrink(cell)``, the cell at a CPU rehearsal's
+  size;
 - ``metrics/<metric>.py``: ``read(record)``, a number or None;
-- ``reference/<config>.py``: ``judge(record)``, the comparison with the
-  plain reference that decides ``correct``;
+- ``reference/<config>.py``: ``judge(cell, record, outputs)``, the
+  comparison with the plain reference that decides ``correct``, and
+  ``control_outputs(cell, record)``, the reference one precision down
+  in the program's place. A reference is plain NumPy or plain PyTorch
+  on the CPU: it imports nothing of the program, of JAX or the JAX
+  package, of ``chip_smoke`` or of the repository's tests; one that
+  imports torch turns TF32 off (matmul and cuDNN) when it is imported
+  and names ``device="cpu"`` and the dtype of every tensor it builds;
 - ``roofline/<config>.py``: the bytes a step must move.
 
 A later cell, configuration, mix or metric is new files and new
-``BENCHMARK.json`` entries; no file here changes.
+``BENCHMARK.json`` entries; no file here changes. The CPU rehearsal and
+the card's tests take their cells from ``BENCHMARK.json``.
 """
 
 from __future__ import annotations

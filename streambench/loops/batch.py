@@ -30,6 +30,13 @@ from streambench.harness import HERE, boot_at, load_json
 from streambench.outputs import read_outputs
 
 GENERATOR = HERE / "traffic" / "generator.py"
+# a CPU rehearsal's archive
+REHEARSAL_ARCHIVE = {"files": 2, "events_per_file": 3000}
+
+
+def shrink(cell) -> None:
+    """The cell at a CPU rehearsal's size: its archive cut."""
+    cell.config["archive"] = dict(REHEARSAL_ARCHIVE)
 
 
 def start_traffic(cell):

@@ -1,6 +1,8 @@
 """The streaming loop: ``StreamingHost.run``, the paced loop that
 ``runtime.host.main`` runs for every deployed streaming job, fed from
-its socket source by the generator's open loop.
+its socket source by the generator's open loop, and from one more socket
+source a side stream of the mix (``traffic/generator.py``), each by a
+generator process of its own.
 
 Timeline of a run, on ``time.monotonic()``:
 
@@ -14,10 +16,13 @@ Timeline of a run, on ``time.monotonic()``:
   runs until every event of the window is acked, for at most a minute.
 
 An event's latency runs from its due time to the ack of the batch that
-consumed it: the host acks its source after the sinks wrote and the
-processor committed. The benchmark records, around the source's
-``poll_raw`` and ``ack`` and the processor's ``dispatch_batch``, which
-consecutive events each batch consumed, its batch time, and when it was
+consumed it: the host acks its sources after the sinks wrote and the
+processor committed. Latency is over the primary source's events; a
+run's ``attempted`` and ``failed`` count those and every side stream's
+readings due in the window, a reading never acked as lost. The
+benchmark records, around every source's ``poll_raw`` and ``ack`` and
+the processor's ``dispatch_batch``, which consecutive events or readings
+each batch consumed of each source, its batch time, and when it was
 polled and acked; that framing is all the plain reference takes from
 the run.
 """
@@ -38,6 +43,7 @@ import numpy as np
 from streambench import devtrace
 from streambench.harness import HERE, boot_at, load_json
 from streambench.outputs import read_outputs
+from streambench.traffic import generator
 
 GENERATOR = HERE / "traffic" / "generator.py"
 # the stream cycles over this many distinct events (about 280 MB of JSON)
@@ -47,70 +53,107 @@ DRAIN_LIMIT_S = 60.0
 # a traced run profiles this many batches, from the third after the open
 PROFILE_AFTER = 2
 PROFILE_BATCHES = 4
+# a CPU rehearsal's offered rate (events/s)
+REHEARSAL_RATE = 2000.0
 
 
-def start_traffic(cell):
-    """Start the generator process; it builds its pool from the seed
-    while the program starts."""
+def shrink(cell) -> None:
+    """The cell at a CPU rehearsal's size: its offered rate cut."""
+    cell.workload["rate"] = REHEARSAL_RATE
+
+
+def _generator(cell, *args):
     return subprocess.Popen(
         [sys.executable, str(GENERATOR), "--mix", str(cell.mix_path),
-         "--seed", str(cell.seed), "--mode", "socket",
-         "--pool", str(POOL_EVENTS)],
+         "--seed", str(cell.seed), "--mode", "socket", *args],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
     )
 
 
-def stop_traffic(gen) -> None:
-    if gen.poll() is None:
-        gen.kill()
-    gen.wait(timeout=30)
-    for f in (gen.stdin, gen.stdout):
-        try:
-            f.close()
-        except OSError:
-            pass
+def start_traffic(cell) -> dict:
+    """Start a generator process a stream, keyed by the source it feeds
+    (``None``: the primary); the main stream's builds its pool from the
+    seed while the program starts."""
+    gens = {None: _generator(cell, "--pool", str(POOL_EVENTS))}
+    for name in cell.mix.get("streams", {}):
+        gens[name] = _generator(cell, "--stream", name)
+    return gens
+
+
+def stop_traffic(gens: dict) -> None:
+    for gen in gens.values():
+        if gen.poll() is None:
+            gen.kill()
+        gen.wait(timeout=30)
+        for f in (gen.stdin, gen.stdout):
+            try:
+                f.close()
+            except OSError:
+                pass
 
 
 class Framing:
-    """Wraps the host's source and processor to record each batch:
-    the events it consumed ``[frm, to)``, its batch time ``bt``, and its
-    poll and ack instants on both clocks."""
+    """Wraps the host's sources and processor to record each batch: the
+    primary source's events it consumed ``[frm, to)``, its batch time
+    ``bt``, and its poll and ack instants on both clocks; and, under
+    ``sources``, each source's consumed range and ack by source name."""
 
     def __init__(self, host, on_ack=None):
         self.polls = []
-        self._unacked = collections.deque()
-        src, proc = host.source, host.processor
-        poll_raw, ack, dispatch = src.poll_raw, src.ack, proc.dispatch_batch
-        name = src.name
         self.on_ack = on_ack
+        self.primary = host.processor.primary
+        # each source's range in the batch being polled; after the
+        # dispatch, (range, batch record) of the batches not yet acked
+        self._polled = {}
+        self._unacked = {name: collections.deque() for name in host.sources}
+        for name, src in host.sources.items():
+            self._wrap(name, src)
+        proc = host.processor
+        dispatch = proc.dispatch_batch
+
+        def rec_dispatch(raw, batch_time_ms=None):
+            rec = self.polls[-1]
+            rec["bt"] = batch_time_ms
+            rec["sources"], self._polled = self._polled, {}
+            for name, r in rec["sources"].items():
+                self._unacked[name].append((r, rec))
+            return dispatch(raw, batch_time_ms)
+
+        proc.dispatch_batch = rec_dispatch
+
+    def _wrap(self, name, src) -> None:
+        poll_raw, ack, key = src.poll_raw, src.ack, src.name
+        primary = name == self.primary
 
         def rec_poll(max_events):
             t, w = time.monotonic(), time.time()
             blob, n, offsets = poll_raw(max_events)
-            frm, to = offsets[(name, 0)]
-            rec = {"i": len(self.polls), "poll": t, "poll_wall": w,
-                   "frm": frm, "to": to,
-                   "bt": None, "ack": None, "ack_wall": None}
-            self.polls.append(rec)
-            self._unacked.append(rec)
+            frm, to = offsets[(key, 0)]
+            self._polled[name] = {"frm": frm, "to": to, "ack": None}
+            if primary:
+                self.polls.append({"i": len(self.polls), "poll": t, "poll_wall": w,
+                                   "frm": frm, "to": to, "sources": {},
+                                   "bt": None, "ack": None, "ack_wall": None})
             return blob, n, offsets
-
-        def rec_dispatch(raw, batch_time_ms=None):
-            self.polls[-1]["bt"] = batch_time_ms
-            return dispatch(raw, batch_time_ms)
 
         def rec_ack():
             ack()
-            rec = self._unacked.popleft()
-            rec["ack"], rec["ack_wall"] = time.monotonic(), time.time()
-            if self.on_ack is not None:
-                self.on_ack(rec)
+            t = time.monotonic()
+            r, rec = self._unacked[name].popleft()
+            r["ack"] = t
+            if primary:
+                rec["ack"], rec["ack_wall"] = t, time.time()
+                if self.on_ack is not None:
+                    self.on_ack(rec)
 
-        src.poll_raw, src.ack, proc.dispatch_batch = rec_poll, rec_ack, rec_dispatch
+        src.poll_raw, src.ack = rec_poll, rec_ack
 
-    def acked_to(self) -> int:
-        """Every event before this index is acked (acks are in order)."""
-        done = [r["to"] for r in self.polls if r["ack"] is not None]
+    def acked_to(self, name=None) -> int:
+        """Every event of the primary source (or of source ``name``)
+        before this index is acked (acks are in order)."""
+        done = [s["to"] for r in self.polls
+                for s in [r["sources"].get(name or self.primary)]
+                if s is not None and s["ack"] is not None]
         return done[-1] if done else 0
 
 
@@ -163,6 +206,17 @@ def latencies(polls, t0, rate, i_open, total, end):
     return (np.concatenate(out) if out else np.zeros(0)), lost
 
 
+def unacked(polls, name: str, lo: int, hi: int) -> int:
+    """How many of source ``name``'s items ``[lo, hi)`` no acked batch
+    consumed."""
+    acked = np.zeros(max(0, hi - lo), bool)
+    for r in polls:
+        s = r["sources"].get(name)
+        if s is not None and s["ack"] is not None:
+            acked[max(s["frm"] - lo, 0):max(s["to"] - lo, 0)] = True
+    return int((~acked).sum())
+
+
 def span_totals(spans, polls) -> None:
     """Each batch's spans, summed by name, onto its framing record
     (``spans``); a batch is found by its root span's batch time."""
@@ -206,7 +260,7 @@ def profile_summary(cap, prof_batches, spans) -> dict:
     }
 
 
-def run(cell, gen, device) -> dict:
+def run(cell, gens, device) -> dict:
     import torch
 
     from data_accelerator_tpu_torch.core.confmanager import ConfigManager
@@ -230,17 +284,30 @@ def run(cell, gen, device) -> dict:
     rate = float(cell.workload["rate"])
     fill = int(cell.workload["fill_batches"])
 
-    ready = gen.stdout.readline().split()
-    if not ready or ready[0] != "ready":
-        raise RuntimeError(f"the traffic generator did not start: {ready}")
+    for name, gen in gens.items():
+        ready = gen.stdout.readline().split()
+        if not ready or ready[0] != "ready":
+            raise RuntimeError(f"the traffic generator of {name or 'the primary'} "
+                               f"did not start: {ready}")
     marks["traffic_ready"] = boot_at(time.monotonic()) - cell.proc_start
     t0 = time.monotonic() + 0.1
     t_open = t0 + fill * interval
     t_close = t_open + cell.seconds
     total = int(round((t_close - t0) * rate))
     i_open = int(math.ceil((t_open - t0) * rate))
-    gen.stdin.write(f"go {host.source.port} {t0!r} {rate!r} {total}\n")
-    gen.stdin.flush()
+    # each side stream's readings [open, total) fall due in the window
+    sides = {}
+    for name in gens:
+        if name is not None:
+            spec = cell.mix["streams"][name]
+            sides[name] = {
+                "open": generator.due_before(spec, fill * interval),
+                "total": generator.due_before(spec, fill * interval + cell.seconds)}
+    for name, gen in gens.items():
+        port = host.source.port if name is None else host.sources[name].port
+        n = total if name is None else sides[name]["total"]
+        gen.stdin.write(f"go {port} {t0!r} {rate!r} {n}\n")
+        gen.stdin.flush()
     setup_s = boot_at(t_open) - cell.proc_start
 
     cap = None
@@ -261,7 +328,9 @@ def run(cell, gen, device) -> dict:
     th.start()
     deadline = t_close + DRAIN_LIMIT_S
     time.sleep(max(0.0, t_close - time.monotonic()))
-    while time.monotonic() < deadline and not errors and framing.acked_to() < total:
+    while time.monotonic() < deadline and not errors and (
+            framing.acked_to() < total
+            or any(framing.acked_to(n) < s["total"] for n, s in sides.items())):
         time.sleep(0.01)
     end = time.monotonic()
     host._stop = True  # the loop ends after the batch it is running
@@ -270,7 +339,8 @@ def run(cell, gen, device) -> dict:
         raise RuntimeError("the host's loop did not stop within 120 s")
     if errors:
         raise errors[0]
-    gen_stats = json.loads(gen.stdout.readline() or "{}")
+    gen_stats = {name or "primary": json.loads(gen.stdout.readline() or "{}")
+                 for name, gen in gens.items()}
     peak = int(torch.cuda.max_memory_allocated(host.device)) if cuda else 0
     host.stop()
     got = read_outputs(cell.config, out, host.metric_logger)
@@ -282,6 +352,8 @@ def run(cell, gen, device) -> dict:
 
     polls = framing.polls
     lat, lost = latencies(polls, t0, rate, i_open, total, end)
+    for name, side in sides.items():
+        side["lost"] = unacked(polls, name, side["open"], side["total"])
     # the loop's state at the close: the backlog (events due but not yet
     # polled) at the last poll before it, and the batches that overran
     # the interval (poll to ack)
@@ -305,13 +377,17 @@ def run(cell, gen, device) -> dict:
             "count": 1, "memory_peak_bytes": peak,
         },
         "setup_s": setup_s, "latencies_ms": lat,
-        "attempted": total - i_open, "failed": lost,
-        "framing": [{k: r[k] for k in ("frm", "to", "bt", "poll", "ack")} for r in polls],
+        "attempted": total - i_open + sum(s["total"] - s["open"] for s in sides.values()),
+        "failed": lost + sum(s["lost"] for s in sides.values()),
+        "framing": [{**{k: r[k] for k in ("frm", "to", "bt", "poll", "ack")},
+                     "sources": {n: (s["frm"], s["to"]) for n, s in r["sources"].items()}}
+                    for r in polls],
+        "streams": sides,
         "window_batches": [r for r in polls if r["poll"] >= t_open and r["ack"] is not None],
         "pool_events": POOL_EVENTS, "outputs": got,
         "lines": [json.dumps({"setup_marks_s": marks, "generator": gen_stats,
                               "window_events": total - i_open, "rate": rate,
-                              **loop_state})],
+                              "side_streams": sides, **loop_state})],
     }
     if cell.trace:
         spans = devtrace.read_spans(tracefile)

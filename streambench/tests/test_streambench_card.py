@@ -8,8 +8,8 @@ import pytest
 
 from streambench import harness
 
-CELLS = ["iot_alerts.alert_storm", "iot_alerts.calm",
-         "iot_rescore.calm_archive", "iot_rescore.storm_archive"]
+# every cell of BENCHMARK.json, found there
+CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
 def _run(name, control, tmp_path, monkeypatch):

@@ -1,4 +1,5 @@
-"""A tiny CPU rehearsal of each loop through the harness's internal
+"""A tiny CPU rehearsal of each cell of ``BENCHMARK.json``, at the size
+its loop's ``shrink`` gives, through the harness's internal
 ``device="cpu"`` hook (the command itself still needs a card), the
 control that has to come out not correct, and the program broken
 underneath in each way a cell can be: its state left unchanged, half
@@ -25,10 +26,7 @@ def _caches(monkeypatch, tmp_path):
 
 def _cell(name, seconds=2.0, trace=False):
     cell = harness.find_cell(name, SEED, seconds, trace)
-    if cell.workload["loop"] == "stream":
-        cell.workload["rate"] = 2000.0
-    else:
-        cell.config["archive"] = {"files": 2, "events_per_file": 3000}
+    harness.load_module("loops", cell.workload["loop"]).shrink(cell)
     return cell
 
 
@@ -45,8 +43,8 @@ def _run(cell, control=False):
         shutil.rmtree(cell.tmp, ignore_errors=True)
 
 
-CELLS = ["iot_alerts.alert_storm", "iot_alerts.calm",
-         "iot_rescore.calm_archive", "iot_rescore.storm_archive"]
+# every cell of BENCHMARK.json, found there
+CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
 @pytest.mark.parametrize("name", CELLS)

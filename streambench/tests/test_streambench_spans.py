@@ -28,11 +28,8 @@ def _rehearse(name):
 
     METRIC_STORE.clear()
     cell = harness.find_cell(name, SEED, 3.0, True)
-    if cell.workload["loop"] == "stream":
-        cell.workload["rate"] = 2000.0
-    else:
-        cell.config["archive"] = {"files": 3, "events_per_file": 2000}
     loop = harness.load_module("loops", cell.workload["loop"])
+    loop.shrink(cell)
     traffic = loop.start_traffic(cell)
     try:
         return harness.run_cell(cell, "cpu", traffic)[0]

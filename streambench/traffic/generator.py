@@ -4,32 +4,47 @@ A traffic mix is a JSON file of parameters beside this file
 (``traffic/<mix>.json``); this module turns a mix and a seed into IoT
 telemetry events, the distribution of ``bench.py::make_json_payload``:
 device ids uniform on a range, a share of DoorLock events of which half
-report an open door (``status`` 0), the rest Heating or WindSpeed, one
-home id, and temperatures at three decimals drawn by the mix's law.
+report an open door (``status`` 0), the rest Heating or WindSpeed, a
+home id (one, or drawn uniformly from a list), and temperatures at three
+decimals drawn by the mix's law.
+
+A mix may also name side streams (``"streams": {<name>: {...}}``), each
+sent to the configuration's source of the same name on a socket of its
+own. The one kind is ``readings``: every key of ``keys`` reports every
+``period_s``, reading ``k`` of key ``j`` due at ``t0 + offset_s[j] +
+k * period_s``, its value drawn from the seed uniformly on
+``value[j]`` at three decimals, sent as ``{"<key_field>":<key>,
+"<value_field>":<value>}``.
 
 It imports neither torch nor the program under test. The benchmark runs
-it as a separate process, in one of two modes:
+it as a separate process a stream, in one of three modes:
 
 - ``socket``: build a pool of events from the seed, print ``ready``,
   wait for ``go <port> <t0> <rate> <total>`` on stdin, then send event
   ``i`` of the stream (pool event ``i mod pool``) when it is due, at
   ``t0 + i / rate`` on ``time.monotonic()``, whatever the receiver does:
   an open loop. At the end it prints its lateness as one JSON line.
+- ``socket`` with ``--stream <name>``: the side stream ``name``; after
+  the same ``go`` line (its rate unused) it sends readings ``[0,
+  total)``, each when it is due, whatever the receiver does.
 - ``files``: write an archive of ``files`` JSON-lines files of
   ``events_per_file`` events each into ``<out>/<yyyy/MM/dd/HH>/``, one
   hour partition a file, then print ``done``.
 
-The plain references regenerate the same columns with ``events()``.
+The plain references regenerate the same columns with ``events()`` and
+``readings()``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import socket
 import sys
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -49,8 +64,12 @@ def load_mix(path) -> dict:
         return json.load(f)
 
 
-def rng_for(seed: int) -> np.random.Generator:
-    return np.random.default_rng(np.random.SeedSequence(abs(int(seed))))
+def rng_for(seed: int, stream: str = "") -> np.random.Generator:
+    """The main stream's generator, or a side stream's, by its name."""
+    entropy = abs(int(seed))
+    if stream:
+        entropy = [entropy, zlib.crc32(stream.encode())]
+    return np.random.default_rng(np.random.SeedSequence(entropy))
 
 
 def temperatures_milli(rng, device_id: np.ndarray, law: dict) -> np.ndarray:
@@ -85,7 +104,8 @@ def temperatures_milli(rng, device_id: np.ndarray, law: dict) -> np.ndarray:
 def events(mix: dict, seed: int, n: int) -> dict:
     """The first ``n`` events of the mix under ``seed``, as columns:
     ``device_id``, ``type`` (index into ``DEVICE_TYPES``), ``home_id``,
-    ``status``, ``temp_milli``."""
+    ``status``, ``temp_milli``. A list of home ids is drawn from last,
+    so the other columns are those of one home id."""
     rng = rng_for(seed)
     lo, hi = mix["device_id"]
     device_id = rng.integers(lo, hi + 1, n)
@@ -93,13 +113,62 @@ def events(mix: dict, seed: int, n: int) -> dict:
     other = rng.integers(0, 2, n)
     dtype = np.where(is_door, DOOR, other)
     status = np.where(is_door & (rng.random(n) < mix["door_open_share"]), 0, 1)
+    temp_milli = temperatures_milli(rng, device_id, mix["temperature"])
+    homes = mix["home_id"]
+    if isinstance(homes, list):
+        home_id = np.asarray(homes, np.int64)[rng.integers(0, len(homes), n)]
+    else:
+        home_id = np.full(n, homes, np.int64)
     return {
         "device_id": device_id.astype(np.int64),
         "type": dtype.astype(np.int64),
-        "home_id": np.full(n, mix["home_id"], np.int64),
+        "home_id": home_id,
         "status": status.astype(np.int64),
-        "temp_milli": temperatures_milli(rng, device_id, mix["temperature"]),
+        "temp_milli": temp_milli,
     }
+
+
+def side_stream(mix: dict, name: str) -> dict:
+    """The mix's side stream ``name``, checked to be of a kind this
+    generator makes."""
+    spec = mix["streams"][name]
+    if spec.get("kind") != "readings":
+        raise ValueError(f"side stream {name!r}: unknown kind {spec.get('kind')!r}")
+    if any(lo < 0 or hi < lo for lo, hi in spec["value"]):
+        raise ValueError(f"side stream {name!r}: a value range is not 0 <= lo <= hi")
+    return spec
+
+
+def due_before(spec: dict, horizon_s: float) -> int:
+    """How many readings fall due before ``t0 + horizon_s``."""
+    p = spec["period_s"]
+    return sum(max(0, math.ceil((horizon_s - off) / p)) for off in spec["offset_s"])
+
+
+def readings(spec: dict, seed: int, name: str, n: int) -> dict:
+    """The side stream's first ``n`` readings in the order they fall
+    due, as columns: ``key`` (the key itself), ``value_milli`` (the
+    value in thousandths) and ``due_s`` (after ``t0``). A reading's
+    value does not depend on ``n``."""
+    keys = np.asarray(spec["keys"], np.int64)
+    off = np.asarray(spec["offset_s"], np.float64)
+    k = np.arange(n, dtype=np.float64)
+    due = (off[:, None] + k[None, :] * spec["period_s"]).ravel()
+    j = np.repeat(np.arange(keys.size), n)
+    order = np.lexsort((j, due))[:n]
+    due, j = due[order], j[order]
+    lo, hi = np.round(np.asarray(spec["value"], np.float64) * 1000).astype(np.int64).T
+    u = rng_for(seed, name).random(n)
+    milli = lo[j] + np.floor(u * (hi[j] - lo[j] + 1)).astype(np.int64)
+    return {"key": keys[j], "value_milli": milli, "due_s": due}
+
+
+def encode_readings(spec: dict, cols: dict) -> list:
+    """The readings as newline-terminated compact JSON lines."""
+    head = b'{"%s":%%d,"%s":%%d.%%03d}\n' % (spec["key_field"].encode(),
+                                           spec["value_field"].encode())
+    return [head % (key, v // 1000, v % 1000)
+            for key, v in zip(cols["key"].tolist(), cols["value_milli"].tolist())]
 
 
 def _digits(v: np.ndarray) -> np.ndarray:
@@ -248,11 +317,27 @@ def send_open_loop(pool: Pool, port: int, t0: float, rate: float,
     }
 
 
+def send_on_schedule(lines: list, due_s: np.ndarray, port: int, t0: float) -> dict:
+    """Send each line at ``t0 + due_s[i]``; returns how late the sends
+    ran, in ms past each line's due time."""
+    late = []
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as conn:
+        conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        for line, due in zip(lines, due_s.tolist()):
+            time.sleep(max(0.0, t0 + due - time.monotonic()))
+            late.append((time.monotonic() - (t0 + due)) * 1000.0)
+            conn.sendall(line)
+    late = np.asarray(late) if late else np.zeros(1)
+    return {"generator_sent": len(lines),
+            "generator_late_max_ms": float(late.max())}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mix", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--mode", choices=("socket", "files"), required=True)
+    ap.add_argument("--stream", default="")
     ap.add_argument("--pool", type=int, default=0)
     ap.add_argument("--out", default="")
     ap.add_argument("--files", type=int, default=0)
@@ -262,6 +347,17 @@ def main(argv=None) -> int:
     if a.mode == "files":
         write_archive(mix, a.seed, Path(a.out), a.files, a.events_per_file)
         print("done", flush=True)
+        return 0
+    if a.stream:
+        spec = side_stream(mix, a.stream)
+        print("ready", flush=True)
+        line = sys.stdin.readline().split()
+        if not line or line[0] != "go":
+            return 0
+        port, t0, total = int(line[1]), float(line[2]), int(line[4])
+        cols = readings(spec, a.seed, a.stream, total)
+        stats = send_on_schedule(encode_readings(spec, cols), cols["due_s"], port, t0)
+        print(json.dumps(stats), flush=True)
         return 0
     pool = Pool(mix, a.seed, a.pool)
     print(f"ready {pool.size} {len(pool.buf)}", flush=True)
