@@ -15,9 +15,10 @@ persists and feeds back next batch.
 
 from __future__ import annotations
 
+import contextlib
 import re
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..core.config import EngineException
 from ..core.schema import StringDictionary
@@ -45,13 +46,16 @@ class Pipeline:
     aux_registry: Optional[object] = None
 
     def run(
-        self, tables: Dict[str, TableData], base_s, now_rel_ms, aux=None
+        self, tables: Dict[str, TableData], base_s, now_rel_ms, aux=None,
+        around: Optional[Dict[str, Callable]] = None,
     ) -> Dict[str, TableData]:
         """Execute all statements; returns every view (inputs included).
 
         Pure function of its inputs. ``aux``: the string-op dictionary
         tables ({key: tensor}); required when the flow uses string functions
-        (``aux_registry`` non-empty).
+        (``aux_registry`` non-empty). ``around``: {view name: a context
+        manager factory} entered around that view's statement (the
+        runtime's ``window-group`` clock).
         """
         env: Dict[str, TableData] = dict(tables)
         if aux is not None:
@@ -63,8 +67,10 @@ class Pipeline:
                     "(AuxTableBuilder.tables()) to Pipeline.run"
                 )
             env["__aux"] = {}
+        around = around or {}
         for view in self.views:
-            env[view.name] = view.fn(env, base_s, now_rel_ms)
+            with around.get(view.name, contextlib.nullcontext)():
+                env[view.name] = view.fn(env, base_s, now_rel_ms)
         return env
 
     def schema_of(self, name: str) -> ViewSchema:

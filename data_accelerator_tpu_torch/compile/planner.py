@@ -85,6 +85,12 @@ class TableData:
         return self.valid.sum(dtype=torch.int32)
 
 
+# the tables entry under which a GROUP BY leaves, keyed by its view's
+# name, the rows its sort took (an int) and the groups it formed (a 0-d
+# int32 tensor), where a caller put a dict there (the runtime step's
+# ``Group_RowsScanned`` and ``Group_Count`` counters)
+GROUPS_FORMED = "__groups.formed"
+
 # ORDER BY two-tier resolution bindings (see _OrderKeyScope)
 _OUT_BINDING = "__ob.out"
 _SRC_BINDING_PREFIX = "__ob.src:"
@@ -1265,6 +1271,9 @@ class SelectCompiler:
             keys = [k.fn(env) for k in key_compiled]
             order, seg, num_groups, first = group_ids(keys, valid)
             valid_s = valid[order]
+            formed = tables.get(GROUPS_FORMED)
+            if formed is not None:
+                formed[name] = (order.shape[0], num_groups)
 
             # aggregate values
             agg_results: Dict[str, torch.Tensor] = {}

@@ -121,6 +121,11 @@ class MetricName:
     MetricSinkPrefix = "Sink_"
     # the rows the file sink rendered from a landed table's columns
     SinkFileColumnarRows = "Sink_file_ColumnarRows"
+    # a batch's windowed GROUP BYs: the ring rows they sorted, the valid
+    # rows in their window spans, the groups they formed
+    GroupRowsScanned = "Group_RowsScanned"
+    GroupRowsInWindow = "Group_RowsInWindow"
+    GroupCount = "Group_Count"
     LatencyPrefix = "Latency-"
 
     # canonical per-batch stage names (span names == histogram stages ==
@@ -348,8 +353,11 @@ class MetricName:
     # the port's own names, beyond the JAX package's registry above:
     # the rows a sink rendered straight from a landed table's columns
     # (runtime/sinks.py OutputOperator: Sink_file_ColumnarRows beside
-    # Sink_file, the blob sink's native JSON-lines route)
-    PORT_RUNTIME_METRIC_PATTERNS = (SinkFileColumnarRows,)
+    # Sink_file, the blob sink's native JSON-lines route), and the
+    # windowed GROUP BYs' counters (runtime/processor.py collect_landed)
+    PORT_RUNTIME_METRIC_PATTERNS = (
+        SinkFileColumnarRows, GroupRowsScanned, GroupRowsInWindow, GroupCount,
+    )
     RUNTIME_METRIC_PATTERNS = RUNTIME_METRIC_PATTERNS + PORT_RUNTIME_METRIC_PATTERNS
 
     @classmethod

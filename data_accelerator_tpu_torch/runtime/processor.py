@@ -108,10 +108,12 @@ import torch
 
 from ..compile.aotcache import PersistentCompileCache
 from ..compile.pipeline import Pipeline, PipelineCompiler, parse_state_table_schema
-from ..compile.planner import PlannerConfig, SelectCompiler, TableData, ViewSchema
+from ..compile.planner import (
+    GROUPS_FORMED, PlannerConfig, SelectCompiler, TableData, ViewSchema,
+)
 from ..compile.sqlparser import parse_select
 from ..compile.stringops import _MAX_ROUNDS, AuxTableBuilder
-from ..constants import ColumnName, DatasetName
+from ..constants import ColumnName, DatasetName, MetricName
 from ..core.config import EngineException, SettingDictionary, SettingNamespace
 from ..core.schema import ColType, Schema, StringDictionary
 from ..dist.mesh import (
@@ -469,21 +471,62 @@ def _compact_table(t: TableData) -> TableData:
     )
 
 
+def window_groups(pipeline: Pipeline, windows) -> List[Tuple[str, str]]:
+    """(view, window) of each GROUP BY that reads a time window, in the
+    pipeline's order: the views the ``window-group`` span times and the
+    ``Group_*`` counters count."""
+    out = []
+    for v in pipeline.views:
+        if v.plan is not None and v.plan.grouped:
+            w = next((s for s in v.plan.sources if s in windows), None)
+            if w is not None:
+                out.append((v.name, w))
+    return out
+
+
 def _counts_layout(primary, outputs: list, whole: List[TableData],
-                   targets: list, device) -> List[Tuple[bool, object]]:
+                   targets: list, device,
+                   groups: list = ()) -> List[Tuple[bool, object]]:
     """The counts vector's entries in order, the layout the host's
     counts decoder reads: the primary target's input count, each
     output's count, per output one groups-overflow then one join-overflow
-    slot (-1: the output does not track it), and each source target's
-    projected count. An entry is ``(True, table)`` for a table's count,
-    ``(False, tensor)`` for a value; ``whole[i]`` is ``outputs[i]`` as
-    one table, which holds the overflow columns."""
+    slot (-1: the output does not track it), each source target's
+    projected count, and per windowed GROUP BY (``groups``: its window
+    table and the groups it formed, or None) the window's valid rows
+    then the groups (-1: not known). An entry is ``(True, table)`` for a
+    table's count, ``(False, tensor)`` for a value; ``whole[i]`` is
+    ``outputs[i]`` as one table, which holds the overflow columns."""
     entries = [(True, primary)] + [(True, o) for o in outputs]
     missing = torch.full((), -1, dtype=torch.int32, device=device)
     for key in ("__overflow.groups", "__overflow.joins"):
         entries += [(False, t.cols[key][0] if key in t.cols else missing)
                     for t in whole]
-    return entries + [(True, t) for t in targets]
+    entries += [(True, t) for t in targets]
+    for window, formed in groups:
+        entries += [(True, window), (False, missing if formed is None else formed)]
+    return entries
+
+
+@contextlib.contextmanager
+def _group_clock(marks: list, formed: dict, view: str, cuda: bool):
+    """Time one windowed GROUP BY of the step into ``marks``, with the
+    rows its sort took (``formed``, which the statement fills): on CUDA
+    two timing events around its launches on the current stream, read
+    once the batch's counts have landed (``record_device_step``); on the
+    CPU, where each op runs as it is called, the host interval."""
+    enqueued = time.time()
+    if cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        timing = (start, end)
+    else:
+        t = time.perf_counter()
+        yield
+        timing = (time.perf_counter() - t) * 1000.0
+    marks.append((view, enqueued, timing, formed[view][0]))
 
 
 def build_step_fn(
@@ -512,7 +555,10 @@ def build_step_fn(
     anything back from the device. A state table's new value is the
     statement that assigns its name (a GROUP BY's capacity, which may
     differ from the loaded table's) or, without one, the old table.
+    ``marks``, a list, takes one ``(view, host time, timing, rows
+    sorted)`` entry a windowed GROUP BY (``_group_clock``).
     """
+    groups = window_groups(pipeline, windows)
 
     def step(
         raw: Dict[str, Union[TableData, PackedRaw]],
@@ -524,6 +570,7 @@ def build_step_fn(
         counter: int,
         delta_ms: int,
         aux: Dict[str, torch.Tensor],
+        marks: Optional[list] = None,
     ):
         # 1. per-source projection into its target table (each source
         # gets its own env so `Raw` binds to ITS raw table)
@@ -558,8 +605,14 @@ def build_step_fn(
             tables[rname] = refdata[rname]
         for sname in state_names:
             tables[sname] = state[sname]
+        tables[GROUPS_FORMED] = formed = {}
+        around = None
+        if marks is not None:
+            cuda = base_s.device.type == "cuda"
+            around = {v: functools.partial(_group_clock, marks, formed, v, cuda)
+                      for v, _w in groups}
 
-        out = pipeline.run(tables, base_s, now_rel_ms, aux=aux)
+        out = pipeline.run(tables, base_s, now_rel_ms, aux=aux, around=around)
 
         new_state = {n: out.get(n, state[n]) for n in state_names}
 
@@ -569,7 +622,8 @@ def build_step_fn(
         datasets = {n: _compact_table(t) for n, t in zip(output_datasets, outs)}
         entries = _counts_layout(
             projected[primary_target], outs, outs,
-            [projected[t] for _s, t in source_targets], base_s.device)
+            [projected[t] for _s, t in source_targets], base_s.device,
+            [(tables[w], formed[v][1]) for v, w in groups])
         counts_vec = torch.stack([
             (x.count() if is_count else x).to(torch.int32)
             for is_count, x in entries
@@ -730,6 +784,7 @@ def build_mesh_step_fn(
     collective.
     """
     d0 = mesh.devices[0]
+    groups = window_groups(pipeline, windows)
 
     def step(raw, rings, state, refdata, base_s, now_rel_ms, counter,
              delta_ms, aux, census: MeshCollectives):
@@ -825,9 +880,11 @@ def build_mesh_step_fn(
         whole_outs = [whole(n, v) for n, v in zip(output_datasets, outs)]
         datasets = {n: _compact_table(t)
                     for n, t in zip(output_datasets, whole_outs)}
+        # a windowed GROUP BY's groups are not counted across shards
         for is_count, x in _counts_layout(
                 projected[primary_target], outs, whole_outs,
-                [projected[t] for _s, t in source_targets], d0):
+                [projected[t] for _s, t in source_targets], d0,
+                [(env[w], None) for _v, w in groups]):
             if is_count:
                 add_count(x)
             else:
@@ -2285,9 +2342,8 @@ class FlowProcessor:
                     ingest.append((*r.ingest_slot, r.h2d_event))
             raws[name] = r
         try:
-            out_datasets, counts_vec, new_state, new_base_ms, census = self._advance(
-                raws, batch_time_ms
-            )
+            (out_datasets, counts_vec, new_state, new_base_ms, census,
+             group_marks) = self._advance(raws, batch_time_ms)
         except Exception:
             # the step never launched: the pool slots may be reused once
             # their copies (if any) are done
@@ -2328,6 +2384,7 @@ class FlowProcessor:
             },
             mesh_collectives=census,
             step_start=step_start,
+            group_marks=group_marks,
         )
         # each staged slot is owned by THIS batch until its transfer
         # lands: the dispatch that next rotates onto the slot checks the
@@ -2346,7 +2403,8 @@ class FlowProcessor:
         UDF refresh, the time base and slot counter, and the step
         enqueued on the current stream. Returns (output tables, counts
         vector, new state, the batch's whole-second base, the step's
-        collective census under an observed mesh, else None). The new state
+        collective census under an observed mesh, else None, and its
+        windowed GROUP BYs' timing marks). The new state
         is the next batch's state input: the step never writes a state
         table in place, so an earlier batch still copying its own state
         off the card reads what its step made."""
@@ -2394,7 +2452,8 @@ class FlowProcessor:
             # child span of the host's "dispatch" when a batch trace is
             # active; a no-op without one
             census = MeshCollectives() if self.mesh is not None else None
-            mesh_arg = {} if census is None else {"census": census}
+            marks: List[tuple] = []
+            mesh_arg = {"marks": marks} if census is None else {"census": census}
             # the kernels the step loads build into its compile cache
             with tracing.span("device-enqueue"), self.compile_scope(), \
                     kernel_build.loads_recorded() as loads:
@@ -2412,7 +2471,7 @@ class FlowProcessor:
                 self._count_compile("WarmMiss_Count", len(loads))
             if self.device.type == "cuda":
                 self._step_stream = torch.cuda.current_stream(self.device)
-            return out_datasets, counts_vec, new_state, new_base_ms, census
+            return out_datasets, counts_vec, new_state, new_base_ms, census, marks
 
     def _stage_output(
         self, name: str, t: TableData, cap: int, full_cap: int,
@@ -2634,12 +2693,16 @@ def record_device_step(handle: "PendingBatch", trace) -> None:
     the card's own time between the step's start and end events, placed
     at the host time the start was enqueued; on the CPU the host
     interval from dispatch return (the trace's ``dispatch-done`` mark)
-    to the sync's end."""
+    to the sync's end. Then a ``window-group`` span (prop ``table``) a
+    windowed GROUP BY of the step, timed the same way on CUDA, on the
+    CPU the host interval of its statement."""
     timed = handle.device_step()
     if timed is None:
         trace.record_since("device-step", "dispatch-done")
     else:
         trace.record("device-step", *timed)
+    for view, enqueued, ms in handle.group_steps():
+        trace.record("window-group", enqueued, ms, table=view)
 
 
 # placeholder for "no transfer in flight" while a freshly staged slot
@@ -2662,6 +2725,9 @@ class BatchCounts:
     dropped_groups: Dict[str, int]
     dropped_joins: Dict[str, int]
     target_counts: Dict[str, int]
+    # per windowed GROUP BY: (rows its sort took, valid rows in the window
+    # span, groups formed; -1 where not known)
+    group_counts: Dict[str, Tuple[int, int, int]]
 
 
 class PendingBatch:
@@ -2695,8 +2761,12 @@ class PendingBatch:
         state: Optional[Dict[str, TableData]] = None,
         mesh_collectives: Optional[MeshCollectives] = None,
         step_start: Optional[tuple] = None,
+        group_marks: Optional[List[tuple]] = None,
     ):
         self.proc = proc
+        # (view, host time, CUDA start and end events or host ms, rows
+        # its sort took) of each windowed GROUP BY of the step
+        self._group_marks = group_marks or []
         # (timing event before the step's first device work, the host
         # time it was enqueued); None on the CPU
         self._step_start = step_start
@@ -2792,6 +2862,16 @@ class PendingBatch:
         started, enqueued = self._step_start
         return enqueued, started.elapsed_time(self._step_done)
 
+    def group_steps(self) -> List[Tuple[str, float, float]]:
+        """(view, host time its start was enqueued, ms) of each windowed
+        GROUP BY of the step, once ``collect_counts`` has returned: on
+        CUDA the card's time between its events, which the counts' copy
+        waited behind. Empty before the counts landed."""
+        if self._counts is None:
+            return []
+        return [(v, t, ms if isinstance(ms, float) else ms[0].elapsed_time(ms[1]))
+                for v, t, ms, _rows in self._group_marks]
+
     def block_until_evaluated(self) -> None:
         """Wait for the device step to COMPLETE (rules evaluated, state
         advanced) without waiting for any result copy."""
@@ -2821,6 +2901,8 @@ class PendingBatch:
                 self._release_ingest()
             counts = self._host_counts.numpy()
         names = self.out_names
+        at = 1 + 3 * len(names) + len(self.target_names)
+        rows_sorted = {v: rows for v, _t, _ms, rows in self._group_marks}
         self._counts = BatchCounts(
             counts=counts,
             dataset_counts={
@@ -2839,6 +2921,12 @@ class PendingBatch:
             target_counts={
                 t: int(counts[1 + 3 * len(names) + i])
                 for i, t in enumerate(self.target_names)
+            },
+            group_counts={
+                v: (rows_sorted.get(v, -1), int(counts[at + 2 * i]),
+                    int(counts[at + 2 * i + 1]))
+                for i, (v, _w) in enumerate(
+                    window_groups(self.pipeline, self.proc.windows))
             },
         )
         return self._counts
@@ -2954,6 +3042,16 @@ class PendingBatch:
             metrics[f"Output_{n}_GroupsDropped"] = float(c)
         for n, c in bc.dropped_joins.items():
             metrics[f"Output_{n}_JoinRowsDropped"] = float(c)
+        if bc.group_counts:
+            # the windowed GROUP BYs: the rows their sorts took, the valid
+            # ones in the window span, groups formed (the first and last
+            # not counted under a mesh)
+            scanned, in_window, formed = zip(*bc.group_counts.values())
+            if min(scanned) >= 0:
+                metrics[MetricName.GroupRowsScanned] = float(sum(scanned))
+            metrics[MetricName.GroupRowsInWindow] = float(sum(in_window))
+            if min(formed) >= 0:
+                metrics[MetricName.GroupCount] = float(sum(formed))
         ingest_stats, transfer_stats = proc._drain_stats()
         # host-side ingest counters accumulated since the last collect
         for k, v in ingest_stats.items():

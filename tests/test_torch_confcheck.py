@@ -157,7 +157,8 @@ def test_runtime_metric_registry_equals_the_reference():
     # the reference's registry, then the port's own names
     assert MetricName.RUNTIME_METRIC_PATTERNS == \
         JMetricName.RUNTIME_METRIC_PATTERNS + MetricName.PORT_RUNTIME_METRIC_PATTERNS
-    assert MetricName.PORT_RUNTIME_METRIC_PATTERNS == ("Sink_file_ColumnarRows",)
+    assert MetricName.PORT_RUNTIME_METRIC_PATTERNS == (
+        "Sink_file_ColumnarRows", "Group_RowsScanned", "Group_RowsInWindow", "Group_Count")
     assert MetricName.is_runtime_metric("Sink_file_ColumnarRows")
     assert not MetricName.is_runtime_metric("Sink_kafka_ColumnarRows")
     assert not JMetricName.is_runtime_metric("Sink_file_ColumnarRows")

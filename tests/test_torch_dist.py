@@ -250,8 +250,9 @@ def test_census_result_bytes_equal_the_gathered_tables(tmp_path):
     gathered = (table_bytes(catalog["Hot"].types, cap)
                 + table_bytes(catalog[window].types, proc.ring_slots["DataXProcessedInput"] * cap))
     # counts vector: the input count, per output its count and two
-    # overflow slots, the projected count: int32 each
-    counts = 4 * (1 + 3 * len(OUTPUTS) + 1)
+    # overflow slots, the projected count, and the windowed PerDevice's
+    # window rows and groups: int32 each
+    counts = 4 * (1 + 3 * len(OUTPUTS) + 1 + 2)
     census = proc.mesh_collectives.to_dict()
     assert census == {
         "all-gather": {"count": 2, "resultBytes": gathered},

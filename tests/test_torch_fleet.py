@@ -415,7 +415,7 @@ def _published_run(pkg, url, flow, monkeypatch, ckpt_dir):
     return host
 
 
-PORT_ONLY_STAGES = {"poll", "tail", "pace"}
+PORT_ONLY_STAGES = {"poll", "tail", "pace", "window-group"}
 
 
 def _frames(client, flow):
@@ -443,6 +443,9 @@ def _comparable(frame):
 
 
 def test_hosts_publish_the_same_frames_batch_for_batch(objstore, monkeypatch, tmp_path):
+    from data_accelerator_tpu_torch.runtime.processor import window_groups
+    from test_torch_flow import PORT_GROUP_METRICS
+
     flow = "FleetParity"
     hosts, frames = {}, {}
     for pkg in ("jax", "torch"):
@@ -453,6 +456,8 @@ def test_hosts_publish_the_same_frames_batch_for_batch(objstore, monkeypatch, tm
     assert len(frames["torch"]) == HOST_BATCHES + 1
     assert [f["final"] for f in frames["torch"]] == [False] * HOST_BATCHES + [True]
     assert [f["replica"] for f in frames["torch"]] == ["r1"] * (HOST_BATCHES + 1)
+    proc = hosts["torch"].processor
+    counts_extra = 8 * len(window_groups(proc.pipeline, proc.windows))
     for b, (t, j) in enumerate(zip(frames["torch"], frames["jax"])):
         ct, cj = _comparable(t), _comparable(j)
         # the port's own spans, the source's poll, the batch's tail and
@@ -461,6 +466,14 @@ def test_hosts_publish_the_same_frames_batch_for_batch(objstore, monkeypatch, tm
         assert "poll" in extra and extra <= PORT_ONLY_STAGES, (b, extra)
         for stage in extra:
             del ct["histograms"][stage]
+        # the port's own counters of the flow's windowed GROUP BY, and its
+        # counts vector's two more int32 entries for it
+        for kind in ("counters", "gauges"):
+            for k in PORT_GROUP_METRICS & set(ct[kind]):
+                del ct[kind][k]
+            for k in ("Transfer_D2HBytes", "Sync_CountsBytes"):
+                if k in ct[kind]:
+                    ct[kind][k] -= counts_extra
         assert ct == cj, (b, {k: (ct[k], cj[k]) for k in ct if ct[k] != cj.get(k)})
     assert len(frames["torch"]) == len(frames["jax"])
     first = frames["torch"][0]

@@ -21,8 +21,9 @@ import torch
 from data_accelerator_tpu.core.config import SettingDictionary as JSettingDictionary
 from data_accelerator_tpu.runtime.processor import FlowProcessor as JFlowProcessor
 from data_accelerator_tpu.udf.samples import anomalyscore as jax_anomalyscore
+from data_accelerator_tpu_torch.constants import MetricName
 from data_accelerator_tpu_torch.core.config import EngineException, SettingDictionary
-from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
+from data_accelerator_tpu_torch.runtime.processor import FlowProcessor, window_groups
 from data_accelerator_tpu_torch.udf.samples import anomalyscore
 
 torch.set_num_threads(2)
@@ -66,6 +67,10 @@ ANOMALY_TRANSFORM = (
 OUTPUTS = ["OpenDoors", "HeatAvg", "AnomalyAlerts"]
 CAPACITY = 64
 BASE_MS = 1_700_000_000_000
+# the port's own per-batch counters, which the JAX package does not emit:
+# a flow's GROUP BYs over a time window (runtime/processor.py)
+PORT_GROUP_METRICS = frozenset((MetricName.GroupRowsScanned,
+                                MetricName.GroupRowsInWindow, MetricName.GroupCount))
 TYPES = ["Heating", "WindSpeed", "DoorLock"]
 
 
@@ -148,10 +153,34 @@ def _run_batch(jp, tp, rs, b, n=None):
     jc = jh.collect_counts().counts
     tc = th.collect_counts().counts
     assert tc.dtype == np.int32
-    assert np.array_equal(jc, tc), (b, jc, tc)
+    assert np.array_equal(jc, _jax_counts(tc, jc, tp)), (b, jc, tc)
     jd, jm = jh.collect()
     td, tm = th.collect()
-    return jd, jm, td, tm
+    return jd, jm, td, _as_jax_metrics(tm, tp)
+
+
+def _jax_counts(tc, jc, proc):
+    """The port's counts vector in the JAX package's layout: after it,
+    per windowed GROUP BY of the port, its window's valid rows and the
+    groups it formed."""
+    n = len(window_groups(proc.pipeline, proc.windows))
+    assert tc.size == jc.size + 2 * n and (tc[jc.size:] >= 0).all(), (jc, tc)
+    return tc[:jc.size]
+
+
+def _as_jax_metrics(tm, proc):
+    """The port's batch metrics in the JAX package's terms: without the
+    port's own counters of the flow's windowed GROUP BYs, which it emits
+    exactly where the flow has one, and with the counts vector's bytes,
+    alone and within the batch's D2H bytes, less the two int32 entries
+    each such GROUP BY adds to the vector."""
+    n = len(window_groups(proc.pipeline, proc.windows))
+    assert (PORT_GROUP_METRICS <= set(tm)) == bool(n), sorted(tm)
+    out = {k: v for k, v in tm.items() if k not in PORT_GROUP_METRICS}
+    for k in ("Sync_CountsBytes", "Transfer_D2HBytes"):
+        if k in out:
+            out[k] -= 8 * n
+    return out
 
 
 def _assert_same_batch(jd, jm, td, tm, b):

@@ -49,6 +49,8 @@ from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
 from test_torch_flow import (
     BASE_MS,
     OUTPUTS,
+    PORT_GROUP_METRICS,
+    _as_jax_metrics,
     TYPES,
     _assert_same_rows,
     _batch_columns,
@@ -211,7 +213,8 @@ def _drive(pkg, mode, depth, feed, monkeypatch, name):
     send = host.metric_logger.send_batch_metrics
 
     def spy(metrics, ts):
-        per_batch.append((ts, dict(metrics)))
+        per_batch.append((ts, dict(metrics) if pkg == "jax"
+                          else _as_jax_metrics(metrics, host.processor)))
         return send(metrics, ts)
 
     host.metric_logger.send_batch_metrics = spy
@@ -275,7 +278,10 @@ def test_host_matches_jax_host(kind, mode, depth, monkeypatch):
 
     # metric names: the JAX host's, the machine profile's among them
     assert any(n.startswith("Calib_") for n in jnames)
-    assert tnames - set(OPTIONAL_METRICS) == jnames - set(OPTIONAL_METRICS) - {ICI_GAUGE}
+    assert tnames - set(OPTIONAL_METRICS) - PORT_GROUP_METRICS == \
+        jnames - set(OPTIONAL_METRICS) - {ICI_GAUGE}
+    # and the port's own counters of the flow's windowed GROUP BY
+    assert PORT_GROUP_METRICS <= tnames
 
     # count-valued metrics, batch for batch; ingest counters in total
     assert [t for t, _m in tmetrics] == [t for t, _m in jmetrics]

@@ -52,8 +52,10 @@ from test_torch_flow import (
     BASE_TRANSFORM,
     IOT_SCHEMA,
     OUTPUTS,
+    _as_jax_metrics,
     _assert_same_rows,
     _conf,
+    _jax_counts,
 )
 
 torch.set_num_threads(2)
@@ -399,7 +401,7 @@ def test_failed_dispatch_gives_the_matrix_back(monkeypatch):
     raw = proc.encode_json_bytes(_kv_blob(2), BASE_MS, to_device=False)
     pool, mat = raw.ingest_slot
 
-    def broken(*args):
+    def broken(*args, **kwargs):
         raise RuntimeError("step failed")
 
     monkeypatch.setattr(proc, "_step", broken)
@@ -516,9 +518,10 @@ def _flow_pair(extra=None, capacity=CAPACITY):
 
 def _same_batch(jh, th, b):
     jc, tc = jh.collect_counts().counts, th.collect_counts().counts
-    assert np.array_equal(jc, tc), (b, jc, tc)
+    assert np.array_equal(jc, _jax_counts(tc, jc, th.proc)), (b, jc, tc)
     jd, jm = jh.collect_tables()
     td, tm = th.collect_tables()
+    tm = _as_jax_metrics(tm, th.proc)
     assert set(jd) == set(td)
     for name in jd:
         _assert_same_rows(jd[name], td[name], (b, name))
@@ -615,7 +618,8 @@ def test_flow_from_bytes_with_decode_ahead_and_background_landing():
     assert pool.alloc_count <= 2 * tp.pipeline_depth + 1
     assert pool.reuse_count == 8 - pool.alloc_count
     for b, ((jc, jd, jm), (tc, td, tm)) in enumerate(zip(golden, results)):
-        assert np.array_equal(jc, tc), b
+        assert np.array_equal(jc, _jax_counts(tc, jc, tp)), b
+        tm = _as_jax_metrics(tm, tp)
         for name in OUTPUTS:
             _assert_same_rows(jd[name], td[name], (b, name))
         for k in ("Transfer_D2HBytes", "Transfer_Efficiency",

@@ -31,7 +31,7 @@ from data_accelerator_tpu_torch.core.config import EngineException, SettingDicti
 from data_accelerator_tpu_torch.runtime.checkpoint import WindowStateCheckpointer
 from data_accelerator_tpu_torch.runtime.host import StreamingHost
 from data_accelerator_tpu_torch.runtime.processor import FlowProcessor
-from test_torch_flow import _assert_same_rows
+from test_torch_flow import _as_jax_metrics, _assert_same_rows
 
 torch.set_num_threads(2)
 
@@ -109,14 +109,15 @@ class _Pair:
                 for s, r in rows_by_source.items()}
         jd, jm = self.j.process_batch(jraw, t_ms)
         td, tm = self.t.process_batch(traw, t_ms)
-        _assert_same(jd, jm, td, tm, t_ms)
+        _assert_same(jd, jm, td, tm, t_ms, self.t)
         return td, tm
 
 
-def _assert_same(jd, jm, td, tm, what):
+def _assert_same(jd, jm, td, tm, what, proc):
     assert set(jd) == set(td)
     for name in jd:
         _assert_same_rows(jd[name], td[name], (what, name))
+    tm = _as_jax_metrics(tm, proc)
     assert set(tm) <= set(jm), set(tm) - set(jm)
     for k, v in tm.items():
         if k not in ("Latency-Process", "Decode_RowsPerSec"):
@@ -316,7 +317,7 @@ def _storm_run(tmp_path, device, batches=8, capacity=64, seed=3):
             }
             res[pkg] = proc.process_batch(raws, t_ms)
         if "jax" in res:
-            _assert_same(*res["jax"], *res["torch"], b)
+            _assert_same(*res["jax"], *res["torch"], b, procs["torch"])
         out.append(res["torch"])
     return procs["torch"], out
 
@@ -368,7 +369,7 @@ def test_window_snapshot_carries_every_ring_across_packages(tmp_path):
         "default": p.encode_json_bytes(iot, t_ms),
         "weather": p.encode_json_bytes(wx, t_ms, source="weather"),
     }, t_ms) for p in (jp, tp)]
-    _assert_same(*res[0], *res[1], "after restore")
+    _assert_same(*res[0], *res[1], "after restore", tp)
     # the restored IoT ring's three batches are in the 5 s window
     assert sum(r["Cnt"] for r in res[1][0]["HeatAvg"]) == 4 * 32
 

@@ -37,6 +37,7 @@ from data_accelerator_tpu.serve import jobs as jjobs
 from data_accelerator_tpu.serve import storage as jstorage
 from data_accelerator_tpu_torch.analysis import FleetSpec
 from data_accelerator_tpu_torch.runtime import host as thost_mod
+from data_accelerator_tpu_torch.runtime.processor import window_groups
 from data_accelerator_tpu_torch.serve import flowservice as tflowservice
 from data_accelerator_tpu_torch.serve import jobs as tjobs
 from data_accelerator_tpu_torch.serve import storage as tstorage
@@ -430,7 +431,7 @@ UNCOMPARED = ("Latency-", "Pipeline_Stall_Ms", "Decode_RowsPerSec", "Compile_Col
 JAX_ONLY = ("Calib_IciGBps", "Compile_WarmMiss_Count")
 # and what only the port emits: the rows its blob sink rendered from the
 # landed columns, beside Sink_file
-PORT_ONLY = ("Sink_file_ColumnarRows",)
+PORT_ONLY = ("Sink_file_ColumnarRows", "Group_")
 
 
 def test_the_slice_generates_and_runs_equal_on_both_packages(tmp_path, monkeypatch):
@@ -450,11 +451,18 @@ def test_the_slice_generates_and_runs_equal_on_both_packages(tmp_path, monkeypat
         {k for k in jm if not k.startswith(JAX_ONLY)}
     # every row the port's blob sinks wrote was rendered from columns
     assert tm["Sink_file_ColumnarRows"] == tm["Sink_file"]
+    # the port's counts vector holds two more int32 entries a windowed
+    # GROUP BY: in the batch's D2H bytes and their mean over the model's
+    proc = thost.processor
+    extra = 8 * len(window_groups(proc.pipeline, proc.windows))
+    shift = {"Transfer_D2HBytes": extra, "Sync_CountsBytes": extra}
+    if thost.conformance is not None and thost.conformance.model.d2h_bytes_per_batch:
+        shift["Conformance_D2HBytes_Ratio"] = extra / thost.conformance.model.d2h_bytes_per_batch
     for k, points in tm.items():
         if not k.startswith(UNCOMPARED + PORT_ONLY):
             # values in order; init-time gauges carry the wall clock
             assert len(points) == len(jm[k]), k
-            assert [v for _t, v in points] == pytest.approx(
+            assert [v - shift.get(k, 0) for _t, v in points] == pytest.approx(
                 [v for _t, v in jm[k]], rel=1e-12), k
     assert [v for _t, v in tm["Input_DataXProcessedInput_Events_Count"]] == \
         [WHOLE_CAP] * WHOLE_BATCHES
