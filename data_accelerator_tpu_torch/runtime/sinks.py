@@ -26,6 +26,7 @@ through the port's ``kafka_wire``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -97,7 +98,8 @@ class FileSink(Sink):
     def __init__(self, folder: str, compression: str = "none"):
         self.folder = folder
         self.compression = compression
-        self._counter = 0
+        # a file number a write, unique when threads share the sink
+        self._counter = itertools.count(1)
 
     def write(self, dataset, rows, batch_time_ms) -> int:
         return self._write(
@@ -117,19 +119,23 @@ class FileSink(Sink):
         if not n_rows:
             return 0
         out_dir = partition_folder(self.folder, batch_time_ms)
-        self._counter += 1
         ext = ".json.gz" if self.compression == "gzip" else ".json"
-        name = f"{dataset}_{batch_time_ms}_{self._counter}{ext}"
+        name = f"{dataset}_{batch_time_ms}_{next(self._counter)}{ext}"
         path = os.path.join(out_dir, name)
         # children of the operator's sink/file span: the rows to JSON
-        # text, then the gzip (if any) and the atomic write
+        # text, then the gzip (if any: its deflate blocks and size on
+        # the span) and the atomic write
         with tracing.span(
             "sink/file/encode", rows=n_rows, columnar=columnar
         ) as props:
             payload = encode()
             props["bytes"] = len(payload)
-        with tracing.span("sink/file/write", rows=n_rows, bytes=len(payload)):
-            fs.write_text(path, payload)
+        with tracing.span(
+            "sink/file/write", rows=n_rows, bytes=len(payload)
+        ) as props:
+            blocks, gz_bytes = fs.write_text(path, payload)
+            if blocks:
+                props.update(blocks=blocks, gz_bytes=gz_bytes)
         return n_rows
 
 
